@@ -18,12 +18,27 @@ Phases, in order; any failure raises and the exit code is not 0:
   5. main path: 4AA forward simulation through
      `mdgen_tpu_torch.sim_inference.main(... --fused_block)` at the bench
      configuration (T=100, 100 Euler steps, bf16-mixed), 5 rollouts; checks
-     the PDB (500 frames x 4 residues, finite) and that each kernel ran
-     exactly 5 layers x 99 steps x 5 rollouts = 2475 times;
-  6. the kernels JSON line, the nvidia-smi line, and the result line.
+     the PDB (500 frames x 4 residues, finite) and that each fused kernel
+     ran exactly 5 layers x 99 steps x 5 rollouts = 2475 times;
+  6. flash kernel parity: kernels 4-7 against their plain twins at the
+     training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
+     a masked residue, f32 and bf16 operands; times both with CUDA events;
+  7. model gradient parity: one training loss and backward of the 5 x 384 x
+     16 model at the recipe shape (B=8, T=1000, L=4, f32) through the flash
+     kernels against dense attention: loss, every gradient, the grad norm;
+  8. the training path: `mdgen_tpu_torch.train.main` at the 4AA recipe
+     (batch 8, T=1000, crop 4, Adam 1e-4, clip 1, EMA) on 8 synthetic
+     tetrapeptides of 1100 frames, 20 epochs of one step; checks 20 finite
+     losses, each of kernels 5-7 launched exactly 5 layers x 20 steps = 100
+     times and kernel 4 5 times (one validation batch), and the step_20
+     checkpoint; prints ms per train step over steps 5-20;
+  9. sampling from that run: `sim_inference --fused_block` restores the run
+     directory and rolls out once at T=1000 with 2 Euler steps;
+  10. the kernels JSON line, the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
+import importlib
 import json
 import os
 import subprocess
@@ -40,11 +55,23 @@ B, T, L, C, H = 1, NUM_FRAMES, len(SEQ), 384, 16
 # lands next to a rounding boundary can round the other way in one of them
 # (one bf16 ulp is 2^-8 of the operand)
 TOL = {"f32": 1e-4, "bf16": 1e-2}
+# the training path: the 4AA recipe at full width (batch 8, T=1000 frames)
+B_TRAIN, TRAIN_FRAMES, TRAIN_EPOCHS = 8, 1000, 20
+# flash kernels vs plain twins: o and lse absolute, gradients relative to
+# their largest entry; f32 sums of 1001 keys (or 1000 queries) in another
+# order; bf16 operands: the outputs are rounded to bf16 (one ulp is 2^-8)
+FLASH_TOL = {"f32": {"abs": 1e-4, "rel": 1e-3}, "bf16": {"abs": 1e-2, "rel": 1e-2}}
+FLASH_SRC = "mdgen_tpu_torch/csrc/flash_attention.cu"
 KERNELS = {
     "fused_l_sublayer": ("mdgen_tpu_torch/csrc/fused_l_sublayer.cu", "mdgen_tpu/ops/fused_block.py:238"),
     "fused_t_sublayer": ("mdgen_tpu_torch/csrc/fused_t_sublayer.cu", "mdgen_tpu/ops/fused_t_block.py:201"),
     "fused_ffn_sublayer": ("mdgen_tpu_torch/csrc/fused_ffn.cu", "mdgen_tpu/ops/fused_ffn.py:98"),
+    "flash_fwd": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:130"),
+    "flash_fwd_lse": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:284"),
+    "flash_bwd_dq": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:329"),
+    "flash_bwd_dkv": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:346"),
 }
+FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
 
 
 def log(*a):
@@ -134,6 +161,84 @@ def phase_kernel_parity(torch):
                 res["plain_ms"] = _time_ms(torch, lambda: plain(*args, **kw))
                 log(f"[time] {name} bf16: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms (CUDA events, 20 calls)")
         results[name] = res
+    return results
+
+
+def _rel_err(a, ref):
+    """max |a - ref| / max |ref| in f32."""
+    return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def phase_flash_parity(torch):
+    """Kernels 4-7 against their plain twins at the training recipe's frame
+    attention (N = B*L*H = 512 rows, Tq = 1000 frames, Tk = 1001 with the
+    bias token, d = 24), with one masked residue's 16 rows (every frame key
+    finfo.min, only the bias key valid), in f32 and with bf16 operands. The
+    backward kernels take the twin's (o, lse) so that each is held alone."""
+    fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")  # not the function
+
+    N, Tq, Tk, d = B_TRAIN * L * H, TRAIN_FRAMES, TRAIN_FRAMES + 1, C // H
+    g = torch.Generator().manual_seed(0)
+    q = (torch.randn(N, Tq, d, generator=g) * d**-0.5).cuda()
+    k, v = torch.randn(N, Tk, d, generator=g).cuda(), torch.randn(N, Tk, d, generator=g).cuda()
+    do = torch.randn(N, Tq, d, generator=g).cuda()
+    bias = torch.zeros(N, Tk, device="cuda")
+    bias[(L - 1) * H:L * H, :-1] = fa.NEG_INF  # batch 0, last residue: its frames masked
+    results = {n: {"max_abs_err": 0.0} for n in FLASH_KERNELS}
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        qd, kd, vd, dod = (t.to(dt) for t in (q, k, v, do))
+        o_ref, lse_ref = fa.flash_attention_plain(qd, kd, vd, bias)
+        delta = fa.attention_delta(o_ref, dod)
+        bwd = (qd, kd, vd, bias, dod, lse_ref, delta)
+        o4 = fa.flash_fwd(qd, kd, vd, bias)
+        o5, lse5 = fa.flash_fwd_lse(qd, kd, vd, bias)
+        dq = fa.flash_bwd_dq(*bwd)
+        dk, dv, db = fa.flash_bwd_dkv(*bwd)
+        dq_r = fa.flash_bwd_dq_plain(*bwd)
+        dk_r, dv_r, db_r = fa.flash_bwd_dkv_plain(*bwd)
+        torch.cuda.synchronize()
+        # o and lse: absolute; gradients: relative to their largest entry
+        errs = {
+            "flash_fwd": [("o", (o4.float() - o_ref.float()).abs().max().item(), "abs")],
+            "flash_fwd_lse": [("o", (o5.float() - o_ref.float()).abs().max().item(), "abs"),
+                              ("lse", (lse5 - lse_ref).abs().max().item(), "abs")],
+            "flash_bwd_dq": [("dq", _rel_err(dq, dq_r), "rel")],
+            "flash_bwd_dkv": [("dk", _rel_err(dk, dk_r), "rel"), ("dv", _rel_err(dv, dv_r), "rel"),
+                              ("dbias", _rel_err(db, db_r), "rel")],
+        }
+        outs = {"flash_fwd": [o4], "flash_fwd_lse": [o5, lse5], "flash_bwd_dq": [dq],
+                "flash_bwd_dkv": [dk, dv, db]}
+        refs = {"flash_fwd": [o_ref], "flash_fwd_lse": [o_ref, lse_ref], "flash_bwd_dq": [dq_r],
+                "flash_bwd_dkv": [dk_r, dv_r, db_r]}
+        for name, checks in errs.items():
+            for what, err, kind in checks:
+                tol = FLASH_TOL[dname][kind]
+                ok = err <= tol and all(bool(torch.isfinite(t).all()) for t in outs[name])
+                log(f"[flash] {name} {dname}: {what} {kind} err {err:.3e}, tol {tol:g} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {dname} {what} disagrees with its plain twin: {err}")
+            abs_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(outs[name], refs[name]))
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
+        if dname == "f32":  # the recipe's precision (32-true)
+            timed = {
+                "flash_fwd": (lambda: fa.flash_fwd(qd, kd, vd, bias),
+                              lambda: fa.flash_attention_plain(qd, kd, vd, bias)[0]),
+                "flash_fwd_lse": (lambda: fa.flash_fwd_lse(qd, kd, vd, bias),
+                                  lambda: fa.flash_attention_plain(qd, kd, vd, bias)),
+                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd), lambda: fa.flash_bwd_dq_plain(*bwd)),
+                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                                  lambda: fa.flash_bwd_dkv_plain(*bwd)),
+            }
+            for name, (kern, plain) in timed.items():
+                results[name]["ms"] = _time_ms(torch, kern, iters=10)
+                results[name]["plain_ms"] = _time_ms(torch, plain, iters=10)
+                log(f"[time] {name} f32 N={N} Tq={Tq} Tk={Tk} d={d}: kernel "
+                    f"{results[name]['ms']:.4f} ms, plain {results[name]['plain_ms']:.4f} ms "
+                    f"(CUDA events, 10 calls)")
+        del o_ref, lse_ref, dq_r, dk_r, dv_r, db_r, refs
+        torch.cuda.empty_cache()
     return results
 
 
@@ -255,10 +360,142 @@ def _main_path(state_dict, smi, work):
         f"launches {counts}")
     if models != ROLLOUTS * NUM_FRAMES or len(residues) != L or not np.isfinite(coords).all():
         raise AssertionError(f"bad trajectory PDB: {models} models, {len(residues)} residues")
-    bad = {k: v for k, v in counts.items() if v != want}
+    bad = {k: v for k, v in counts.items() if v != (0 if k.startswith("flash_") else want)}
     if bad:
-        raise AssertionError(f"launch counts {bad}, expected {want} each")
+        raise AssertionError(f"launch counts {bad}, expected {want} for each fused kernel "
+                             "and 0 for the flash kernels (T=100: 101 keys, dense)")
     return counts
+
+
+TRAIN_SEQS = ("ACDE", "FGHI", "KLMN", "PQRS", "TVWY", "AGDK", "EWRL", "YHMC")
+
+
+def train_config(**kw):
+    """The 4AA training recipe: --sim_condition --num_frames 1000
+    --prepend_ipa --abs_pos_emb --abs_time_emb --crop 4, 5 x 384 x 16,
+    batch 8, 32-true, Adam 1e-4, grad_clip 1."""
+    from mdgen_tpu_torch.config import MDGenConfig
+
+    base = dict(sim_condition=True, prepend_ipa=True, abs_pos_emb=True, abs_time_emb=True,
+                crop=L, num_frames=TRAIN_FRAMES, batch_size=B_TRAIN)
+    base.update(kw)
+    return MDGenConfig(**base)
+
+
+def phase_grad_parity(torch, state_dict):
+    """One training loss and backward at the recipe shape with the flash
+    kernels (attn_impl auto: 1001 keys) and with dense attention, the same
+    weights, batch, t and x0. Loss 1e-5 relative; each parameter's gradient
+    1e-3 relative to its norm; the global grad norm 1e-4 relative (f32 sums
+    of 1001 keys, and the backward's over 1000 queries, in another order)."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import TrainRuntime, batch_to_device
+    from mdgen_tpu_torch.runtime.optim import global_norm
+
+    raw = {"atom14": np.stack([synthetic_trajectory(s, TRAIN_FRAMES, seed=i)
+                               for i, s in enumerate(TRAIN_SEQS)]).astype(np.float32),
+           "seqres": np.stack([rc.str_sequence_to_aatype(s) for s in TRAIN_SEQS]),
+           "mask": np.ones((B_TRAIN, L), np.float32)}
+    raw["mask"][-1, -1] = 0.0  # a padded residue
+    batch = batch_to_device(raw, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t = torch.rand(B_TRAIN, device="cuda", generator=g)
+    x0 = torch.randn(B_TRAIN, TRAIN_FRAMES, L, 21, device="cuda", generator=g)
+    res = {}
+    for impl in ("auto", "dense"):
+        rt = TrainRuntime(train_config(attn_impl=impl), "cuda")
+        model = rt.init(state_dict=state_dict).model
+        names = [n for n, _ in model.named_parameters()]
+        ops.reset_launch_counts()
+        _, grads, metrics = rt._grads(model, batch, t=t, x0=x0)
+        torch.cuda.synchronize()
+        res[impl] = (float(metrics["loss"]), grads, float(global_norm(grads)),
+                     ops.launch_counts())
+        del model
+    (loss_f, g_f, n_f, c_f), (loss_d, g_d, n_d, c_d) = res["auto"], res["dense"]
+    if c_f["flash_fwd_lse"] != 5 or c_f["flash_bwd_dkv"] != 5 or c_d["flash_fwd_lse"] != 0:
+        raise AssertionError(f"the flash run did not take the flash kernels: {c_f}, {c_d}")
+    # each gradient relative to its norm (absolute where the norm is 0)
+    rels = [((a - b).norm() / (b.norm() if b.norm() > 0 else 1.0)).item() for a, b in zip(g_f, g_d)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    loss_rel, norm_rel = abs(loss_f - loss_d) / abs(loss_d), abs(n_f - n_d) / n_d
+    ok = (loss_rel <= 1e-5 and rels[worst] <= 1e-3 and norm_rel <= 1e-4
+          and all(bool(torch.isfinite(x).all()) for x in g_f))
+    log(f"[grad] recipe B={B_TRAIN} T={TRAIN_FRAMES} L={L} 5x384x16 f32, flash vs dense: loss "
+        f"{loss_f:.6f} vs {loss_d:.6f} (rel {loss_rel:.2e}, tol 1e-5); worst gradient rel "
+        f"{rels[worst]:.2e} ({names[worst]}, tol 1e-3); grad norm {n_f:.6f} vs {n_d:.6f} "
+        f"(rel {norm_rel:.2e}, tol 1e-4) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash and dense training gradients disagree")
+    torch.cuda.empty_cache()
+
+
+def phase_training(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_train_") as work:
+        return _training(torch, smi, work)
+
+
+def _training(torch, smi, work):
+    import numpy as np
+
+    from mdgen_tpu_torch import ops, sim_inference, train
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    for i, s in enumerate(TRAIN_SEQS):
+        np.save(os.path.join(work, f"{s}.npy"), synthetic_trajectory(s, 1100, seed=i))
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write("name,seqres\n" + "".join(f"{s},{s}\n" for s in TRAIN_SEQS))
+    argv = ["--sim_condition", "--num_frames", str(TRAIN_FRAMES), "--prepend_ipa",
+            "--abs_pos_emb", "--abs_time_emb", "--crop", str(L), "--sampling_method", "euler",
+            "--inference_steps", "2", "--ema", "--epochs", str(TRAIN_EPOCHS), "--val_batches",
+            "1", "--val_epoch_freq", str(TRAIN_EPOCHS), "--ckpt_freq", str(TRAIN_EPOCHS),
+            "--train_split", split, "--val_split", split, "--data_dir", work,
+            "--workdir", work, "--run_name", "run", "--device", "cuda"]
+
+    ops.reset_launch_counts()
+    rec = train.main(argv)
+    counts = ops.launch_counts()
+    steps = len(rec["losses"])
+    ms = (rec["step_end"][-1] - rec["step_end"][4]) / (steps - 5) * 1e3
+    log(f"[train] python -m mdgen_tpu_torch.train (4AA recipe, batch {B_TRAIN}, T={TRAIN_FRAMES}, "
+        f"f32): {steps} steps, loss {rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f}; "
+        f"{ms:.1f} ms per train step over steps 5-{steps} ({smi}); launches {counts}")
+    want = {"flash_fwd_lse": 5 * TRAIN_EPOCHS, "flash_bwd_dq": 5 * TRAIN_EPOCHS,
+            "flash_bwd_dkv": 5 * TRAIN_EPOCHS, "flash_fwd": 5, "fused_l_sublayer": 0,
+            "fused_t_sublayer": 0, "fused_ffn_sublayer": 0}
+    if steps != TRAIN_EPOCHS or rec["step"] != TRAIN_EPOCHS or not np.isfinite(rec["losses"]).all():
+        raise AssertionError(f"expected {TRAIN_EPOCHS} finite steps, got {rec['losses']}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    run = rec["model_dir"]
+    blob = torch.load(os.path.join(run, f"step_{TRAIN_EPOCHS}", "model.pt"), weights_only=True)
+    if checkpoint.latest_step(run) != TRAIN_EPOCHS or blob["ema"] is None or \
+            blob["optimizer"]["count"] != TRAIN_EPOCHS or blob["step"] != TRAIN_EPOCHS:
+        raise AssertionError(f"bad checkpoint in {run}: {sorted(os.listdir(run))}")
+
+    ops.reset_launch_counts()
+    out = sim_inference.main(["--sim_ckpt", run, "--data_dir", work, "--split", split,
+                              "--pdb_id", TRAIN_SEQS[0], "--num_rollouts", "1", "--out_dir",
+                              os.path.join(work, "out"), "--fused_block", "--device", "cuda"])[0]
+    sample_counts = ops.launch_counts()
+    with open(out["paths"][0]) as fh:
+        text = fh.read()
+    models = text.count("\nENDMDL") + text.startswith("ENDMDL")
+    coords = np.array([[float(line[30:38]), float(line[38:46]), float(line[46:54])]
+                       for line in text.splitlines() if line.startswith("ATOM")])
+    log(f"[sample] sim_inference --fused_block from {os.path.basename(run)}/step_{TRAIN_EPOCHS} "
+        f"(EMA): {models} frames in {out['seconds']:.3f} s; launches {sample_counts}")
+    fused = {k: v for k, v in sample_counts.items() if k.startswith("fused_")}
+    if models != TRAIN_FRAMES or not np.isfinite(coords).all() or set(fused.values()) != {5} \
+            or any(v for k, v in sample_counts.items() if k.startswith("flash_")):
+        raise AssertionError(f"bad rollout from the trained run: {models} models, {sample_counts}")
+    return counts, ms
 
 
 def main():
@@ -276,9 +513,13 @@ def main():
     state_dict = seeded_model(torch, bench_config()).state_dict()
     phase_model_parity(torch, state_dict)
     counts = phase_main_path(state_dict, smi)
+    parity.update(phase_flash_parity(torch))
+    phase_grad_parity(torch, state_dict)
+    train_counts, _ = phase_training(torch, smi)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": (train_counts if k in FLASH_KERNELS else counts)[k],
          "max_abs_err": parity[k]["max_abs_err"], "ms": parity[k]["ms"],
          "plain_ms": parity[k]["plain_ms"]}
         for k, (src, rep) in KERNELS.items()

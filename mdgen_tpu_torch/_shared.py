@@ -1,10 +1,11 @@
 """Load the JAX package's jax-free source files by path.
 
-``mdgen_tpu/config.py`` and ``mdgen_tpu/geometry/constants/__init__.py`` use
-only the standard library and numpy, but importing them through the
-``mdgen_tpu`` package runs its ``__init__`` files, which import jax. The GPU
-host has no jax, so the port executes those two files directly and shares
-them instead of copying them.
+``mdgen_tpu/config.py``, ``mdgen_tpu/geometry/constants/__init__.py``,
+``mdgen_tpu/data/loader.py``, ``mdgen_tpu/runtime/preempt.py`` and
+``mdgen_tpu/runtime/metrics.py`` use only the standard library and numpy,
+but importing them through the ``mdgen_tpu`` package runs its ``__init__``
+files, which import jax. The GPU host has no jax, so the port executes
+those files directly and shares them instead of copying them.
 """
 from __future__ import annotations
 

@@ -1,2 +1,4 @@
-"""Data helpers (only the synthetic start structure is ported so far)."""
+"""Data: split CSVs, trajectory windows, batching, synthetic trajectories."""
+from .dataset import MDGenDataset, read_split  # noqa: F401
+from .loader import Loader  # noqa: F401
 from .synthetic import synthetic_trajectory  # noqa: F401

@@ -7,11 +7,12 @@ position S (always attendable) and roped there; ESM rotary tables
 with ``finfo(f32).min``; softmax in f32 with the probabilities cast back to
 the compute dtype before P·V.
 
-Only the dense inner loop is ported. It is the unfused path, the IPA
-tower's residue attention, and what the fused kernels are held against.
-The JAX package switches to a Pallas flash kernel above 512 keys (training
-at T=1000); that kernel is still to be ported, and meanwhile this module
-computes the same function densely at any length.
+``impl`` picks the inner loop as the JAX module does: "dense" (einsum
+logits), "chunked" (blockwise online softmax, ``ops.chunked_attention``),
+"flash" (``ops.flash_attention``: the hand-written CUDA kernels on the GPU,
+differentiable through their backward kernels) and "auto" (dense up to 512
+keys, else flash). "flash" below 513 keys is dense too. The frame axis of
+the 4AA training recipe (T=1000 frames, 1001 keys) takes flash.
 """
 from __future__ import annotations
 
@@ -23,6 +24,15 @@ from torch import nn
 from .layers import dense
 
 NEG_INF = torch.finfo(torch.float32).min
+IMPLS = ("auto", "dense", "chunked", "flash")
+FLASH_MIN_KEYS = 513  # dense wins below the logit-memory crossover
+
+
+def resolve_impl(impl: str, num_keys: int) -> str:
+    """The JAX module's choice of inner loop for ``num_keys`` keys."""
+    if impl in ("auto", "flash"):
+        return "flash" if num_keys >= FLASH_MIN_KEYS else "dense"
+    return impl
 
 
 def rotate_half(x):
@@ -46,12 +56,15 @@ class RoPEAttention(nn.Module):
     ``axis`` 1 attends over frames, 2 over residues."""
 
     def __init__(self, embed_dim: int, num_heads: int, use_rope: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, impl: str = "auto"):
         super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.use_rope = use_rope
         self.dtype = dtype  # compute dtype
+        self.impl = impl
         self.qkv_proj = nn.Linear(embed_dim, 3 * embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         self.bias_k = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -111,6 +124,18 @@ class RoPEAttention(nn.Module):
             q = q * cos[tuple(sl)] + rotate_half(q) * sin[tuple(sl)]
             k = k * cos + rotate_half(k) * sin
 
+        impl = resolve_impl(self.impl, S + 1)
+        if impl == "dense":
+            out = self._dense_attention(q, k, v, mask, axis)
+        else:
+            out = self._folded_attention(q, k, v, mask, axis, impl)
+        out = dense(out.reshape(B, T, L, C), self.out_proj, self.dtype)
+        return out[:, 0] if squeeze else out
+
+    @staticmethod
+    def _dense_attention(q, k, v, mask, axis):
+        """Einsum logits; the probabilities are cast to the compute dtype
+        before P.V. Returns [B, T, L, H, hd]."""
         if axis == 2:
             logits = torch.einsum("btqhd,btkhd->bthqk", q, k)
             key_mask = mask[:, :, None, None, :] if mask is not None else None
@@ -122,8 +147,29 @@ class RoPEAttention(nn.Module):
             logits = torch.where(key_mask > 0, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         if axis == 2:
-            out = torch.einsum("bthqk,btkhd->btqhd", probs, v)
+            return torch.einsum("bthqk,btkhd->btqhd", probs, v)
+        return torch.einsum("blhqk,bklhd->bqlhd", probs, v)
+
+    @staticmethod
+    def _folded_attention(q, k, v, mask, axis, impl):
+        """Fold (other axis, heads) into rows, [N, S, hd] with N = B*L*H for
+        the frame axis, and run the flash or chunked inner loop. The key bias
+        is 0 / finfo.min from the mask, row n reading mask row n // H.
+        Returns [B, T, L, H, hd]."""
+        from ..ops import chunked_attention, flash_attention
+
+        fn = flash_attention if impl == "flash" else chunked_attention
+        B, T, L, H, hd = q.shape
+        S, S_k = q.shape[axis], k.shape[axis]
+        # (B, T, L, H, hd) -> (B, other, H, S, hd)
+        perm = (0, 2, 3, 1, 4) if axis == 1 else (0, 1, 3, 2, 4)
+        qf, kf, vf = (t.permute(perm).reshape(-1, t.shape[axis], hd) for t in (q, k, v))
+        if mask is None:
+            mflat = torch.ones(qf.shape[0] // H, S_k, device=q.device)
         else:
-            out = torch.einsum("blhqk,bklhd->bqlhd", probs, v)
-        out = dense(out.reshape(B, T, L, C), self.out_proj, self.dtype)
-        return out[:, 0] if squeeze else out
+            mflat = (mask.transpose(1, 2) if axis == 1 else mask).reshape(-1, S_k)
+        bias = torch.where(mflat > 0, 0.0, NEG_INF).float().repeat_interleave(H, dim=0)
+        out = fn(qf, kf, vf, bias)
+        other = L if axis == 1 else T
+        out = out.reshape(B, other, H, S, hd)
+        return out.permute(0, 3, 1, 2, 4) if axis == 1 else out.permute(0, 1, 3, 2, 4)

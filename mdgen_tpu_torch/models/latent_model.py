@@ -10,8 +10,11 @@ flax parameter tree converts by renaming and transposing
 
 With ``cfg.fused_block`` and L <= 16 each trunk layer runs as three fused
 serving sublayers (``ops/``): hand-written CUDA kernels on the GPU, their
-plain twins on the CPU. The IPA tower's residue attention stays unfused, as
-in the JAX package.
+plain twins on the CPU; they are forward-only, and the training model is
+built with ``fused_block=False``. The IPA tower's residue attention stays
+unfused, as in the JAX package. The unfused frame attention takes
+``cfg.attn_impl``: at the training recipe's T=1000 "auto" picks the flash
+kernels (``ops/flash_attention.py``), forward and backward.
 """
 from __future__ import annotations
 
@@ -102,7 +105,8 @@ class LatentMDGenLayer(nn.Module):
         self.dt = torch_dtype(cfg)
         rope = not cfg.no_rope
         self.mha_l = RoPEAttention(C, cfg.mha_heads, use_rope=rope, dtype=self.dt)
-        self.mha_t = RoPEAttention(C, cfg.mha_heads, use_rope=rope, dtype=self.dt)
+        self.mha_t = RoPEAttention(C, cfg.mha_heads, use_rope=rope, dtype=self.dt,
+                                   impl=cfg.attn_impl)
         self.fc1 = nn.Linear(C, 4 * C)
         self.fc2 = nn.Linear(4 * C, C)
 

@@ -1,14 +1,26 @@
-"""Fused serving sublayers: hand-written CUDA kernels with plain twins.
+"""Hand-written CUDA kernels with plain twins: the three fused serving
+sublayers and the four flash-attention kernels.
 
 Each public function takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors; each counts its kernel launches in a
 plain integer attribute ``launches``.
 """
+from .flash_attention import (  # noqa: F401
+    chunked_attention,
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+    flash_fwd_lse,
+)
 from .fused_block import fused_l_sublayer, fused_l_sublayer_plain  # noqa: F401
 from .fused_ffn import fused_ffn_sublayer, fused_ffn_sublayer_plain  # noqa: F401
 from .fused_t_block import fused_t_sublayer, fused_t_sublayer_plain  # noqa: F401
 
-KERNELS = (fused_l_sublayer, fused_t_sublayer, fused_ffn_sublayer)
+KERNELS = (fused_l_sublayer, fused_t_sublayer, fused_ffn_sublayer,
+           flash_fwd, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, under ``build/mdgen_tpu_torch/``
-at the repository root, and loaded with ``ctypes`` (no PyTorch headers are
+Each source is compiled with ``nvcc`` for ``sm_90a`` in its own process,
+all at once, and the objects are linked into one shared library with a plain
+C interface, at first use, under ``build/mdgen_tpu_torch/`` at the
+repository root, and loaded with ``ctypes`` (no PyTorch headers are
 compiled, so a build takes seconds). The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt and a stale library is
 never loaded. Nothing here runs at import time.
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -23,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "mdgen_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -33,6 +35,9 @@ SIGNATURES = {
     "mdgen_fused_l_sublayer": [_P] * 14 + [_I] * 6 + [_F, _I, _I, _P],
     "mdgen_fused_t_sublayer": [_P] * 16 + [_I] * 6 + [_F, _I, _I, _P],
     "mdgen_fused_ffn_sublayer": [_P] * 9 + [_I] * 6 + [_P],
+    "mdgen_flash_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "mdgen_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
+    "mdgen_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -60,6 +65,46 @@ def _digest(flags) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first failure. Returns
+    their output, concatenated."""
+    logs, procs = [], []
+    try:
+        for cmd in cmds:
+            log = tempfile.TemporaryFile(mode="w+")
+            procs.append((cmd, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        for cmd, log, proc in procs:
+            rc = proc.wait()
+            log.seek(0)
+            logs.append(log.read())
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{logs[-1]}")
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return "".join(logs)
+
+
+def _compile_and_link(flags, out: str) -> str:
+    """One nvcc per source, all started together, then one link."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o") for src in sources()]
+    try:
+        log = _run([[_nvcc(), *flags, "-c", "-o", obj, src]
+                    for src, obj in zip(sources(), objs)])
+        tmp = f"{out}.{tag}"
+        log += _run([[_nvcc(), "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
+
+
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library. ``verbose`` adds
     ``-Xptxas -v`` and keeps the compiler's report (registers, shared memory,
@@ -69,20 +114,11 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         if _lib is not None and not verbose:
             return _lib
         flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-        srcs = sources()
         out = os.path.join(BUILD_DIR, f"libmdgen_kernels_{_digest(NVCC_FLAGS)}.so")
         t0 = time.perf_counter()
         if verbose or not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *flags, "-o", tmp, *srcs]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, out)
-            build_info["log"] = proc.stdout + proc.stderr
+            build_info["log"] = _compile_and_link(flags, out)
             build_info["built"] = True
         else:
             build_info["built"] = False

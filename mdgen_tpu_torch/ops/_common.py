@@ -1,5 +1,5 @@
-"""Helpers shared by the three fused sublayers: their plain-PyTorch math and
-the checks and argument packing of their CUDA wrappers."""
+"""Helpers shared by the kernels' wrappers: the fused sublayers' plain-PyTorch
+math and the checks and argument packing of the CUDA wrappers."""
 from __future__ import annotations
 
 import functools
@@ -54,6 +54,22 @@ def on_cpu(x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"fused sublayers run on CPU (plain) or CUDA, not {x.device}")
     return False
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """The fused sublayers are forward-only, as their JAX kernels are: their
+    CUDA outputs are fresh tensors that no backward reaches. So they refuse
+    to run where autograd would record them, on any device, instead of
+    silently cutting the graph (the training model runs with
+    ``fused_block=False``)."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name} is forward-only (no backward kernel) and refuses tensors that "
+            "require grad; run it under torch.no_grad() or torch.inference_mode(), "
+            "or build the model with fused_block=False"
+        )
 
 
 def check_x(x: torch.Tensor, name="x"):

@@ -1,8 +1,8 @@
 """Fused residue-attention sublayer (port of ``mdgen_tpu/ops/fused_block.py``).
 
 y = x + gate * out_proj(Attn_L(modulate(LN(x), shift, scale))), forward
-only: attention over the L residues of each (b, t) row plus the learned bias
-token. CPU tensors take :func:`fused_l_sublayer_plain`; CUDA tensors take the
+only (it refuses tensors that require grad): attention over the L residues
+of each (b, t) row plus the learned bias token. CPU tensors take :func:`fused_l_sublayer_plain`; CUDA tensors take the
 hand-written kernel ``csrc/fused_l_sublayer.cu`` (or raise).
 """
 from __future__ import annotations
@@ -12,8 +12,8 @@ import torch
 from ..models.attention import NEG_INF, rotate_half
 from . import _build
 from ._common import (
-    check_x, exact_f32, ln_modulate, mm, on_cpu, rope_tables, same_device, stream_ptr,
-    vectors, weights,
+    check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rope_tables, same_device,
+    stream_ptr, vectors, weights,
 )
 
 
@@ -62,6 +62,8 @@ def fused_l_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
                      out_w, out_b, *, num_heads: int, use_rope: bool = True,
                      compute_dtype=torch.bfloat16):
     """See :func:`fused_l_sublayer_plain` for the contract (L <= 16)."""
+    refuse_grad("fused_l_sublayer", x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
+                bias_v, out_w, out_b)
     kw = dict(num_heads=num_heads, use_rope=use_rope, compute_dtype=compute_dtype)
     if on_cpu(x):
         return fused_l_sublayer_plain(

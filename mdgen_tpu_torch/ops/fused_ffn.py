@@ -1,8 +1,9 @@
 """Fused MLP sublayer (port of ``mdgen_tpu/ops/fused_ffn.py``).
 
-y = x + gate * fc2(gelu(fc1(modulate(LN(x), shift, scale)))), forward only.
-CPU tensors take :func:`fused_ffn_sublayer_plain`; CUDA tensors take the
-hand-written kernel ``csrc/fused_ffn.cu`` (or raise).
+y = x + gate * fc2(gelu(fc1(modulate(LN(x), shift, scale)))), forward only:
+it refuses tensors that require grad. CPU tensors take
+:func:`fused_ffn_sublayer_plain`; CUDA tensors take the hand-written kernel
+``csrc/fused_ffn.cu`` (or raise).
 """
 from __future__ import annotations
 
@@ -10,8 +11,8 @@ import torch
 
 from . import _build
 from ._common import (
-    check_x, exact_f32, ln_modulate, mm, on_cpu, same_device, stream_ptr, vectors,
-    weights,
+    check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, same_device, stream_ptr,
+    vectors, weights,
 )
 
 
@@ -32,6 +33,7 @@ def fused_ffn_sublayer_plain(x, shift, scale, gate, w1, b1, w2, b2, *,
 def fused_ffn_sublayer(x, shift, scale, gate, w1, b1, w2, b2, *,
                        compute_dtype=torch.bfloat16):
     """See :func:`fused_ffn_sublayer_plain` for the contract."""
+    refuse_grad("fused_ffn_sublayer", x, shift, scale, gate, w1, b1, w2, b2)
     if on_cpu(x):
         return fused_ffn_sublayer_plain(
             x, shift, scale, gate, w1, b1, w2, b2, compute_dtype=compute_dtype

@@ -1,8 +1,8 @@
 """Fused frame-attention sublayer (port of ``mdgen_tpu/ops/fused_t_block.py``).
 
 y = x + gate * out_proj(Attn_T(modulate(LN(x), shift, scale))), forward
-only: for each (b, l), attention over the T frames plus the learned bias
-token at position T. The residue mask is frame-constant: a masked residue
+only (it refuses tensors that require grad): for each (b, l), attention
+over the T frames plus the learned bias token at position T. The residue mask is frame-constant: a masked residue
 has no valid frame key, so its queries attend to the bias token alone.
 CPU tensors take :func:`fused_t_sublayer_plain`; CUDA tensors take the
 hand-written kernels of ``csrc/fused_t_sublayer.cu`` (three launches per
@@ -15,8 +15,8 @@ import torch
 from ..models.attention import NEG_INF, rotate_half
 from . import _build
 from ._common import (
-    check_x, exact_f32, ln_modulate, mm, on_cpu, rnd, rope_tables, same_device,
-    stream_ptr, vectors, weights,
+    check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rnd, rope_tables,
+    same_device, stream_ptr, vectors, weights,
 )
 
 
@@ -63,6 +63,8 @@ def fused_t_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
                      out_w, out_b, *, num_heads: int, use_rope: bool = True,
                      compute_dtype=torch.bfloat16):
     """See :func:`fused_t_sublayer_plain` for the contract (head dim <= 64)."""
+    refuse_grad("fused_t_sublayer", x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
+                bias_v, out_w, out_b)
     kw = dict(num_heads=num_heads, use_rope=use_rope, compute_dtype=compute_dtype)
     if on_cpu(x):
         return fused_t_sublayer_plain(

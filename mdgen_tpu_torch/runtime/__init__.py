@@ -1,2 +1,8 @@
-"""Inference runtime and checkpoints."""
-from .wrapper import MDGenRuntime, tokenize_atom14  # noqa: F401
+"""Runtime: inference, training, optimizer and checkpoints."""
+from .wrapper import (  # noqa: F401
+    MDGenRuntime,
+    TrainRuntime,
+    TrainState,
+    batch_to_device,
+    tokenize_atom14,
+)

@@ -1,14 +1,18 @@
-"""MDGenRuntime: forward-simulation inference (port of
-``mdgen_tpu/runtime/wrapper.py``, the sampling path).
+"""Port of ``mdgen_tpu/runtime/wrapper.py``: forward-simulation inference
+(:class:`MDGenRuntime`) and training (:class:`TrainRuntime`).
 
 PyTorch runs eagerly: each rollout tokenizes its start frame on the device,
 integrates the Euler ODE over the denoiser (one model call per step,
 launched from the host), decodes the latents to atom14 and re-tokenizes the
-last frame for the next rollout.
+last frame for the next rollout. A train step tokenizes the raw atom14
+batch on the device, takes the flow-matching loss and its gradient with
+autograd (at T=1000 through the flash kernels' backward), and applies the
+optax-equivalent optimizer (``optim.py``) and the EMA.
 """
 from __future__ import annotations
 
 import copy
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -17,6 +21,7 @@ from ..geometry import atom14_to_atom37, atom14_to_frames, atom37_to_torsions
 from ..models import LatentMDGenModel
 from ..tasks import decode_latents, prep_batch
 from ..transport import Sampler, Transport, TransportConfig
+from .optim import Optimizer, global_norm
 
 
 def transport_config(cfg) -> TransportConfig:
@@ -122,3 +127,116 @@ class MDGenRuntime:
             start = atom14[:, -1]
             trajs.append(atom14)
         return torch.stack(trajs, dim=1).reshape(B, num_rollouts * T, L, 14, 3)
+
+
+# -- training ------------------------------------------------------------------
+
+
+def check_trainable(cfg) -> None:
+    """Options that change training and are not ported raise here instead of
+    being ignored (serving accepts them: dropout does nothing at inference)."""
+    if cfg.dropout > 0:
+        raise NotImplementedError(
+            f"cfg.dropout={cfg.dropout}: training with dropout is not ported to "
+            "mdgen_tpu_torch yet (ROADMAP queue 1, item 14)"
+        )
+    if cfg.grad_checkpointing:
+        raise NotImplementedError(
+            "cfg.grad_checkpointing is not ported to mdgen_tpu_torch yet "
+            "(ROADMAP queue 1, item 14)"
+        )
+    if cfg.no_frames or cfg.atlas:
+        raise NotImplementedError("no_frames / atlas tokenization is not ported yet")
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A loader batch (numpy) -> {atom14 f32, seqres long, mask f32} tensors."""
+    return {
+        "atom14": torch.as_tensor(batch["atom14"], dtype=torch.float32, device=device),
+        "seqres": torch.as_tensor(batch["seqres"], device=device).long(),
+        "mask": torch.as_tensor(batch["mask"], dtype=torch.float32, device=device),
+    }
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: LatentMDGenModel  # f32 parameters, trained
+    opt_state: dict
+    ema: Optional[LatentMDGenModel]  # the EMA copy when cfg.ema, else None
+
+
+class TrainRuntime:
+    """The JAX runtime's training half: ``_loss_fn``, ``train_step``,
+    ``val_step``, ``eval_params`` and ``grad_report``."""
+
+    def __init__(self, cfg, device="cpu"):
+        check_trainable(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        # the fused sublayers are forward-only: never in the training model
+        self.model_cfg = cfg.replace(fused_block=False)
+        self.transport = Transport(transport_config(cfg))
+        self.tx = Optimizer.from_config(cfg)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             state_dict: Optional[dict] = None) -> TrainState:
+        """Fresh parameters from ``generator`` (or ``state_dict``), a fresh
+        optimizer state and, with ``cfg.ema``, an EMA copy."""
+        model = LatentMDGenModel(self.model_cfg, self.cfg.latent_dim)
+        if state_dict is None:
+            model.reset_parameters(generator)
+        else:
+            model.load_state_dict(state_dict)
+        model = model.to(self.device)
+        ema = copy.deepcopy(model).requires_grad_(False) if self.cfg.ema else None
+        return TrainState(0, model, self.tx.init(list(model.parameters())), ema)
+
+    def loss_fn(self, model, batch: dict, generator=None, t=None, x0=None):
+        """Mean flow-matching loss and its metrics. A raw batch (atom14) is
+        tokenized on its device; a token dict (``tokenize_atom14``'s output)
+        passes through, as in the JAX runtime."""
+        tok = tokenize_atom14(batch) if "atom14" in batch else batch
+        prep = prep_batch(self.cfg, tok)
+        out = self.transport.training_losses(
+            model, prep.latents, prep.loss_mask, prep.model_kwargs,
+            generator=generator, t=t, x0=x0,
+        )
+        loss = out["loss"].mean()
+        return loss, {"loss": loss.detach(), "time": out["t"].mean()}
+
+    def _grads(self, model, batch, generator=None, t=None, x0=None):
+        params = list(model.parameters())
+        loss, metrics = self.loss_fn(model, batch, generator, t, x0)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return params, grads, metrics
+
+    def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None):
+        """One micro-step: gradient, optimizer (which applies an update on
+        every ``accumulate_grad``-th call), EMA and the step counter, which
+        both advance on every call. ``grad_norm`` is this micro-batch's."""
+        params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
+        metrics["grad_norm"] = global_norm(grads)
+        self.tx.step(params, grads, state.opt_state)
+        if state.ema is not None:
+            d = self.cfg.ema_decay
+            with torch.no_grad():
+                for e, p in zip(state.ema.parameters(), params):
+                    e.copy_(e * d + (1 - d) * p)
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def val_step(self, model, batch: dict, generator=None, t=None, x0=None) -> dict:
+        return self.loss_fn(model, batch, generator, t, x0)[1]
+
+    def eval_params(self, state: TrainState) -> LatentMDGenModel:
+        """The model to evaluate with: the EMA copy when enabled."""
+        return state.ema if self.cfg.ema else state.model
+
+    def grad_report(self, state: TrainState, batch: dict, generator=None) -> dict:
+        """{parameter name: gradient norm} for ``--check_grad``."""
+        names = [n for n, _ in state.model.named_parameters()]
+        _, grads, _ = self._grads(state.model, batch, generator)
+        return {n: float(torch.linalg.vector_norm(g)) for n, g in zip(names, grads)}

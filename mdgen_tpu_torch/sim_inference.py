@@ -13,7 +13,6 @@ given explicitly.
 from __future__ import annotations
 
 import argparse
-import csv
 import os
 import time
 
@@ -43,11 +42,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def read_split(path: str) -> dict:
-    with open(path, newline="") as fh:
-        return {row["name"]: row["seqres"] for row in csv.DictReader(fh)}
-
-
 def main(argv=None):
     """Returns one record per sampled batch: {names, frames, seconds, paths}."""
     args = parse_args(argv)
@@ -58,6 +52,7 @@ def main(argv=None):
         raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
     os.makedirs(args.out_dir, exist_ok=True)
 
+    from .data import read_split
     from .geometry import constants as rc
     from .protein import atom14_to_pdb
     from .runtime import MDGenRuntime, checkpoint

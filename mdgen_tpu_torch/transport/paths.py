@@ -1,9 +1,9 @@
 """Stochastic-interpolant coupling plans (port of ``mdgen_tpu/transport/paths.py``).
 
 x_t = alpha_t * x1 + sigma_t * x0, x0 ~ N(0, I) noise, x1 data; alpha grows
-from 0 to 1 as t goes 0 -> 1. Only what the probability-flow ODE drift
-needs is ported (sigma, d(alpha)/alpha and the forward drift); the training
-loss will add the rest.
+from 0 to 1 as t goes 0 -> 1. Ported: what the probability-flow ODE drift
+needs (sigma, d(alpha)/alpha, the forward drift) and what the training loss
+needs (alpha, interpolate).
 """
 from __future__ import annotations
 
@@ -20,6 +20,9 @@ def expand_t(t, x):
 class LinearPlan:
     """alpha_t = t, sigma_t = 1 - t."""
 
+    def alpha(self, t):
+        return t, torch.ones_like(t)
+
     def sigma(self, t):
         return 1 - t, -torch.ones_like(t)
 
@@ -33,9 +36,19 @@ class LinearPlan:
         sigma_t, d_sigma_t = self.sigma(t)
         return -(ratio * x), ratio * sigma_t**2 - sigma_t * d_sigma_t
 
+    def interpolate(self, t, x0, x1):
+        """Returns (x_t, u_t): the noisy sample and the target velocity."""
+        te = expand_t(t, x1)
+        alpha_t, d_alpha_t = self.alpha(te)
+        sigma_t, d_sigma_t = self.sigma(te)
+        return alpha_t * x1 + sigma_t * x0, d_alpha_t * x1 + d_sigma_t * x0
+
 
 class GVPPlan(LinearPlan):
     """alpha_t = sin(pi t / 2), sigma_t = cos(pi t / 2) (the default)."""
+
+    def alpha(self, t):
+        return torch.sin(t * math.pi / 2), math.pi / 2 * torch.cos(t * math.pi / 2)
 
     def sigma(self, t):
         return torch.cos(t * math.pi / 2), -math.pi / 2 * torch.sin(t * math.pi / 2)
@@ -56,6 +69,10 @@ class VPPlan(LinearPlan):
 
     def _d_log_mean(self, t):
         return 0.5 * (1 - t) * (self.sigma_max - self.sigma_min) + 0.5 * self.sigma_min
+
+    def alpha(self, t):
+        alpha_t = torch.exp(self._log_mean(t))
+        return alpha_t, alpha_t * self._d_log_mean(t)
 
     def sigma(self, t):
         p = 2 * self._log_mean(t)

@@ -1,18 +1,28 @@
 """Flow-matching transport (port of ``mdgen_tpu/transport/transport.py``):
-the sampling interval, the probability-flow drift and ODE sampling."""
+the training loss, the sampling interval, the probability-flow drift and
+ODE sampling."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import torch
+
 from . import integrators
 from .paths import expand_t, make_plan
+
+
+def mean_flat(x, mask):
+    """Masked mean over all non-batch axes -> [B]."""
+    axes = tuple(range(1, x.ndim))
+    return (x * mask).sum(axes) / mask.sum(axes)
 
 
 @dataclass(frozen=True)
 class TransportConfig:
     path_type: str = "GVP"  # Linear | GVP | VP
     prediction: str = "velocity"  # velocity | score | noise
+    loss_weight: Optional[str] = None  # None | velocity | likelihood
     train_eps: Optional[float] = None
     sample_eps: Optional[float] = None
 
@@ -51,6 +61,41 @@ class Transport:
         if reverse:
             t0, t1 = 1 - t0, 1 - t1
         return t0, t1
+
+    def training_losses(self, model_fn: Callable, x1: torch.Tensor, mask: torch.Tensor,
+                        model_kwargs: Optional[dict] = None,
+                        generator: Optional[torch.Generator] = None,
+                        t: Optional[torch.Tensor] = None,
+                        x0: Optional[torch.Tensor] = None) -> dict:
+        """Flow-matching loss. ``model_fn(xt, t, **model_kwargs)`` is the
+        denoiser; ``x1`` [B, T, L, D] the data, ``mask`` the per-element
+        loss mask. t ~ U[t0, t1) and x0 ~ N(0, I) are drawn from
+        ``generator`` unless given. Returns {"t", "pred", "loss" [B]}."""
+        B = x1.shape[0]
+        if t is None:
+            t0, t1 = self.check_interval()
+            t = torch.rand((B,), generator=generator, device=x1.device) * (t1 - t0) + t0
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        xt, ut = self.plan.interpolate(t, x0, x1)
+        pred = model_fn(xt, t, **(model_kwargs or {}))
+        terms = {"t": t, "pred": pred}
+        if self.cfg.prediction == "velocity":
+            terms["loss"] = mean_flat((pred - ut) ** 2, mask)
+            return terms
+        _, drift_var = self.plan.drift(xt, t)
+        sigma_t, _ = self.plan.sigma(expand_t(t, xt))
+        if self.cfg.loss_weight == "velocity":
+            weight = (drift_var / sigma_t) ** 2
+        elif self.cfg.loss_weight == "likelihood":
+            weight = drift_var / sigma_t**2
+        else:
+            weight = 1.0
+        if self.cfg.prediction == "noise":
+            terms["loss"] = mean_flat(weight * (pred - x0) ** 2, mask)
+        else:
+            terms["loss"] = mean_flat(weight * (pred * sigma_t + x0) ** 2, mask)
+        return terms
 
     def drift_fn(self, model_fn: Callable) -> Callable:
         """Probability-flow ODE drift under the configured parametrization."""

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card. Run there with
+card: the three fused serving sublayers and the four flash-attention
+kernels (at the end of the file). Run there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -17,6 +18,8 @@ round the same values to bf16, but a value that lands next to a rounding
 boundary can round the other way in one of them: one bf16 ulp of an
 operand is 2^-8 of it).
 """
+import importlib
+
 import pytest
 import torch
 
@@ -130,3 +133,113 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):  # above the residue kernel's gate
         b = _inputs(1, 2, 17, torch.float32)
         ops.fused_l_sublayer(*[b[n] for n in ATTN_ARGS], num_heads=H)
+
+
+# -- flash attention (kernels 4-7) ----------------------------------------------
+#
+# Each kernel against its plain twin on the same inputs; the backward kernels
+# take the twin's (o, lse). Shapes: the training recipe's frame attention
+# (N = 8 x 4 x 16 = 512 rows, Tq = 1000, Tk = 1001, d = 24) and ragged small
+# ones (Tk not a multiple of the 64-row tile, d padded to 16 or 64).
+# Tolerances: o and lse absolute, gradients relative to their largest entry;
+# f32 1e-4 / 1e-3 (sums of 1001 keys or 1000 queries in another order), bf16
+# operands 1e-2 (outputs rounded to bf16, one ulp is 2^-8).
+
+FLASH_SHAPES = {"recipe": (512, 1000, 1001, 24), "ragged": (2, 300, 301, 8),
+                "single_tile": (3, 24, 25, 16), "d40": (2, 70, 65, 40)}
+FLASH_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _flash_inputs(N, Tq, Tk, d, dt, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(N, Tq, d, generator=g) * d**-0.5
+    k, v = torch.randn(N, Tk, d, generator=g), torch.randn(N, Tk, d, generator=g)
+    do = torch.randn(N, Tq, d, generator=g)
+    mask = torch.ones(N, Tk)
+    mask[:, Tk // 3: Tk // 2] = 0.0
+    mask[0, :-1] = 0.0  # only the last (bias) key valid
+    bias = torch.where(mask > 0, 0.0, torch.finfo(torch.float32).min)
+    return [t.to(dt).cuda() for t in (q, k, v)] + [bias.cuda(), do.to(dt).cuda()]
+
+
+def _rel_max(a, ref):
+    return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", list(FLASH_SHAPES))
+def test_flash_kernels_match_plain(shape, dtype):
+    _need_cuda()
+    fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
+    dt = DTYPES[dtype]
+    q, k, v, bias, do = _flash_inputs(*FLASH_SHAPES[shape], dt)
+    atol, rtol = FLASH_TOL[dt]
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, bias)
+    delta = fa.attention_delta(o_ref, do)
+    bwd = (q, k, v, bias, do, lse_ref, delta)
+    before = ops.launch_counts()
+    o4 = fa.flash_fwd(q, k, v, bias)
+    o5, lse = fa.flash_fwd_lse(q, k, v, bias)
+    dq = fa.flash_bwd_dq(*bwd)
+    dk, dv, db = fa.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    assert o4.dtype == o5.dtype == dq.dtype == dk.dtype == dv.dtype == dt
+    for o in (o4, o5):
+        assert (o.float() - o_ref.float()).abs().max().item() <= atol
+    assert (lse - lse_ref).abs().max().item() <= atol
+    dq_r = fa.flash_bwd_dq_plain(*bwd)
+    for got, ref in zip((dq, dk, dv, db), (dq_r, *fa.flash_bwd_dkv_plain(*bwd))):
+        assert torch.isfinite(got).all()
+        assert _rel_max(got, ref) <= rtol
+
+
+def test_flash_autograd_matches_dense_on_the_card():
+    """FlashAttention (kernels 5, 6, 7) against autograd through dense f32
+    attention, gradients in q, k, v and bias; 1e-4 relative to the largest
+    entry."""
+    _need_cuda()
+    q, k, v, bias, do = _flash_inputs(4, 600, 601, 24, torch.float32, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    before = ops.launch_counts()
+    (ops.flash_attention(*leaves) * do).sum().backward()
+    after = ops.launch_counts()
+    assert [after[n] - before[n] for n in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                                           "flash_bwd_dkv")] == [0, 1, 1, 1]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    rq, rk, rv, rb = ref_leaves
+    p = torch.softmax(torch.einsum("nqd,nkd->nqk", rq, rk) + rb[:, None, :], dim=-1)
+    (torch.einsum("nqk,nkd->nqd", p, rv) * do).sum().backward()
+    for a, b in zip(leaves, ref_leaves):
+        assert _rel_max(a.grad, b.grad) <= 1e-4
+
+
+def test_flash_wrapper_refuses_what_it_does_not_take():
+    _need_cuda()
+    fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
+    q, k, v, bias, _ = _flash_inputs(2, 40, 41, 24, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):  # d > 64
+        big = torch.zeros(2, 40, 72, device="cuda")
+        fa.flash_fwd(big, torch.zeros(2, 41, 72, device="cuda"),
+                     torch.zeros(2, 41, 72, device="cuda"), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, bias)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q.bfloat16(), k, v, bias)
+    with pytest.raises(ValueError, match="bias must be float32"):
+        fa.flash_fwd(q, k, v, bias.bfloat16())
+    with pytest.raises(ValueError, match="must be on"):
+        fa.flash_fwd(q, k, v, bias.cpu())
+
+
+def test_fused_sublayers_refuse_autograd_on_the_card():
+    _need_cuda()
+    a = _inputs(1, 8, 4, torch.float32)
+    w1 = a["w1"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.fused_ffn_sublayer(a["x"], a["shift"], a["scale"], a["gate"], w1, a["b1"], a["w2"],
+                               a["b2"], compute_dtype=torch.float32)

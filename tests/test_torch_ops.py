@@ -110,6 +110,9 @@ def test_cpu_tensors_do_not_count_launches():
     a = _inputs(4)
     names = ["x", "shift", "scale", "gate", "w1", "b1", "w2", "b2"]
     ops.fused_ffn_sublayer(*[_torch(a[n], transpose=n in ("w1", "w2")) for n in names])
+    q = torch.randn(2, 5, 8)
+    ops.flash_attention(q, q, q, torch.zeros(2, 5))
     assert ops.launch_counts() == {
-        "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0
+        "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0,
+        "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     }
