@@ -9,8 +9,13 @@ Phases, in order; any failure raises and the exit code is not 0:
      with nvcc for sm_90a (-Xptxas -v; registers, shared memory, spills);
   3. kernel parity: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (B=1, T=100, L=4, C=384, 16 heads), in
-     f32 and in bf16 operands, with a masked residue; times both with CUDA
-     events;
+     f32 and in bf16 operands, with a masked residue; the tensor-core
+     kernels 1 and 3 also at token counts that are no multiple of their
+     tiles, and twice on the same inputs (bit-equal); times kernel and plain
+     version with CUDA events eagerly through the wrapper (`ms`, what a
+     caller waits for) and around a CUDA graph of 20 calls (`device_ms`: the
+     wrappers' host time is not counted), and the wrapper's host time per
+     call;
   4. model parity: one 5 x 384 x 16 LatentMDGenModel forward with the fused
      kernels against the dense plain path, and a short fused-vs-dense
      rollout, on seeded weights (noise on the zero-init adaLN and output
@@ -22,7 +27,11 @@ Phases, in order; any failure raises and the exit code is not 0:
      ran exactly 5 layers x 99 steps x 5 rollouts = 2475 times;
   6. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
-     a masked residue, f32 and bf16 operands; times both with CUDA events;
+     a masked residue, f32 and bf16 operands; times kernel, plain twin and
+     the library call (PyTorch's memory-efficient attention: forward,
+     forward with logsumexp, and its backward, one call for kernels 6 and 7)
+     with CUDA events, in both dtypes, and each kernel's device time around
+     a CUDA graph of 5 calls;
   7. model gradient parity: one training loss and backward of the 5 x 384 x
      16 model at the recipe shape (B=8, T=1000, L=4, f32) through the flash
      kernels against dense attention: loss, every gradient, the grad norm;
@@ -34,7 +43,14 @@ Phases, in order; any failure raises and the exit code is not 0:
      checkpoint; prints ms per train step over steps 5-20;
   9. sampling from that run: `sim_inference --fused_block` restores the run
      directory and rolls out once at T=1000 with 2 Euler steps;
-  10. the kernels JSON line, the nvidia-smi line, and the result line.
+  10. profiles, last because a torch.profiler session slows the host work
+      of the rest of the process: each launch's device µs of the fused
+      kernels (one CUDA-graph replay under torch.profiler), then one more
+      main-path rollout under torch.profiler: device ms per kernel name,
+      the device's busy share, launches per evaluation, frames/s;
+  11. the kernels JSON line (with each kernel's bound: the larger of the
+      bytes it must move over 3.35 TB/s and its operations over the peak of
+      their type), the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -72,6 +88,15 @@ KERNELS = {
     "flash_bwd_dkv": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:346"),
 }
 FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
+# the tensor-core kernels (1 and 3): edge shapes (B, T, L), token counts no
+# multiple of their 32-token tiles
+EDGE_SHAPES = {"tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1), "L7": (2, 19, 7),
+               "L16": (1, 20, 16)}
+# the card's published peaks (H100 SXM, at 700 W): memory, and operations
+# by type (f32 outside the tensor cores; split TF32, three TF32 products per
+# f32 product, shown beside it)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
 
 
 def log(*a):
@@ -114,38 +139,139 @@ def _time_ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel_parity(torch):
-    from mdgen_tpu_torch import ops
+def _graph_ms(torch, fn, iters=20, split=None):
+    """Device ms per call: CUDA events around one replay of a CUDA graph of
+    ``iters`` calls, so that the wrapper's host time is not counted. With a
+    dict ``split``, one more replay runs under torch.profiler and fills it
+    with device µs per call of each kernel name (left empty if the profiler
+    sees no device activity)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    if split is not None:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator().manual_seed(0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n = _short(e.name)
+                split[n] = split.get(n, 0.0) + e.time_range.elapsed_us() / iters
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _host_us(torch, fn, iters=200):
+    """Host µs per call: the Python wrapper and its launches, timed on the
+    host clock with no sync inside the loop (200 calls of two or three
+    launches stay inside the stream's launch queue, so the device never
+    holds the loop back)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _bound(n_bytes, flops, kind):
+    """(ms, what bounds it): the least time for the work on this card."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _sublayer_bound(torch, name, args, y, mask):
+    """Bytes: each input read once, y written once. Operations: the
+    projections (2 per multiply-add) and the attention the mask leaves
+    (q.k and p.v over the valid keys and the bias token, 4 per channel)."""
+    x = args[0]
+    Bx, Tx, Lx, Cx = x.shape
+    n_tok = Bx * Tx * Lx
+    if name == "fused_ffn_sublayer":
+        flops = 2 * n_tok * Cx * args[4].shape[0] * 2
+    else:
+        flops = 2 * n_tok * Cx * 4 * Cx
+        valid = mask.float()  # [B, L]
+        if name == "fused_l_sublayer":  # each query: its row's valid residues
+            keys = (valid.sum(1, keepdim=True) + 1).expand(Bx, Lx) * Tx
+        else:  # each query of residue l: T frames if l is valid, + the bias key
+            keys = (valid * Tx + 1) * Tx
+        flops += int(4 * Cx * keys.sum().item())
+    return _bound(_nbytes(*[a for a in args if torch.is_tensor(a)], y), flops, "bf16")
+
+
+def _sublayer_inputs(torch, b, t, l, seed):
+    """Seeded f32 inputs of the fused sublayers at [b, t, l, C], and a mask
+    with the last batch entry's last residue masked."""
+    g = torch.Generator().manual_seed(seed)
     rnd = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).cuda()  # noqa: E731
     base = dict(
-        x=rnd(B, T, L, C), shift=rnd(B, 1, C, sc=0.1), scale=rnd(B, 1, C, sc=0.1),
-        gate=rnd(B, 1, C, sc=0.5), qkv_w=rnd(3 * C, C, sc=C**-0.5), qkv_b=rnd(3 * C, sc=0.05),
+        x=rnd(b, t, l, C), shift=rnd(b, 1, C, sc=0.1), scale=rnd(b, 1, C, sc=0.1),
+        gate=rnd(b, 1, C, sc=0.5), qkv_w=rnd(3 * C, C, sc=C**-0.5), qkv_b=rnd(3 * C, sc=0.05),
         bias_k=rnd(C, sc=0.3), bias_v=rnd(C, sc=0.3), out_w=rnd(C, C, sc=C**-0.5),
         out_b=rnd(C, sc=0.05), w1=rnd(4 * C, C, sc=C**-0.5), b1=rnd(4 * C, sc=0.05),
         w2=rnd(C, 4 * C, sc=(4 * C) ** -0.5), b2=rnd(C, sc=0.05),
     )
-    mask = torch.ones(B, L, device="cuda")
-    mask[0, -1] = 0.0  # a masked residue
+    mask = torch.ones(b, l, device="cuda")
+    mask[-1, -1] = 0.0
+    return base, mask
+
+
+def _fused_fns():
+    """name: (kernel, plain twin, parameter names, takes the mask)."""
+    from mdgen_tpu_torch import ops
+
     attn = ["shift", "scale", "gate", "qkv_w", "qkv_b", "bias_k", "bias_v", "out_w", "out_b"]
     ffn = ["shift", "scale", "gate", "w1", "b1", "w2", "b2"]
-    fns = {
+    return {
         "fused_l_sublayer": (ops.fused_l_sublayer, ops.fused_l_sublayer_plain, attn, True),
         "fused_t_sublayer": (ops.fused_t_sublayer, ops.fused_t_sublayer_plain, attn, True),
         "fused_ffn_sublayer": (ops.fused_ffn_sublayer, ops.fused_ffn_sublayer_plain, ffn, False),
     }
+
+
+def _fused_args(base, mask, names, is_attn, dt):
+    """(args, kwargs) of a fused sublayer, serving style: parameters and
+    adaLN chunks in the compute dtype ``dt``, x in f32."""
+    args = [base["x"]] + [base[n].to(dt) for n in names]
+    kw = dict(compute_dtype=dt)
+    if is_attn:
+        args.insert(4, mask)
+        kw["num_heads"] = H
+    return args, kw
+
+
+def phase_kernel_parity(torch):
+    base, mask = _sublayer_inputs(torch, B, T, L, seed=0)
     results = {}
-    for name, (kern, plain, names, is_attn) in fns.items():
+    for name, (kern, plain, names, is_attn) in _fused_fns().items():
         res = {"max_abs_err": 0.0}
         for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            # serving style: parameters and adaLN chunks in the compute dtype
-            args = [base["x"]] + [base[n].to(dt) for n in names]
-            if is_attn:
-                args.insert(4, mask)
-                kw = dict(num_heads=H, compute_dtype=dt)
-            else:
-                kw = dict(compute_dtype=dt)
+            args, kw = _fused_args(base, mask, names, is_attn, dt)
             y = kern(*args, **kw)
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
@@ -156,12 +282,62 @@ def phase_kernel_parity(torch):
             if not ok:
                 raise AssertionError(f"{name} {dname} disagrees with its plain version: {err}")
             res["max_abs_err"] = max(res["max_abs_err"], err)
-            if dname == "bf16":  # the main path's dtype
-                res["ms"] = _time_ms(torch, lambda: kern(*args, **kw))
-                res["plain_ms"] = _time_ms(torch, lambda: plain(*args, **kw))
-                log(f"[time] {name} bf16: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms (CUDA events, 20 calls)")
+            call, twin = (lambda: kern(*args, **kw)), (lambda: plain(*args, **kw))
+            device_ms, plain_device_ms = _graph_ms(torch, call), _graph_ms(torch, twin)
+            if dname == "f32":
+                log(f"[time] {name} f32: device: kernel {device_ms:.4f} ms, plain "
+                    f"{plain_device_ms:.4f} ms (CUDA graph of 20 calls)")
+                continue
+            # bf16, the main path's dtype: eagerly through the wrapper (`ms`)
+            # and as device time
+            res.update(ms=_time_ms(torch, call), plain_ms=_time_ms(torch, twin),
+                       device_ms=device_ms, host_us=_host_us(torch, call))
+            res["bound_ms"], res["bound_by"] = _sublayer_bound(torch, name, args, y, mask)
+            log(f"[time] {name} bf16: eager through the wrapper (CUDA events, 20 calls): kernel "
+                f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms; device: kernel "
+                f"{device_ms:.4f} ms, plain {plain_device_ms:.4f} ms (CUDA graph of 20 calls); "
+                f"the wrapper's host time {res['host_us']:.1f} us per call; bound "
+                f"{res['bound_ms']:.5f} ms ({res['bound_by']}), {res['bound_ms'] / res['ms']:.2%} "
+                f"of it reached eagerly, {res['bound_ms'] / device_ms:.2%} in device time")
         results[name] = res
+    _check_tensor_core_edges(torch)
     return results
+
+
+def _check_tensor_core_edges(torch):
+    """Kernels 1 and 3 at token counts that are no multiple of their tiles,
+    f32 and bf16, a masked residue; two calls on the same inputs bit-equal."""
+    fns = _fused_fns()
+    for shape, (b, t, l) in EDGE_SHAPES.items():
+        base, mask = _sublayer_inputs(torch, b, t, l, seed=1)
+        for name in ("fused_l_sublayer", "fused_ffn_sublayer"):
+            kern, plain, names, is_attn = fns[name]
+            for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                args, kw = _fused_args(base, mask, names, is_attn, dt)
+                y1, y2, ref = kern(*args, **kw), kern(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = (y1 - ref).abs().max().item()
+                same = torch.equal(y1, y2)
+                ok = bool(torch.isfinite(y1).all()) and err <= TOL[dname] and same
+                log(f"[edge] {name} {dname} B={b} T={t} L={l} ({b * t * l} tokens): max_abs_err "
+                    f"{err:.3e}, tol {TOL[dname]:g}, bit-equal twice {same} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {dname} at {shape}: {err}, bit-equal {same}")
+
+
+def _launch_split(torch):
+    """Each fused kernel's launches at the main shape: device µs per call of
+    each kernel name, from one CUDA-graph replay under torch.profiler."""
+    base, mask = _sublayer_inputs(torch, B, T, L, seed=0)
+    for name, (kern, _, names, is_attn) in _fused_fns().items():
+        for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args, kw = _fused_args(base, mask, names, is_attn, dt)
+            split = {}
+            _graph_ms(torch, lambda: kern(*args, **kw), split=split)
+            per_launch = ", ".join(f"{n} {us:.2f} us" for n, us in split.items())
+            log(f"[profile] {name} {dname} (CUDA graph replay of 20 calls): per launch "
+                f"{per_launch or 'not measured: the profiler saw no device activity'}")
 
 
 def _rel_err(a, ref):
@@ -221,25 +397,96 @@ def phase_flash_parity(torch):
             abs_err = max((a.float() - b.float()).abs().max().item()
                           for a, b in zip(outs[name], refs[name]))
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
-        if dname == "f32":  # the recipe's precision (32-true)
-            timed = {
-                "flash_fwd": (lambda: fa.flash_fwd(qd, kd, vd, bias),
-                              lambda: fa.flash_attention_plain(qd, kd, vd, bias)[0]),
-                "flash_fwd_lse": (lambda: fa.flash_fwd_lse(qd, kd, vd, bias),
-                                  lambda: fa.flash_attention_plain(qd, kd, vd, bias)),
-                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd), lambda: fa.flash_bwd_dq_plain(*bwd)),
-                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
-                                  lambda: fa.flash_bwd_dkv_plain(*bwd)),
-            }
-            for name, (kern, plain) in timed.items():
-                results[name]["ms"] = _time_ms(torch, kern, iters=10)
-                results[name]["plain_ms"] = _time_ms(torch, plain, iters=10)
-                log(f"[time] {name} f32 N={N} Tq={Tq} Tk={Tk} d={d}: kernel "
-                    f"{results[name]['ms']:.4f} ms, plain {results[name]['plain_ms']:.4f} ms "
-                    f"(CUDA events, 10 calls)")
-        del o_ref, lse_ref, dq_r, dk_r, dv_r, db_r, refs
+        timed = {
+            "flash_fwd": (lambda: fa.flash_fwd(qd, kd, vd, bias),
+                          lambda: fa.flash_attention_plain(qd, kd, vd, bias)[0]),
+            "flash_fwd_lse": (lambda: fa.flash_fwd_lse(qd, kd, vd, bias),
+                              lambda: fa.flash_attention_plain(qd, kd, vd, bias)),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd), lambda: fa.flash_bwd_dq_plain(*bwd)),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                              lambda: fa.flash_bwd_dkv_plain(*bwd)),
+        }
+        library = _library_calls(torch, qd, kd, vd, bias, dod)
+        bounds = _flash_bounds(torch, qd, kd, vd, bias, dod, lse_ref, delta)
+        for name, (kern, plain) in timed.items():
+            ms, lib_ms = _time_ms(torch, kern, iters=10), _time_ms(torch, library[name], iters=10)
+            device_ms = _graph_ms(torch, kern, iters=5)
+            # the plain twins only in f32, the recipe's precision (32-true)
+            plain_ms = _time_ms(torch, plain, iters=10) if dname == "f32" else None
+            (bound_ms, bound_by), split_ms = bounds[name]
+            lib_what = ("one backward call for kernels 6 and 7: dq, dk, dv"
+                        if name.startswith("flash_bwd") else "memory-efficient attention")
+            log(f"[time] {name} {dname} N={N} Tq={Tq} Tk={Tk} d={d}: kernel {ms:.4f} ms, "
+                + (f"plain {plain_ms:.4f} ms, " if plain_ms is not None else "")
+                + f"library {lib_ms:.4f} ms ({lib_what}) (CUDA events, 10 calls); kernel "
+                f"{device_ms:.4f} ms of device time (CUDA graph of 5 calls); bound "
+                f"{bound_ms:.4f} ms ({bound_by}, f32 at {PEAK_FLOPS['f32'] / 1e12:g} TFLOP/s on "
+                f"CUDA cores), {bound_ms / ms:.1%} of it reached; {split_ms:.4f} ms at split "
+                f"TF32's {PEAK_FLOPS['3xtf32'] / 1e12:g} TFLOP/s, {split_ms / ms:.1%} of it")
+            if dname == "f32":
+                results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del o_ref, lse_ref, dq_r, dk_r, dv_r, db_r, refs, library
         torch.cuda.empty_cache()
     return results
+
+
+def _library_calls(torch, q, k, v, bias, do):
+    """One PyTorch call per kernel that computes the same function on the
+    same inputs (timed beside the kernels, never called by the port):
+    PyTorch's memory-efficient attention, forced with sdpa_kernel so that it
+    raises rather than falls back to the math backend, q as [N, 1, Tq, d]
+    with scale 1 (q arrives pre-scaled) and the 0 / finfo.min key bias as
+    the mask (kernel 4); its aten op with the logsumexp (kernel 5); and its
+    backward, one call for dq, dk and dv (kernels 6 and 7; no dbias)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    N, Tq, _ = q.shape
+    Tk = k.shape[1]
+    q4, k4, v4, do4 = (t[:, None] for t in (q, k, v, do))
+    mask = bias[:, None, None, :].to(q.dtype)
+    # the aten op takes the bias [N, 1, Tq, Tk] with rows 16-element aligned,
+    # as scaled_dot_product_attention prepares it
+    aligned = F.pad(mask, (0, (-Tk) % 16))[..., :Tk].expand(N, 1, Tq, Tk)
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0)
+
+    def fwd_lse():
+        return eff(q4, k4, v4, aligned, True, 0.0, False, scale=1.0)
+
+    o, lse, seed, offset = fwd_lse()[:4]
+
+    def bwd():
+        return eff_bwd(do4, q4, k4, v4, aligned, o, lse, seed, offset, 0.0,
+                       [True, True, True, False], False, scale=1.0)
+
+    return {"flash_fwd": fwd, "flash_fwd_lse": fwd_lse, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
+
+
+def _flash_bounds(torch, q, k, v, bias, do, lse, delta):
+    """((bound ms, by), split-TF32 bound ms) per flash kernel: each input read
+    once and each output written once; operations over the (query, key)
+    pairs that the mask leaves valid, d channels each: 4 flops (q.k, p.v)
+    for the forward, 6 for dq (s, dp, ds.k), 8 for dk/dv (s, dv, dp, dk);
+    against the f32 CUDA-core peak (the kernels' arithmetic), and beside it
+    against split TF32 (three TF32 products per f32 product), the f32-exact
+    tensor-core route of kernels 1 and 3 and of the library."""
+    Tq, d = q.shape[1], q.shape[2]
+    pairs = Tq * int((bias == 0).sum().item())
+    fwd_in = _nbytes(q, k, v, bias)
+    bwd_in = _nbytes(q, k, v, bias, do, lse, delta)
+    work = {"flash_fwd": (fwd_in + _nbytes(q), 4),
+            "flash_fwd_lse": (fwd_in + _nbytes(q, lse), 4),
+            "flash_bwd_dq": (bwd_in + _nbytes(q), 6),
+            "flash_bwd_dkv": (bwd_in + _nbytes(k, v, bias), 8)}
+    return {name: (_bound(n_bytes, per * pairs * d, "f32"),
+                   _bound(n_bytes, per * pairs * d, "3xtf32")[0])
+            for name, (n_bytes, per) in work.items()}
 
 
 def bench_config(**kw):
@@ -364,7 +611,84 @@ def _main_path(state_dict, smi, work):
     if bad:
         raise AssertionError(f"launch counts {bad}, expected {want} for each fused kernel "
                              "and 0 for the flash kernels (T=100: 101 keys, dense)")
-    return counts
+    return counts, rec["seconds"] / ROLLOUTS
+
+
+def _short(name):
+    """A kernel's name without its return type, namespace and template
+    arguments (`void mdgen::ffn_up_kernel<...>(...)` -> `ffn_up_kernel`)."""
+    base = name.split("<")[0].replace("(anonymous namespace)::", "").split("(")[0].strip()
+    return (base.removeprefix("void ").split("::")[-1] or name)[:60]
+
+
+def phase_profiles(torch, state_dict, unprofiled_s, smi):
+    """The torch.profiler sessions, after every timed phase: a session
+    leaves the process's host work slower for the rest of its life (a
+    training step after one reads slower than before it, in the same
+    process: `tools/train_step_ab.py --after-profiler`)."""
+    _launch_split(torch)
+    _profile_rollout(state_dict, unprofiled_s, smi)
+
+
+def _profile_rollout(state_dict, unprofiled_s, smi):
+    """One rollout of the main path (99 evaluations) under torch.profiler,
+    through the runtime that sim_inference drives, with its configuration
+    and weights: device ms per kernel name, the device's busy share,
+    launches per evaluation, frames/s."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime
+
+    cfg = bench_config(fused_block=True)
+    model = LatentMDGenModel(cfg, cfg.latent_dim)
+    model.load_state_dict(state_dict)
+    rt = MDGenRuntime(cfg, model.to("cuda").eval())
+    frame0 = synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32)
+    start = torch.from_numpy(frame0)[None].cuda()
+    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long().cuda()
+    mask = torch.ones(B, L, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rt.rollout(start, seqres, mask, 1, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.rollout(start, seqres, mask, 1, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        log("[profile] torch.profiler saw no device activity: device time not measured")
+        return
+    per, spans = {}, sorted((e.time_range.start, e.time_range.end) for e in events)
+    for e in events:
+        n = _short(e.name)
+        ms, count = per.get(n, (0.0, 0))
+        per[n] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:  # the union of the device's intervals
+        if s0 > cur_e:
+            busy, cur_s = busy + (cur_e - cur_s), s0
+        cur_e = max(cur_e, e0)
+    busy = (busy + cur_e - cur_s) / 1e3
+    device_ms = sum(ms for ms, _ in per.values())
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    evals = EULER_STEPS - 1
+    log(f"[profile] one main-path rollout ({evals} evaluations, {NUM_FRAMES} frames, {smi}): "
+        f"device {device_ms:.1f} ms in {len(events)} launches ({len(events) / evals:.1f} per "
+        f"evaluation); device busy {busy:.1f} ms of the {span_ms:.1f} ms from its first launch "
+        f"to its last ({busy / span_ms:.1%}); profiled wall {wall * 1e3:.1f} ms "
+        f"({NUM_FRAMES / wall:.1f} frames/s); unprofiled {unprofiled_s * 1e3:.1f} ms per "
+        f"rollout in the main run ({NUM_FRAMES / unprofiled_s:.1f} frames/s, device busy "
+        f"about {busy / (unprofiled_s * 1e3):.1%})")
+    for n, (ms, count) in sorted(per.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile]   {n}: {ms:.2f} ms, {100 * ms / device_ms:.1f}%, {count} launches "
+            f"({count / evals:.2f} per evaluation, {1e3 * ms / count:.2f} us each)")
 
 
 TRAIN_SEQS = ("ACDE", "FGHI", "KLMN", "PQRS", "TVWY", "AGDK", "EWRL", "YHMC")
@@ -512,16 +836,19 @@ def main():
     parity = phase_kernel_parity(torch)
     state_dict = seeded_model(torch, bench_config()).state_dict()
     phase_model_parity(torch, state_dict)
-    counts = phase_main_path(state_dict, smi)
+    counts, rollout_s = phase_main_path(state_dict, smi)
     parity.update(phase_flash_parity(torch))
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)
+    phase_profiles(torch, state_dict, rollout_s, smi)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (train_counts if k in FLASH_KERNELS else counts)[k],
          "max_abs_err": parity[k]["max_abs_err"], "ms": parity[k]["ms"],
-         "plain_ms": parity[k]["plain_ms"]}
+         "device_ms": parity[k]["device_ms"],
+         "plain_ms": parity[k]["plain_ms"], "bound_ms": parity[k]["bound_ms"],
+         "bound_by": parity[k]["bound_by"], "library_ms": parity[k].get("library_ms")}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -35,6 +35,13 @@ template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// Store a float as O (round-to-nearest-even for bf16).
+template <typename O> __device__ __forceinline__ O from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -42,12 +49,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // out[c] = rnd_W(LN(x)[c] * (1 + scale[c]) + shift[c]) for one token, one
-// warp per call. LN has no affine; two-pass mean / variance, eps 1e-6.
-template <typename W, typename V>
+// warp per call, stored as O (float, or W itself). LN has no affine;
+// two-pass mean / variance, eps 1e-6.
+template <typename W, typename V, typename O = float>
 __device__ __forceinline__ void ln_modulate(const float* __restrict__ x,
                                             const V* __restrict__ shift,
                                             const V* __restrict__ scale,
-                                            float* __restrict__ out, int C) {
+                                            O* __restrict__ out, int C) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
   for (int c = lane; c < C; c += 32) s += x[c];
@@ -60,7 +68,7 @@ __device__ __forceinline__ void ln_modulate(const float* __restrict__ x,
   const float inv = rsqrtf(warp_sum(v) / C + 1e-6f);
   for (int c = lane; c < C; c += 32) {
     const float h = (x[c] - mu) * inv * (1.f + to_f(scale[c])) + to_f(shift[c]);
-    out[c] = rnd<W>(h);
+    out[c] = from_f<O>(rnd<W>(h));
   }
 }
 

@@ -10,80 +10,111 @@
 // run over each head's channels directly.
 //
 // What bounds it on an H100: at the serving shape (B*T = 100 rows of L = 4
-// tokens, C = 384, 16 heads) one call is 0.47 GFLOP of projections against
-// 1.2 MB of bf16 weights and 1.2 MB of f32 activations; the attention itself
-// is tiny (5 keys per query). A whole-card kernel would be bound by bytes
-// and launch latency. This simple design runs FP32 FMAs on CUDA cores in 25
-// blocks, so what bounds it is the FMA rate of the 25 SMs it occupies.
+// tokens, C = 384, 16 heads, bf16 operands) one call moves 2.4 MB (1.2 MB of
+// bf16 weights, 1.2 MB of f32 x and y): 0.72 us at 3.35 TB/s; its 0.47
+// GFLOP of projections take 0.48 us at 989 TFLOP/s, and the attention
+// itself is tiny (5 keys per query). So bytes bound it, and in practice
+// launch latency and the L2 traffic of the tiles.
 //
-// Design (simple first): one block of 256 threads per 16 tokens (16 / L
-// whole rows). The modulated LN rows, the [16, 3C] qkv (f32) and the
-// attention output stay in shared memory (108 KB at C=384); device memory
-// sees one read of x, one write of y and the weights (from L2 after the
-// first block). One thread per (token, head) does the L+1-key softmax in
-// f32. Spreading the rows over more SMs is the first thing to fix.
-#include "common.cuh"
+// One block per 16 tokens, as in the first CUDA port of this sublayer,
+// gives 25 blocks on 132 SMs, each streaming both whole weight matrices
+// through an f32 FMA loop on CUDA cores. This design splits the work across
+// the card and onto the tensor cores (mma_tile.cuh), in two launches:
+//   A. block = (32 tokens as whole (b, t) rows, a group of 2 heads; 12
+//      warps), 13 x 8 = 104 blocks at the serving shape, one wave: the
+//      first weight stages are issued, then LN + modulate of its rows (x
+//      staged in shared memory by cp.async; recomputed per block) into a
+//      resident tile, rounded to the operand dtype; the q, k and v columns
+//      of its heads (3 x 48 rows of qkv_w: all its attention needs, one GEMM
+//      pass), + bias, in f32; q scale and RoPE; one thread per (token, head,
+//      key) for the logits, then one per (token, head, channel) for the f32
+//      softmax over the row's L keys and the bias token and the weighted
+//      values; the output, rounded to the operand dtype, goes to ao
+//      [tokens, C] (0.3 MB in bf16: it stays in L2).
+//   B. gated_out_proj_kernel, block = (32 tokens, 32 output columns; 8
+//      warps), 156 blocks: out-proj over its 32 rows of out_w, + out_b,
+//      y = x + gate * (.).
+// No sum crosses blocks: no atomics, and the result is deterministic.
+#include "mma_tile.cuh"
 
 namespace mdgen {
 
 constexpr int kMaxL = 16;  // the model's gate for the fused path
+constexpr int kLBM = 32;   // tokens per block: whole rows of L tokens
+constexpr int kLBN = 144;  // qkv columns per GEMM pass: 2 heads of 24 at once
+
+// 12 warps (2 x 6, each 16 x 24), 4 stages
+template <typename W>
+using LQkvGemm = TileGemm<W, kLBM, kLBN, 2, 6, 1, true, 4>;
+
+// Shared memory of launch A, in this order: the GEMM stages; the resident
+// A; the x rows [BM][C], whose space then holds the f32 q, k, v of the
+// block's heads [BM][3 G hd]; the roped bias keys [G hd]; the logits
+// [BM][G][kMaxL + 1].
+template <typename W>
+inline size_t l_attn_smem(int C, int G, int hd) {
+  const size_t xq = kLBM * (size_t)(C > 3 * G * hd ? C : 3 * G * hd);
+  return LQkvGemm<W>::smem_bytes + sizeof(W) * kLBM * resident_ld<W>(C) +
+         sizeof(float) * (xq + G * hd + kLBM * G * (kMaxL + 1));
+}
 
 template <typename W, typename V>
-__global__ void __launch_bounds__(kGemmThreads)
-fused_l_kernel(const float* __restrict__ x, float* __restrict__ y,
-               const V* __restrict__ shift, const V* __restrict__ scale,
-               const V* __restrict__ gate, const float* __restrict__ mask,
-               const W* __restrict__ qkv_w, const V* __restrict__ qkv_b,
-               const V* __restrict__ bias_k, const V* __restrict__ bias_v,
-               const W* __restrict__ out_w, const V* __restrict__ out_b,
-               const float* __restrict__ sin_t, const float* __restrict__ cos_t,
-               int n_rows, int T, int L, int C, int H, int use_rope,
-               float q_scale) {
-  extern __shared__ float smem[];
-  const int C3 = 3 * C;
-  float* hs = smem;             // [kRows, C]: LN rows, later attention output
-  float* qkv = hs + kRows * C;  // [kRows, 3C]
-  float* kbs = qkv + kRows * C3;  // [C]: roped bias key
-  float* Ws = kbs + C;
-  const int hd = C / H, half = hd / 2;
-  const int rows_per_block = kRows / L;
-  const int tok0 = blockIdx.x * rows_per_block * L;
-  const int n_tok = n_rows * L;
-  const int used = min(rows_per_block * L, n_tok - tok0);
+__global__ void __launch_bounds__(LQkvGemm<W>::kThreads, 1)
+l_attn_kernel(const float* __restrict__ x, const V* __restrict__ shift,
+              const V* __restrict__ scale, const float* __restrict__ mask,
+              const W* __restrict__ qkv_w, const V* __restrict__ qkv_b,
+              const V* __restrict__ bias_k, const V* __restrict__ bias_v,
+              const float* __restrict__ sin_t, const float* __restrict__ cos_t,
+              W* __restrict__ ao, int n_rows, int T, int L, int C, int H, int G, int use_rope,
+              float q_scale) {
+  using Gm = LQkvGemm<W>;
+  const int hd = C / H, half = hd / 2, GW = G * hd, QW = 3 * GW;
+  const int lda = resident_ld<W>(C);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* stages = reinterpret_cast<W*>(smem_raw);
+  W* As = reinterpret_cast<W*>(smem_raw + Gm::smem_bytes);
+  float* xs = reinterpret_cast<float*>(smem_raw + Gm::smem_bytes + sizeof(W) * kLBM * lda);
+  float* qkv = xs;  // the x rows are consumed by the LN before the GEMM's epilogue
+  float* kbs = xs + kLBM * max(C, QW);
+  float* lg = kbs + GW;
+  const int tile_tok = kLBM / L * L;
+  const int tok0 = blockIdx.x * tile_tok, n_tok = n_rows * L;
+  const int used = min(tile_tok, n_tok - tok0);
   const int tok_per_batch = T * L;
-  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int h0 = blockIdx.y * G;
 
-  for (int r = warp; r < kRows; r += n_warps) {
-    if (r < used) {
-      const int tok = tok0 + r, b = tok / tok_per_batch;
-      ln_modulate<W, V>(x + (size_t)tok * C, shift + (size_t)b * C,
-                        scale + (size_t)b * C, hs + r * C, C);
-    } else {
-      for (int c = threadIdx.x & 31; c < C; c += 32) hs[r * C + c] = 0.f;
-    }
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int i = c % hd;
-    const float v = to_f(bias_k[c]);
+  stage_x_rows(xs, x, tok0, used, C);
+  for (int c = threadIdx.x; c < GW; c += blockDim.x) {
+    const int i = c % hd, gc = h0 * hd + c;
+    const float v = to_f(bias_k[gc]);
     if (!use_rope) {
       kbs[c] = v;
     } else {
       const float* s = sin_t + L * hd;  // the bias token sits at position L
       const float* co = cos_t + L * hd;
-      kbs[c] = i < half ? v * co[i] - to_f(bias_k[c + half]) * s[i]
-                        : v * co[i] + to_f(bias_k[c - half]) * s[i];
+      kbs[c] = i < half ? v * co[i] - to_f(bias_k[gc + half]) * s[i]
+                        : v * co[i] + to_f(bias_k[gc - half]) * s[i];
     }
   }
+
+  // local column n: segment (q, k, v) n / GW, channel h0 * hd + n % GW
+  auto row_of = [&](int n) { const int seg = n / GW; return seg * C + h0 * hd + (n - seg * GW); };
+  Gm::run(
+      As, lda, nullptr, [&](int n) { return qkv_w + (size_t)row_of(n) * C; }, qkv_w, C, QW,
+      stages,
+      [&] {  // LN + modulate while the first weight stages are in flight
+        cp_async_wait<Gm::kStagesAhead>();
+        __syncthreads();
+        ln_modulate_rows<W, V>(xs, shift, scale, tok0, used, tok_per_batch, C, kLBM, As, lda);
+      },
+      [&](int r, int n, float acc) { qkv[r * QW + n] = acc + to_f(qkv_b[row_of(n)]); });
   __syncthreads();
 
-  gemm16<W>(hs, C, C, C3, [&](int n) { return qkv_w + (size_t)n * C; }, Ws,
-            [&](int r, int n, float acc) { qkv[r * C3 + n] = acc + to_f(qkv_b[n]); });
-
   // q scale, then RoPE on q and k at the token's residue position
-  for (int p = threadIdx.x; p < kRows * H * half; p += blockDim.x) {
-    const int r = p / (H * half), h = (p / half) % H, i = p % half;
-    float* q = qkv + r * C3 + h * hd;
-    float* k = q + C;
+  for (int p = threadIdx.x; p < used * G * half; p += blockDim.x) {
+    const int r = p / (G * half), hl = (p / half) % G, i = p % half;
+    float* q = qkv + r * QW + hl * hd;
+    float* k = q + GW;
     q[i] *= q_scale;
     q[i + half] *= q_scale;
     if (use_rope) {
@@ -94,59 +125,38 @@ fused_l_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
   __syncthreads();
 
-  // one thread per (token, head): f32 softmax over L keys + the bias token
-  for (int p = threadIdx.x; p < kRows * H; p += blockDim.x) {
-    const int r = p / H, h = p % H;
-    float* out = hs + r * C + h * hd;
-    if (r >= used) {
-      for (int d = 0; d < hd; ++d) out[d] = 0.f;
-      continue;
-    }
+  // one thread per (token, head, key): the logit against the row's L keys
+  // (finfo.min where masked) and, as key L, the bias key
+  for (int p = threadIdx.x; p < used * G * (L + 1); p += blockDim.x) {
+    const int j = p % (L + 1), rh = p / (L + 1), r = rh / G, hl = rh % G;
+    const float* q = qkv + r * QW + hl * hd;
+    const float* k = j < L ? qkv + (r - r % L + j) * QW + GW + hl * hd : kbs + hl * hd;
+    float acc = 0.f;
+    for (int d = 0; d < hd; ++d) acc = fmaf(q[d], k[d], acc);
     const int b = (tok0 + r) / tok_per_batch;
-    const int first = r - r % L;  // first token of this (b, t) row
-    const float* q = qkv + r * C3 + h * hd;
-    float lb = 0.f;
-    for (int d = 0; d < hd; ++d) lb = fmaf(q[d], kbs[h * hd + d], lb);
-    float s[kMaxL];
-    float m = lb;
-#pragma unroll
-    for (int j = 0; j < kMaxL; ++j) {
-      if (j < L) {
-        const float* k = qkv + (first + j) * C3 + C + h * hd;
-        float acc = 0.f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(q[d], k[d], acc);
-        s[j] = mask[b * L + j] > 0.f ? acc : kNegInf;
-        m = fmaxf(m, s[j]);
-      }
-    }
-    float z = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxL; ++j) {
-      if (j < L) {
-        s[j] = expf(s[j] - m);
-        z += s[j];
-      }
-    }
-    const float pb = expf(lb - m);
-    z += pb;
-    for (int d = 0; d < hd; ++d) {
-      float num = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxL; ++j)
-        if (j < L) num = fmaf(s[j], qkv[(first + j) * C3 + 2 * C + h * hd + d], num);
-      num += pb * to_f(bias_v[h * hd + d]);
-      out[d] = rnd<W>(num / z);
-    }
+    lg[rh * (kMaxL + 1) + j] = j == L || mask[b * L + j] > 0.f ? acc : kNegInf;
   }
   __syncthreads();
 
-  gemm16<W>(hs, C, C, C, [&](int n) { return out_w + (size_t)n * C; }, Ws,
-            [&](int r, int n, float acc) {
-              if (r >= used) return;
-              const int tok = tok0 + r, b = tok / tok_per_batch;
-              const size_t i = (size_t)tok * C + n;
-              y[i] = x[i] + to_f(gate[(size_t)b * C + n]) * (acc + to_f(out_b[n]));
-            });
+  // one thread per (token, head, channel): f32 softmax over the L keys and
+  // the bias token, then the weighted sum of values, rounded to W
+  for (int p = threadIdx.x; p < used * G * hd; p += blockDim.x) {
+    const int d = p % hd, rh = p / hd, r = rh / G, hl = rh % G;
+    const float* l = lg + rh * (kMaxL + 1);
+    const float* v = qkv + (r - r % L) * QW + 2 * GW + hl * hd + d;
+    float m = l[L];
+    for (int j = 0; j < L; ++j) m = fmaxf(m, l[j]);
+    float z = 0.f, num = 0.f;
+    for (int j = 0; j < L; ++j) {
+      const float e = expf(l[j] - m);
+      z += e;
+      num = fmaf(e, v[j * QW], num);
+    }
+    const float pb = expf(l[L] - m);
+    z += pb;
+    num += pb * to_f(bias_v[(h0 + hl) * hd + d]);
+    ao[(size_t)(tok0 + r) * C + (h0 + hl) * hd + d] = from_f<W>(num / z);
+  }
 }
 
 template <typename W, typename V>
@@ -154,37 +164,43 @@ static cudaError_t launch_l(const float* x, float* y, const void* shift,
                             const void* scale, const void* gate, const float* mask,
                             const void* qkv_w, const void* qkv_b, const void* bias_k,
                             const void* bias_v, const void* out_w, const void* out_b,
-                            const float* sin_t, const float* cos_t, int B, int T,
+                            const float* sin_t, const float* cos_t, void* ao, int B, int T,
                             int L, int C, int H, int use_rope, float q_scale,
                             cudaStream_t stream) {
-  if (L < 1 || L > kMaxL || C % H != 0 || (C / H) % 2 != 0) return cudaErrorInvalidValue;
+  const int G = H % 2 == 0 ? 2 : 1;  // heads per block
+  const size_t smem = l_attn_smem<W>(C, G, C / H);
+  if (L < 1 || L > kMaxL || C % H != 0 || (C / H) % 2 != 0 || C % 8 != 0 || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
   static bool smem_set = false;
-  const size_t smem = sizeof(float) * ((size_t)kRows * 4 * C + C + kWsFloats);
-  auto kernel = fused_l_kernel<W, V>;
+  auto kernel = l_attn_kernel<W, V>;
   cudaError_t e = allow_smem(kernel, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const int n_rows = B * T, rows_per_block = kRows / L;
-  const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  kernel<<<grid, kGemmThreads, smem, stream>>>(
-      x, y, (const V*)shift, (const V*)scale, (const V*)gate, mask, (const W*)qkv_w,
-      (const V*)qkv_b, (const V*)bias_k, (const V*)bias_v, (const W*)out_w,
-      (const V*)out_b, sin_t, cos_t, n_rows, T, L, C, H, use_rope, q_scale);
-  return cudaGetLastError();
+  const int n_rows = B * T, rows_per_block = kLBM / L;
+  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, H / G);
+  kernel<<<grid, LQkvGemm<W>::kThreads, smem, stream>>>(
+      x, (const V*)shift, (const V*)scale, mask, (const W*)qkv_w, (const V*)qkv_b,
+      (const V*)bias_k, (const V*)bias_v, sin_t, cos_t, (W*)ao, n_rows, T, L, C, H, G,
+      use_rope, q_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_gated_out_proj<W, V>((const W*)ao, out_w, out_b, gate, x, y, n_rows * L, T * L,
+                                     C, C, stream);
 }
 
 }  // namespace mdgen
 
+// ao: scratch [B*T*L, C] in the operand dtype (allocated by the caller).
 extern "C" int mdgen_fused_l_sublayer(
     const float* x, float* y, const void* shift, const void* scale,
     const void* gate, const float* mask, const void* qkv_w, const void* qkv_b,
     const void* bias_k, const void* bias_v, const void* out_w, const void* out_b,
-    const float* sin_t, const float* cos_t, int B, int T, int L, int C, int H,
+    const float* sin_t, const float* cos_t, void* ao, int B, int T, int L, int C, int H,
     int use_rope, float q_scale, int w_bf16, int v_bf16, void* stream) {
   using namespace mdgen;
   using bf = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
 #define MDGEN_L_ARGS x, y, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v, \
-    out_w, out_b, sin_t, cos_t, B, T, L, C, H, use_rope, q_scale, s
+    out_w, out_b, sin_t, cos_t, ao, B, T, L, C, H, use_rope, q_scale, s
   if (w_bf16 && v_bf16) return launch_l<bf, bf>(MDGEN_L_ARGS);
   if (w_bf16) return launch_l<bf, float>(MDGEN_L_ARGS);
   if (v_bf16) return launch_l<float, bf>(MDGEN_L_ARGS);

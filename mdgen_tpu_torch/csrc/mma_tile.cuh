@@ -1,0 +1,399 @@
+// Tensor-core tile GEMM for the serving sublayers (kernels 1 and 3; kernel 2
+// keeps the CUDA-core gemm16 of common.cuh for now).
+//
+// A block of WARPS_M x WARPS_N x WARPS_K warps computes, per pass, a
+// [BM, BN] tile of
+//   acc(r, n) = sum_k A(r, k) * W(n, k)
+// with A row-major [rows, K] and W in nn.Linear layout [out, in]: K is
+// contiguous, which is already the "col" B operand of mma.sync, so no
+// transpose. Both operands are of the compute dtype W:
+//   * bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32, fragments loaded with
+//     ldmatrix. The products of bf16 values are exact in f32.
+//   * f32: split TF32 on mma.sync.m16n8k8. Each operand is x = big + small
+//     with big = tf32(x) and small = tf32(x - big); the tile accumulates
+//     a_small*b_big + a_big*b_small + a_big*b_big and drops a_small*b_small
+//     (about 2^-22 of the product), the 3xTF32 of PyTorch's memory-efficient
+//     attention. Plain TF32 keeps 10 mantissa bits, too few for the f32
+//     serving path's 1e-4 parity.
+// mma.sync and not wgmma: at the serving shape (400 tokens) a 64-row wgmma
+// tile would leave 7 token tiles; 32-row tiles of mma.sync give 100 to 160
+// blocks a launch, and at these sizes launch latency and L2 traffic bound
+// the kernels, not the MMA rate.
+//
+// Tiles come into shared memory with cp.async (16 bytes a copy) through a
+// ring of STAGES stages of BK columns: the next stages' copies are in
+// flight while the current one multiplies. At these sizes one warp per
+// scheduler leaves every latency exposed, so blocks run 8 to 16 warps;
+// where the output tile is too small for that, WARPS_K groups of warps take
+// alternate k16 (or k8) steps of each stage and are summed through shared
+// memory at the end, in a fixed order. Every sum runs in a fixed order (no
+// atomics, no split-K across blocks), so results are bit-deterministic.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace mdgen {
+
+// Reduction depth of one stage: 64 bf16 (128 bytes a row) or 32 floats, so
+// a stage's copies are large enough to keep the L2 busy; resident A tiles
+// are padded to whole stages of the deepest.
+template <typename W> __host__ __device__ constexpr int gemm_bk() {
+  return sizeof(W) == 2 ? 64 : 32;
+}
+constexpr int kMaxBK = 64;
+
+// Row stride (elements) of shared tiles. A pad of 16 bytes (bf16) puts the
+// 8 rows one ldmatrix phase reads on distinct banks; a pad of 4 floats (f32)
+// makes the stride 4 mod 32 banks, so the scalar fragment loads of a warp
+// hit 32 distinct banks.
+template <typename W> __host__ __device__ constexpr int smem_pad() {
+  return sizeof(W) == 2 ? 8 : 4;
+}
+template <typename W> __host__ __device__ constexpr int copy_elems() {
+  return 16 / (int)sizeof(W);
+}
+template <typename W, int BK> __host__ __device__ constexpr int tile_ld() {
+  return BK + smem_pad<W>();
+}
+// stride of an A tile held whole in shared memory: K in whole stages, + pad
+template <typename W> __host__ __device__ inline int resident_ld(int K) {
+  return (K + kMaxBK - 1) / kMaxBK * kMaxBK + smem_pad<W>();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; with valid false nothing is read and
+// the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = big + small, both TF32 (x - big is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// One warp's [MT*16, NT*8] tile over KSPAN columns. A: the warp's first row
+// and column, row-major with stride lda; B: the warp's first column n and
+// first k as a [n][k] tile with stride ldb (both in shared memory).
+template <typename W, int MT, int NT, int KSPAN> struct WarpMma;
+
+template <int MT, int NT, int KSPAN> struct WarpMma<__nv_bfloat16, MT, NT, KSPAN> {
+  static_assert(KSPAN % 16 == 0, "k16 steps");
+  __device__ __forceinline__ static void run(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
+                                             int lda, const __nv_bfloat16* B, int ldb) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < KSPAN; kk += 16) {
+      uint32_t a[MT][4], b[NT][2];
+      // x4: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15), lane l gives a row of matrix l / 8
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], A + (mt * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
+      // x2: n 0-7 at k 0-7 and at k 8-15 (lanes 16-31 repeat valid addresses)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        ldmatrix_x2(b[nt], B + (nt * 8 + (lane & 7)) * ldb + kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+};
+
+template <int MT, int NT, int KSPAN> struct WarpMma<float, MT, NT, KSPAN> {
+  static_assert(KSPAN % 8 == 0, "k8 steps");
+  __device__ __forceinline__ static void run(float (&acc)[MT][NT][4], const float* A, int lda,
+                                             const float* B, int ldb) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < KSPAN; kk += 8) {
+      uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+        const float* p = A + (mt * 16 + g) * lda + kk + t;
+        split_tf32(p[0], ab[mt][0], as[mt][0]);
+        split_tf32(p[8 * lda], ab[mt][1], as[mt][1]);
+        split_tf32(p[4], ab[mt][2], as[mt][2]);
+        split_tf32(p[8 * lda + 4], ab[mt][3], as[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        // b0 (k t, n g), b1 (k t+4, n g)
+        const float* p = B + (nt * 8 + g) * ldb + kk + t;
+        split_tf32(p[0], bb[nt][0], bs[nt][0]);
+        split_tf32(p[4], bb[nt][1], bs[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_tf32(acc[mt][nt], as[mt], bb[nt]);
+          mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
+          mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
+        }
+    }
+  }
+};
+
+// Copy columns [k0, k0 + BK) of R rows into a [R][tile_ld] stage. rowp(r)
+// points at row r's first element, or is nullptr past the valid rows; such
+// rows, and columns at or past K, are zero-filled (K % copy_elems == 0).
+// `any` is a valid address for the copies that read nothing.
+template <typename W, int R, int BK, typename RowPtr>
+__device__ __forceinline__ void stage_rows(W* dst, RowPtr rowp, const W* any, int k0, int K) {
+  constexpr int kPerRow = BK / copy_elems<W>();
+  for (int i = threadIdx.x; i < R * kPerRow; i += blockDim.x) {
+    const int r = i / kPerRow, c = (i % kPerRow) * copy_elems<W>();
+    const W* src = rowp(r);
+    const bool ok = src != nullptr && k0 + c < K;
+    cp_async16(dst + r * tile_ld<W, BK>() + c, ok ? src + k0 + c : any, ok);
+  }
+}
+
+// Block GEMM: for n0 = 0, BN, ... < N, the [BM, BN] tile at columns n0 is
+// accumulated over all K and handed to epi(r, n, acc) for r < BM, n < N.
+// A_RES: A is resident in shared memory ([BM][lda], zero past K); else A is
+// streamed with W from arow(r) (global row pointers, nullptr past the valid
+// rows). wrow(n) is the global row pointer of output column n. `stages`
+// holds smem_bytes of shared memory. pre() runs once, after the first
+// stages' copies are issued and before the first multiply (a resident A is
+// written there, while the weights are in flight). Called by all kThreads
+// threads of the block.
+template <typename W, int BM, int BN, int WARPS_M, int WARPS_N, int WARPS_K, bool A_RES,
+          int STAGES, int BK = gemm_bk<W>()>
+struct TileGemm {
+  static constexpr int kThreads = 32 * WARPS_M * WARPS_N * WARPS_K;
+  static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N, KSPAN = BK / WARPS_K;
+  static constexpr int MT = WTM / 16, NT = WTN / 8;
+  static_assert(MT * 16 == WTM && NT * 8 == WTN && MT > 0 && NT > 0, "warp tile");
+  static_assert(KSPAN * WARPS_K == BK && BK <= kMaxBK, "k groups");
+  static_assert(STAGES >= 2, "a ring of two stages at least");
+  static constexpr int kARows = A_RES ? 0 : BM;
+  static constexpr int kStageElems = (kARows + BN) * tile_ld<W, BK>();
+  static constexpr size_t smem_bytes = (size_t)STAGES * kStageElems * sizeof(W);
+  static constexpr int kStagesAhead = STAGES - 1;  // stages issued before the first multiply
+  static_assert((WARPS_K - 1) * BM * BN * sizeof(float) <= smem_bytes, "k-group sums fit");
+
+  template <typename ARow, typename WRow, typename Pre, typename Epi>
+  __device__ __forceinline__ static void run(const W* As, int lda, ARow arow, WRow wrow,
+                                             const W* any, int K, int N, W* stages, Pre pre,
+                                             Epi epi) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wk = warp / (WARPS_M * WARPS_N), wmn = warp % (WARPS_M * WARPS_N);
+    const int wm = wmn / WARPS_N, wn = wmn % WARPS_N;
+    const int nk = (K + BK - 1) / BK;
+    constexpr int ld = tile_ld<W, BK>();
+    for (int n0 = 0; n0 < N; n0 += BN) {
+      auto load = [&](int kt) {
+        W* st = stages + (kt % STAGES) * kStageElems;
+        if constexpr (!A_RES) stage_rows<W, BM, BK>(st, arow, any, kt * BK, K);
+        stage_rows<W, BN, BK>(
+            st + kARows * ld,
+            [&](int r) -> const W* { return n0 + r < N ? wrow(n0 + r) : nullptr; }, any,
+            kt * BK, K);
+      };
+#pragma unroll
+      for (int s = 0; s < kStagesAhead; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();  // empty groups keep the count uniform
+      }
+      if (n0 == 0) pre();
+      float acc[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<STAGES - 2>();  // stage kt has landed (this thread's copies)
+        __syncthreads();              // ... everyone's; and stage kt-1 is consumed
+        if (kt + kStagesAhead < nk) load(kt + kStagesAhead);
+        cp_async_commit();
+        const W* st = stages + (kt % STAGES) * kStageElems;
+        const int k_off = wk * KSPAN;
+        const W* a = A_RES ? As + wm * WTM * lda + kt * BK + k_off : st + wm * WTM * ld + k_off;
+        WarpMma<W, MT, NT, KSPAN>::run(acc, a, A_RES ? lda : ld,
+                                       st + (kARows + wn * WTN) * ld + k_off, ld);
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the stages are free: they hold the k groups' sums
+      if constexpr (WARPS_K > 1) {
+        float* red = reinterpret_cast<float*>(stages);
+        constexpr int kPerWarp = MT * NT * 4 * 32;
+        if (wk > 0) {
+          float* dst = red + ((wk - 1) * WARPS_M * WARPS_N + wmn) * kPerWarp + lane;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) dst[((mt * NT + nt) * 4 + i) * 32] = acc[mt][nt][i];
+        }
+        __syncthreads();
+        if (wk == 0) {
+#pragma unroll 1
+          for (int j = 1; j < WARPS_K; ++j) {  // k groups in order: deterministic
+            const float* src = red + ((j - 1) * WARPS_M * WARPS_N + wmn) * kPerWarp + lane;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[mt][nt][i] += src[((mt * NT + nt) * 4 + i) * 32];
+          }
+        }
+      }
+      if (wk == 0) {
+        const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              // c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+              const int r = wm * WTM + mt * 16 + g + (i >> 1) * 8;
+              const int n = n0 + wn * WTN + nt * 8 + 2 * t + (i & 1);
+              if (n < N) epi(r, n, acc[mt][nt][i]);
+            }
+      }
+      if constexpr (WARPS_K > 1) __syncthreads();  // the sums are read before a refill
+    }
+  }
+};
+
+// Issue (and commit as one group) the copies of the block's x rows into xs
+// ([BM][C] f32, rows past n_valid left alone); C % 4 == 0 and x 16-byte
+// aligned. Committed before the GEMM's first stages, so pre() can wait for
+// it alone with cp_async_wait<kStagesAhead>.
+__device__ __forceinline__ void stage_x_rows(float* xs, const float* __restrict__ x, int tok0,
+                                             int n_valid, int C) {
+  const int per_row = C / 4;
+  for (int i = threadIdx.x; i < n_valid * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i % per_row) * 4;
+    cp_async16(xs + r * C + c, x + (size_t)(tok0 + r) * C + c, true);
+  }
+  cp_async_commit();
+}
+
+// The resident A of a launch from the staged x rows: row r < n_valid is
+// rnd_W(modulate(LN(x[tok0 + r]))) stored as W (the rounding the JAX
+// kernel's astype does), every other element of the [BM][lda] tile 0. One
+// warp per row, reading x from shared memory.
+template <typename W, typename V>
+__device__ __forceinline__ void ln_modulate_rows(const float* xs, const V* __restrict__ shift,
+                                                 const V* __restrict__ scale, int tok0,
+                                                 int n_valid, int tok_per_batch, int C, int BM,
+                                                 W* A, int lda) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < BM; r += blockDim.x >> 5) {
+    W* row = A + r * lda;
+    int c0 = 0;
+    if (r < n_valid) {
+      const int b = (tok0 + r) / tok_per_batch;
+      ln_modulate<W, V, W>(xs + r * C, shift + (size_t)b * C, scale + (size_t)b * C, row, C);
+      c0 = C;
+    }
+    for (int c = c0 + lane; c < lda; c += 32) row[c] = from_f<W>(0.f);
+  }
+}
+
+// y[tok, c] = x[tok, c] + gate[b, c] * (sum_k A[tok, k] w[c, k] + bias[c]):
+// the last projection and gated residual of kernels 1 and 3. Block = (32
+// tokens, 32 output columns), so each block reads only its slice of w; A
+// and w both stream through 8 stages (K is up to 1536 here); 8 warps, two
+// k groups of 2 x 2.
+constexpr int kOutBM = 32, kOutBN = 32;
+template <typename W>
+using OutGemm = TileGemm<W, kOutBM, kOutBN, 2, 2, 2, false, 8>;
+
+template <typename W, typename V>
+__global__ void __launch_bounds__(OutGemm<W>::kThreads)
+gated_out_proj_kernel(const W* __restrict__ A, const W* __restrict__ w,
+                      const V* __restrict__ bias, const V* __restrict__ gate,
+                      const float* __restrict__ x, float* __restrict__ y, int n_tok,
+                      int tok_per_batch, int K, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* stages = reinterpret_cast<W*>(smem_raw);
+  const int tok0 = blockIdx.x * kOutBM, n_valid = min(kOutBM, n_tok - tok0);
+  const int c0 = blockIdx.y * kOutBN;
+  OutGemm<W>::run(
+      nullptr, 0,
+      [&](int r) -> const W* { return r < n_valid ? A + (size_t)(tok0 + r) * K : nullptr; },
+      [&](int n) { return w + (size_t)(c0 + n) * K; }, w, K, min(kOutBN, C - c0), stages,
+      [] {},
+      [&](int r, int n, float acc) {
+        if (r >= n_valid) return;
+        const int tok = tok0 + r, c = c0 + n, b = tok / tok_per_batch;
+        const size_t i = (size_t)tok * C + c;
+        y[i] = x[i] + to_f(gate[(size_t)b * C + c]) * (acc + to_f(bias[c]));
+      });
+}
+
+template <typename W, typename V>
+inline cudaError_t launch_gated_out_proj(const W* A, const void* w, const void* bias,
+                                         const void* gate, const float* x, float* y, int n_tok,
+                                         int tok_per_batch, int K, int C, cudaStream_t stream) {
+  using G = OutGemm<W>;
+  static bool smem_set = false;
+  auto kernel = gated_out_proj_kernel<W, V>;
+  cudaError_t e = allow_smem(kernel, G::smem_bytes, smem_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n_tok + kOutBM - 1) / kOutBM, (C + kOutBN - 1) / kOutBN);
+  kernel<<<grid, G::kThreads, G::smem_bytes, stream>>>(
+      A, (const W*)w, (const V*)bias, (const V*)gate, x, y, n_tok, tok_per_batch, K, C);
+  return cudaGetLastError();
+}
+
+// The largest dynamic shared memory a block of this card may take.
+constexpr size_t kMaxSmem = 227 * 1024;
+
+}  // namespace mdgen

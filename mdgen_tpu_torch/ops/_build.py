@@ -32,9 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: every pointer and the stream are c_void_p, so that
 # ctypes never truncates a 64-bit address.
 SIGNATURES = {
-    "mdgen_fused_l_sublayer": [_P] * 14 + [_I] * 6 + [_F, _I, _I, _P],
+    "mdgen_fused_l_sublayer": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _P],
     "mdgen_fused_t_sublayer": [_P] * 16 + [_I] * 6 + [_F, _I, _I, _P],
-    "mdgen_fused_ffn_sublayer": [_P] * 9 + [_I] * 6 + [_P],
+    "mdgen_fused_ffn_sublayer": [_P] * 10 + [_I] * 6 + [_P],
     "mdgen_flash_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "mdgen_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
     "mdgen_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_P],

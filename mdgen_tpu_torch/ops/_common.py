@@ -84,6 +84,14 @@ def weights(dt, *ws):
     return [w.to(dt).contiguous() for w in ws]
 
 
+def check_aligned16(*ts: torch.Tensor) -> None:
+    """The tensor-core kernels copy x and the weights to shared memory 16
+    bytes at a time: each must start on a 16-byte boundary (a fresh
+    allocation always does; an offset view may not)."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("x and the weights must start on a 16-byte boundary")
+
+
 def vectors(*vs):
     """Small vectors as one dtype the kernel takes: bf16 when all are bf16,
     else all widened to f32 (exact). Returns (is_bf16, tensors)."""

@@ -2,8 +2,9 @@
 
 y = x + gate * out_proj(Attn_L(modulate(LN(x), shift, scale))), forward
 only (it refuses tensors that require grad): attention over the L residues
-of each (b, t) row plus the learned bias token. CPU tensors take :func:`fused_l_sublayer_plain`; CUDA tensors take the
-hand-written kernel ``csrc/fused_l_sublayer.cu`` (or raise).
+of each (b, t) row plus the learned bias token. CPU tensors take
+:func:`fused_l_sublayer_plain`; CUDA tensors take the hand-written kernel
+``csrc/fused_l_sublayer.cu`` (two launches on the tensor cores; or raise).
 """
 from __future__ import annotations
 
@@ -12,8 +13,8 @@ import torch
 from ..models.attention import NEG_INF, rotate_half
 from . import _build
 from ._common import (
-    check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rope_tables, same_device,
-    stream_ptr, vectors, weights,
+    check_aligned16, check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rope_tables,
+    same_device, stream_ptr, vectors, weights,
 )
 
 
@@ -73,23 +74,26 @@ def fused_l_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
     B, T, L, C = x.shape
     H = num_heads
     hd = C // H
-    if L > 16 or hd * H != C or hd % 2 or qkv_w.shape != (3 * C, C) or mask.shape != (B, L):
+    if (L > 16 or hd * H != C or hd % 2 or C % 8 or qkv_w.shape != (3 * C, C)
+            or mask.shape != (B, L)):
         raise ValueError("fused_l_sublayer: unsupported shape")
     same_device(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v, out_w, out_b)
     qkv_wc, out_wc = weights(compute_dtype, qkv_w, out_w)
+    check_aligned16(x, qkv_wc, out_wc)
     v_bf16, (sh, sc, g, qb, bk, bv, ob) = vectors(
         shift, scale, gate, qkv_b, bias_k.reshape(-1), bias_v.reshape(-1), out_b
     )
     mask = mask.float().contiguous()
     sin, cos = rope_tables(L + 1, hd, x.device)
     y = torch.empty_like(x)
+    ao = torch.empty((B * T * L, C), dtype=compute_dtype, device=x.device)  # attention out
     if x.numel():
         _build.call(
             "mdgen_fused_l_sublayer",
             x.data_ptr(), y.data_ptr(), sh.data_ptr(), sc.data_ptr(), g.data_ptr(),
             mask.data_ptr(), qkv_wc.data_ptr(), qb.data_ptr(), bk.data_ptr(),
             bv.data_ptr(), out_wc.data_ptr(), ob.data_ptr(), sin.data_ptr(),
-            cos.data_ptr(), B, T, L, C, H, int(use_rope), float(hd**-0.5),
+            cos.data_ptr(), ao.data_ptr(), B, T, L, C, H, int(use_rope), float(hd**-0.5),
             int(compute_dtype == torch.bfloat16), v_bf16, stream_ptr(),
         )
         fused_l_sublayer.launches += 1

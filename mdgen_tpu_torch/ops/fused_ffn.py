@@ -3,7 +3,7 @@
 y = x + gate * fc2(gelu(fc1(modulate(LN(x), shift, scale)))), forward only:
 it refuses tensors that require grad. CPU tensors take
 :func:`fused_ffn_sublayer_plain`; CUDA tensors take the hand-written kernel
-``csrc/fused_ffn.cu`` (or raise).
+``csrc/fused_ffn.cu`` (two launches on the tensor cores; or raise).
 """
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ import torch
 
 from . import _build
 from ._common import (
-    check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, same_device, stream_ptr,
-    vectors, weights,
+    check_aligned16, check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, same_device,
+    stream_ptr, vectors, weights,
 )
 
 
@@ -43,15 +43,19 @@ def fused_ffn_sublayer(x, shift, scale, gate, w1, b1, w2, b2, *,
     Hd = w1.shape[0]
     if w1.shape != (Hd, C) or w2.shape != (C, Hd) or shift.shape != (B, 1, C):
         raise ValueError("fused_ffn_sublayer: shape mismatch")
+    if C % 8 or Hd % 8:
+        raise ValueError("fused_ffn_sublayer: widths must be multiples of 8")
     same_device(x, shift, scale, gate, w1, b1, w2, b2)
     w1c, w2c = weights(compute_dtype, w1, w2)
+    check_aligned16(x, w1c, w2c)
     v_bf16, (sh, sc, g, b1c, b2c) = vectors(shift, scale, gate, b1, b2)
     y = torch.empty_like(x)
+    hid = torch.empty((B * T * L, Hd), dtype=compute_dtype, device=x.device)  # gelu(fc1)
     if x.numel():
         _build.call(
             "mdgen_fused_ffn_sublayer",
             x.data_ptr(), y.data_ptr(), sh.data_ptr(), sc.data_ptr(), g.data_ptr(),
-            w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(),
+            w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(), hid.data_ptr(),
             B * T * L, T * L, C, Hd, int(compute_dtype == torch.bfloat16), v_bf16,
             stream_ptr(),
         )

@@ -10,7 +10,9 @@ no CUDA device is present.
 
 Shapes: the main path's (B=1, T=100, L=4, C=384, 16 heads, hidden 1536),
 plus the edges of the model's gates (L=16 and L=3 residues, T=1024 frames)
-and a batch of 2 with a masked residue.
+and a batch of 2 with a masked residue; and token counts that are no
+multiple of the 32-token tiles of the tensor-core kernels 1 and 3 (4
+tokens; B=3, T=37; L = 1 and 7), which must also be bit-deterministic.
 
 Tolerances: f32 1e-4 (the same f32 operands, sums of 384..1536 products
 taken in another order, |y| up to ~10); bf16 operands 1e-2 (both versions
@@ -67,7 +69,10 @@ ATTN = {
 # name: (B, T, L)
 # (T1024, the frame kernel's gate, is only a batch size to the residue kernel)
 SHAPES = {"main": (1, 100, 4), "batch2": (2, 37, 4), "L16": (1, 20, 16), "L3": (2, 30, 3),
-          "T1024": (1, 1024, 2)}
+          "T1024": (1, 1024, 2), "tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1),
+          "L7": (2, 19, 7)}
+# the tile edges of the tensor-core kernels (1 and 3)
+EDGES = ["main", "tokens4", "batch3", "L1", "L7", "L16"]
 
 
 def _check(y, ref, dt):
@@ -108,7 +113,7 @@ def test_attention_kernel_without_rope(kernel, use_rope):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", ["main", "batch2", "L3"])
+@pytest.mark.parametrize("shape", ["batch2", "L3"] + EDGES)
 def test_ffn_kernel_matches_plain(shape, dtype):
     _need_cuda()
     B, T, L = SHAPES[shape]
@@ -119,6 +124,51 @@ def test_ffn_kernel_matches_plain(shape, dtype):
     y = ops.fused_ffn_sublayer(*args, compute_dtype=dt)
     assert ops.fused_ffn_sublayer.launches == before + 1
     _check(y, ops.fused_ffn_sublayer_plain(*args, compute_dtype=dt), dt)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", ["main", "batch3", "L7"])
+@pytest.mark.parametrize("kernel", ["l", "ffn"])
+def test_tensor_core_kernels_are_deterministic(kernel, shape, dtype):
+    """No sum crosses blocks (no atomics): two calls give the same bits."""
+    _need_cuda()
+    a = _inputs(*SHAPES[shape], DTYPES[dtype], seed=2)
+    if kernel == "l":
+        fn, args, kw = ops.fused_l_sublayer, [a[n] for n in ATTN_ARGS], dict(num_heads=H)
+    else:
+        fn, args, kw = ops.fused_ffn_sublayer, [a[n] for n in FFN_ARGS], {}
+    kw["compute_dtype"] = DTYPES[dtype]
+    y1, y2 = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+def test_tensor_core_kernels_refuse_widths_off_16_bytes():
+    """Kernels 1 and 3 copy rows 16 bytes at a time: C % 8 != 0 raises."""
+    _need_cuda()
+    c = 36
+    z = lambda *s: torch.zeros(*s, device="cuda")  # noqa: E731
+    x, v = torch.randn(1, 2, 4, c, device="cuda"), z(1, 1, c)
+    with pytest.raises(ValueError):
+        ops.fused_ffn_sublayer(x, v, v, v, z(4 * c, c), z(4 * c), z(c, 4 * c), z(c),
+                               compute_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        ops.fused_l_sublayer(x, v, v, v, torch.ones(1, 4, device="cuda"), z(3 * c, c),
+                             z(3 * c), z(c), z(c), z(c, c), z(c), num_heads=2,
+                             compute_dtype=torch.float32)
+
+
+def test_tensor_core_kernels_refuse_rows_off_16_bytes():
+    """x and the weights are copied 16 bytes at a time: a view that starts
+    4 bytes into its storage raises instead of being copied."""
+    _need_cuda()
+    a = _inputs(1, 8, 4, torch.float32)
+    x = torch.empty(a["x"].numel() + 1, device="cuda")[1:].view_as(a["x"]).copy_(a["x"])
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.fused_ffn_sublayer(x, *[a[n] for n in FFN_ARGS[1:]], compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.fused_l_sublayer(x, *[a[n] for n in ATTN_ARGS[1:]], num_heads=H,
+                             compute_dtype=torch.float32)
 
 
 def test_kernels_refuse_what_they_do_not_take():

@@ -1,0 +1,237 @@
+"""The port keeps its own copies: no module of ``mdgen_tpu_torch`` (and
+nothing ``chip_smoke.py`` imports) opens or imports a file of the JAX
+package, and each copy the port keeps of a jax-free JAX module agrees with
+its original: the config, the residue constants, the batching loader, the
+metric logger and the graceful stop.
+"""
+import argparse
+import ast
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+
+import mdgen_tpu_torch
+from mdgen_tpu import config as jax_config
+from mdgen_tpu.data.loader import Loader as JaxLoader
+from mdgen_tpu.geometry import constants as jax_rc
+from mdgen_tpu.runtime.metrics import MetricLogger as JaxMetricLogger
+from mdgen_tpu.runtime.preempt import GracefulStop as JaxGracefulStop
+from mdgen_tpu_torch import config as torch_config
+from mdgen_tpu_torch.data.loader import Loader as TorchLoader
+from mdgen_tpu_torch.geometry import constants as torch_rc
+from mdgen_tpu_torch.runtime.metrics import MetricLogger as TorchMetricLogger
+from mdgen_tpu_torch.runtime.preempt import GracefulStop as TorchGracefulStop
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Imports the given modules with an audit hook that refuses any open of a
+# file under mdgen_tpu/ (a .py or its cached .pyc), then checks that neither
+# jax nor any mdgen_tpu module was imported.
+_PROBE = textwrap.dedent("""
+    import importlib, os, sys
+    repo, names = sys.argv[1], sys.argv[2:]
+    jax_pkg = os.path.join(repo, "mdgen_tpu") + os.sep
+    def hook(event, args):
+        if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+            path = os.path.abspath(os.fsdecode(args[0]))
+            if path.startswith(jax_pkg):
+                raise RuntimeError(f"opened a file of the JAX package: {path}")
+    sys.path.insert(0, repo)
+    sys.addaudithook(hook)
+    for name in names:
+        importlib.import_module(name)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "mdgen_tpu"))
+    assert not bad, f"imported {bad}"
+    print(f"imported {len(names)} modules")
+""")
+
+
+def _probe(names):
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, "-c", _PROBE, REPO, *names], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def _port_modules():
+    names = ["mdgen_tpu_torch"]
+    for info in pkgutil.walk_packages(mdgen_tpu_torch.__path__, "mdgen_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def _chip_smoke_imports():
+    """chip_smoke itself and every module it imports anywhere in its body."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = {"chip_smoke"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+            for a in node.names:  # `from pkg import module`
+                full = f"{node.module}.{a.name}"
+                if node.module.startswith("mdgen_tpu_torch") and _is_module(full):
+                    names.add(full)
+    return sorted(names)
+
+
+def _is_module(name):
+    return os.path.exists(os.path.join(REPO, *name.split(".")) + ".py") or os.path.isdir(
+        os.path.join(REPO, *name.split(".")))
+
+
+@pytest.mark.parametrize("which", ["package", "chip_smoke"])
+def test_nothing_opens_a_file_of_the_jax_package(which):
+    names = _port_modules() if which == "package" else _chip_smoke_imports()
+    assert len(names) > (30 if which == "package" else 10)
+    r = _probe(names)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert f"imported {len(names)} modules" in r.stdout
+
+
+def _fields(cls):
+    return [(f.name, f.type, f.default, f.default_factory) for f in dataclasses.fields(cls)]
+
+
+def test_config_fields_and_defaults_match():
+    assert _fields(torch_config.MDGenConfig) == _fields(jax_config.MDGenConfig)
+    j, t = jax_config.MDGenConfig(), torch_config.MDGenConfig()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.to_json() == j.to_json()
+    for kw in ({}, {"tps_condition": True}, {"design": True}, {"no_frames": True}):
+        assert t.replace(**kw).latent_dim == j.replace(**kw).latent_dim
+
+
+RECIPE_4AA = ["--sim_condition", "--train_split", "splits/4AA_sim_train.csv", "--val_split",
+              "splits/4AA_sim_val.csv", "--data_dir", "data/4AA_sims", "--num_frames", "1000",
+              "--prepend_ipa", "--abs_pos_emb", "--crop", "4", "--ckpt_freq", "40",
+              "--val_repeat", "25", "--epochs", "10000", "--run_name", "4AA_sim",
+              "--abs_time_emb", "--path-type", "GVP", "--precision", "bf16-mixed"]
+
+
+def test_config_from_4aa_recipe_args_matches():
+    def parse(mod):
+        parser = mod.add_model_args(argparse.ArgumentParser())
+        args, _ = parser.parse_known_args(RECIPE_4AA)
+        return dataclasses.asdict(mod.config_from_args(args))
+
+    got, want = parse(torch_config), parse(jax_config)
+    assert got == want
+    assert got["num_frames"] == 1000 and got["crop"] == 4 and got["sim_condition"]
+    # a port config round-trips through the JAX package's JSON and back
+    cfg = torch_config.MDGenConfig(**got)
+    assert jax_config.MDGenConfig.from_json(cfg.to_json()) == jax_config.MDGenConfig(**want)
+
+
+def _public(mod):
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("_") and not callable(v) and not isinstance(v, type(np))
+            and k != "annotations"}
+
+
+def test_residue_constants_match():
+    want, got = _public(jax_rc), _public(torch_rc)
+    assert sorted(got) == sorted(want)
+    for name, ref in want.items():
+        if isinstance(ref, np.ndarray):
+            assert got[name].dtype == ref.dtype and np.array_equal(got[name], ref), name
+        elif name == "rigid_group_atom_positions":
+            assert {k: [(a, g, p.tolist()) for a, g, p in v] for k, v in got[name].items()} == \
+                {k: [(a, g, p.tolist()) for a, g, p in v] for k, v in ref.items()}
+        else:
+            assert got[name] == ref, name
+    for seq in ("ACDE", "XWYZ", ""):
+        aat = torch_rc.str_sequence_to_aatype(seq)
+        assert np.array_equal(aat, jax_rc.str_sequence_to_aatype(seq))
+        assert torch_rc.aatype_to_str_sequence(aat) == jax_rc.aatype_to_str_sequence(aat)
+
+
+class _Items:
+    def __init__(self, n):
+        rng = np.random.default_rng(7)
+        self.items = [{"atom14": rng.normal(size=(3, 2, 14, 3)).astype(np.float32),
+                       "seqres": rng.integers(0, 20, size=2), "mask": np.ones(2, np.float32),
+                       "name": f"p{i}"} for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+@pytest.mark.parametrize("kw", [dict(batch_size=2, seed=3),
+                                dict(batch_size=3, seed=0, drop_last=False, max_batches=3),
+                                dict(batch_size=4, seed=1, num_shards=2, shard_id=1),
+                                dict(batch_size=2, shuffle=False)],
+                         ids=["shuffle", "ragged", "shard", "ordered"])
+def test_loader_yields_the_same_batches(kw):
+    ds = _Items(9)
+    want, got = list(JaxLoader(ds, **kw)), list(TorchLoader(ds, **kw))
+    assert len(got) == len(want) == len(JaxLoader(ds, **kw)) == len(TorchLoader(ds, **kw))
+    assert len(got) > 0
+    for a, b in zip(got, want):
+        assert a["name"] == b["name"]
+        for k in ("atom14", "seqres", "mask"):
+            assert np.array_equal(a[k], b[k])
+
+
+def _sentinel_case(cls, tmp, case):
+    """Returns (removed, poll) for one STOP-sentinel scenario."""
+    run = os.path.join(tmp, cls.__module__.replace(".", "_"), case)
+    os.makedirs(run)
+    stop = os.path.join(run, "STOP")
+    now = time.time()
+    if case != "no_checkpoint":
+        os.makedirs(os.path.join(run, "step_10"))
+        os.makedirs(os.path.join(run, "step_x"))  # not a step: ignored
+    with open(stop, "w"):
+        pass
+    if case == "consumed":  # the stop that saved step_10
+        os.utime(stop, (now - 100, now - 100))
+        os.utime(os.path.join(run, "step_10"), (now - 50, now - 50))
+    elif case == "queued":  # asked for after the newest checkpoint
+        os.utime(os.path.join(run, "step_10"), (now - 100, now - 100))
+        os.utime(stop, (now - 50, now - 50))
+    gs = cls(sentinel_path=stop, install_signal=False)
+    try:
+        removed = gs.clear_sentinel(ckpt_dir=run)
+        return removed, os.path.exists(stop), gs.poll()
+    finally:
+        gs.close()
+
+
+@pytest.mark.parametrize("case", ["consumed", "queued", "no_checkpoint"])
+def test_graceful_stop_tells_consumed_from_queued(case, tmp_path):
+    want = _sentinel_case(JaxGracefulStop, str(tmp_path), case)
+    got = _sentinel_case(TorchGracefulStop, str(tmp_path), case)
+    assert got == want
+    # commit 1cba0a5: a consumed sentinel is cleared, a queued one is honored
+    assert got == ((True, False, False) if case == "consumed" else (False, True, True))
+
+
+def test_metric_logger_flushes_the_same_means_and_csv(tmp_path):
+    """The port writes with ``csv`` the CSV the JAX logger writes with pandas."""
+    pytest.importorskip("pandas")
+    out = {}
+    for name, cls in (("jax", JaxMetricLogger), ("torch", TorchMetricLogger)):
+        d = tmp_path / name
+        d.mkdir()
+        log = cls(model_dir=str(d))
+        for i, v in enumerate((0.5, 1.25, float("nan"), 2.0)):
+            log.log_dict({"loss": v, "grad_norm": 10 * i})
+        log.log("loss", 3.0, stage="val")
+        means = log.flush("train", save=True, epoch=3, step=7)
+        out[name] = (means, (d / "train_3.csv").read_text(), log.flush("val", epoch=3, step=7))
+    (jm, jcsv, jval), (tm, tcsv, tval) = out["jax"], out["torch"]
+    assert tm == jm and tval == jval
+    assert tm["train_loss"] == pytest.approx(1.25)
+    assert tcsv.splitlines() == jcsv.splitlines()
