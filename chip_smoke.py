@@ -27,11 +27,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      ran exactly 5 layers x 99 steps x 5 rollouts = 2475 times;
   6. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
-     a masked residue, f32 and bf16 operands; times kernel, plain twin and
-     the library call (PyTorch's memory-efficient attention: forward,
-     forward with logsumexp, and its backward, one call for kernels 6 and 7)
-     with CUDA events, in both dtypes, and each kernel's device time around
-     a CUDA graph of 5 calls;
+     a masked residue, f32 and bf16 operands; the tensor-core backward
+     (kernels 6 and 7) also at edge shapes (Tq below one MMA tile, one past
+     two 64-row tiles, N=1, d = 7, 8, 40, 64), and twice on the same inputs
+     (bit-equal, `[edge]` lines); times kernel, plain twin and the library
+     call (PyTorch's memory-efficient attention: forward, forward with
+     logsumexp, and its backward, one call for kernels 6 and 7) with CUDA
+     events, in both dtypes, and kernel and library device time around a
+     CUDA graph of 5 calls, each beside its bound (f32: split TF32; bf16
+     operands: bf16 tensor cores);
   7. model gradient parity: one training loss and backward of the 5 x 384 x
      16 model at the recipe shape (B=8, T=1000, L=4, f32) through the flash
      kernels against dense attention: loss, every gradient, the grad norm;
@@ -50,7 +54,9 @@ Phases, in order; any failure raises and the exit code is not 0:
       the device's busy share, launches per evaluation, frames/s;
   11. the kernels JSON line (with each kernel's bound: the larger of the
       bytes it must move over 3.35 TB/s and its operations over the peak of
-      their type), the nvidia-smi line, and the result line.
+      their type; the flash kernels add their bf16 device, library and
+      bound times and the f32 bound on CUDA cores), the nvidia-smi line, and
+      the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -75,9 +81,18 @@ TOL = {"f32": 1e-4, "bf16": 1e-2}
 B_TRAIN, TRAIN_FRAMES, TRAIN_EPOCHS = 8, 1000, 20
 # flash kernels vs plain twins: o and lse absolute, gradients relative to
 # their largest entry; f32 sums of 1001 keys (or 1000 queries) in another
-# order; bf16 operands: the outputs are rounded to bf16 (one ulp is 2^-8)
-FLASH_TOL = {"f32": {"abs": 1e-4, "rel": 1e-3}, "bf16": {"abs": 1e-2, "rel": 1e-2}}
+# order, which split TF32 keeps to about 2e-5 (a split that lost a term
+# reads 1e-4 and more: tools/split_tf32_check.py); bf16 operands: the
+# outputs are rounded to bf16 (one ulp is 2^-8)
+FLASH_TOL = {"f32": {"abs": 1e-4, "rel": 1e-4}, "bf16": {"abs": 1e-2, "rel": 1e-2}}
 FLASH_SRC = "mdgen_tpu_torch/csrc/flash_attention.cu"
+# the tensor-core backward (kernels 6 and 7): (N, Tq, Tk, d) at its tile
+# edges, Tq below one 16-row MMA tile, one past two 64-row tiles, N = 1, the
+# widths it pads to a whole MMA step, and d = 7 (rows of no whole 16 bytes,
+# loaded element by element)
+FLASH_EDGE_SHAPES = {"tq5": (2, 5, 6, 24), "tile_plus_one": (2, 129, 129, 24),
+                     "n1": (1, 65, 200, 32), "d8": (2, 300, 301, 8), "d40": (2, 70, 65, 40),
+                     "d64": (2, 64, 64, 64), "d7": (2, 33, 70, 7)}
 KERNELS = {
     "fused_l_sublayer": ("mdgen_tpu_torch/csrc/fused_l_sublayer.cu", "mdgen_tpu/ops/fused_block.py:238"),
     "fused_t_sublayer": ("mdgen_tpu_torch/csrc/fused_t_sublayer.cu", "mdgen_tpu/ops/fused_t_block.py:201"),
@@ -97,6 +112,7 @@ EDGE_SHAPES = {"tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1), "L7
 # f32 product, shown beside it)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
+PEAK_NAMES = {"bf16": "bf16 tensor cores", "f32": "f32 CUDA cores", "3xtf32": "split TF32"}
 
 
 def log(*a):
@@ -350,7 +366,9 @@ def phase_flash_parity(torch):
     attention (N = B*L*H = 512 rows, Tq = 1000 frames, Tk = 1001 with the
     bias token, d = 24), with one masked residue's 16 rows (every frame key
     finfo.min, only the bias key valid), in f32 and with bf16 operands. The
-    backward kernels take the twin's (o, lse) so that each is held alone."""
+    backward kernels take the twin's (o, lse) so that each is held alone;
+    they run twice and must give the same bits. Then kernels 6 and 7 at the
+    edge shapes."""
     fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")  # not the function
 
     N, Tq, Tk, d = B_TRAIN * L * H, TRAIN_FRAMES, TRAIN_FRAMES + 1, C // H
@@ -368,11 +386,14 @@ def phase_flash_parity(torch):
         bwd = (qd, kd, vd, bias, dod, lse_ref, delta)
         o4 = fa.flash_fwd(qd, kd, vd, bias)
         o5, lse5 = fa.flash_fwd_lse(qd, kd, vd, bias)
-        dq = fa.flash_bwd_dq(*bwd)
-        dk, dv, db = fa.flash_bwd_dkv(*bwd)
+        dq, dq2 = fa.flash_bwd_dq(*bwd), fa.flash_bwd_dq(*bwd)
+        (dk, dv, db), dkv2 = fa.flash_bwd_dkv(*bwd), fa.flash_bwd_dkv(*bwd)
         dq_r = fa.flash_bwd_dq_plain(*bwd)
         dk_r, dv_r, db_r = fa.flash_bwd_dkv_plain(*bwd)
         torch.cuda.synchronize()
+        same = {"flash_fwd": True, "flash_fwd_lse": True, "flash_bwd_dq": torch.equal(dq, dq2),
+                "flash_bwd_dkv": all(torch.equal(a, b) for a, b in zip((dk, dv, db), dkv2))}
+        del dq2, dkv2
         # o and lse: absolute; gradients: relative to their largest entry
         errs = {
             "flash_fwd": [("o", (o4.float() - o_ref.float()).abs().max().item(), "abs")],
@@ -389,14 +410,18 @@ def phase_flash_parity(torch):
         for name, checks in errs.items():
             for what, err, kind in checks:
                 tol = FLASH_TOL[dname][kind]
-                ok = err <= tol and all(bool(torch.isfinite(t).all()) for t in outs[name])
-                log(f"[flash] {name} {dname}: {what} {kind} err {err:.3e}, tol {tol:g} -> "
+                ok = (err <= tol and same[name]
+                      and all(bool(torch.isfinite(t).all()) for t in outs[name]))
+                twice = f", bit-equal twice {same[name]}" if name.startswith("flash_bwd") else ""
+                log(f"[flash] {name} {dname}: {what} {kind} err {err:.3e}, tol {tol:g}{twice} -> "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError(f"{name} {dname} {what} disagrees with its plain twin: {err}")
+                    raise AssertionError(f"{name} {dname} {what} disagrees with its plain twin: "
+                                         f"{err}, bit-equal twice {same[name]}")
             abs_err = max((a.float() - b.float()).abs().max().item()
                           for a, b in zip(outs[name], refs[name]))
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
+        del o_ref, dq_r, dk_r, dv_r, db_r, refs, outs, o4, o5, dq, dk, dv, db
         timed = {
             "flash_fwd": (lambda: fa.flash_fwd(qd, kd, vd, bias),
                           lambda: fa.flash_attention_plain(qd, kd, vd, bias)[0]),
@@ -407,28 +432,83 @@ def phase_flash_parity(torch):
                               lambda: fa.flash_bwd_dkv_plain(*bwd)),
         }
         library = _library_calls(torch, qd, kd, vd, bias, dod)
+        lib_device = {}  # one graph per library call (6 and 7 share the backward)
         bounds = _flash_bounds(torch, qd, kd, vd, bias, dod, lse_ref, delta)
         for name, (kern, plain) in timed.items():
             ms, lib_ms = _time_ms(torch, kern, iters=10), _time_ms(torch, library[name], iters=10)
             device_ms = _graph_ms(torch, kern, iters=5)
+            if library[name] not in lib_device:
+                lib_device[library[name]] = _graph_ms(torch, library[name], iters=5)
+            lib_device_ms = lib_device[library[name]]
             # the plain twins only in f32, the recipe's precision (32-true)
             plain_ms = _time_ms(torch, plain, iters=10) if dname == "f32" else None
-            (bound_ms, bound_by), split_ms = bounds[name]
+            (bound_ms, bound_by, peak), cuda_core_ms = bounds[name]
             lib_what = ("one backward call for kernels 6 and 7: dq, dk, dv"
                         if name.startswith("flash_bwd") else "memory-efficient attention")
             log(f"[time] {name} {dname} N={N} Tq={Tq} Tk={Tk} d={d}: kernel {ms:.4f} ms, "
                 + (f"plain {plain_ms:.4f} ms, " if plain_ms is not None else "")
-                + f"library {lib_ms:.4f} ms ({lib_what}) (CUDA events, 10 calls); kernel "
-                f"{device_ms:.4f} ms of device time (CUDA graph of 5 calls); bound "
-                f"{bound_ms:.4f} ms ({bound_by}, f32 at {PEAK_FLOPS['f32'] / 1e12:g} TFLOP/s on "
-                f"CUDA cores), {bound_ms / ms:.1%} of it reached; {split_ms:.4f} ms at split "
-                f"TF32's {PEAK_FLOPS['3xtf32'] / 1e12:g} TFLOP/s, {split_ms / ms:.1%} of it")
+                + f"library {lib_ms:.4f} ms ({lib_what}) (CUDA events, 10 calls); device: "
+                f"kernel {device_ms:.4f} ms, library {lib_device_ms:.4f} ms (CUDA graph of 5 "
+                f"calls); bound {bound_ms:.4f} ms ({bound_by}, {peak}), {bound_ms / ms:.1%} of it "
+                f"reached, {bound_ms / device_ms:.1%} in device time"
+                + (f"; {cuda_core_ms:.4f} ms at the f32 CUDA-core peak of "
+                   f"{PEAK_FLOPS['f32'] / 1e12:g} TFLOP/s, {cuda_core_ms / device_ms:.1%} of it"
+                   if dname == "f32" else ""))
             if dname == "f32":
                 results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                     device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del o_ref, lse_ref, dq_r, dk_r, dv_r, db_r, refs, library
+                                     device_ms=device_ms, library_device_ms=lib_device_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak,
+                                     cuda_core_bound_ms=cuda_core_ms)
+            else:
+                results[name].update(bf16_ms=ms, bf16_device_ms=device_ms, bf16_library_ms=lib_ms,
+                                     bf16_library_device_ms=lib_device_ms,
+                                     bf16_bound_ms=bound_ms, bf16_bound_by=bound_by)
+        del lse_ref, library, lib_device, bwd, timed
         torch.cuda.empty_cache()
+    _check_flash_backward_edges(torch, fa)
     return results
+
+
+def _check_flash_backward_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f32", "bf16"),
+                                strict=True):
+    """Kernels 6 and 7 at ``shapes``, in ``dtypes`` (f32, bf16 operands),
+    keys of the middle third masked (and, with N > 1, row 0 with its last
+    key alone); against the plain twins within FLASH_TOL, and twice
+    bit-equal. Returns [(kernel, dtype, shape, rel err, bit-equal, ok)];
+    ``strict`` raises at the first that is not ok."""
+    rows = []
+    for shape, (N, Tq, Tk, d) in shapes.items():
+        g = torch.Generator().manual_seed(1)
+        q = torch.randn(N, Tq, d, generator=g) * d**-0.5
+        k, v = torch.randn(N, Tk, d, generator=g), torch.randn(N, Tk, d, generator=g)
+        do = torch.randn(N, Tq, d, generator=g)
+        mask = torch.ones(N, Tk)
+        mask[:, Tk // 3: Tk // 2] = 0.0
+        if N > 1:  # its dq, dk, dbias are 0 up to rounding: only beside other rows
+            mask[0, :-1] = 0.0
+        bias = torch.where(mask > 0, 0.0, fa.NEG_INF).cuda()
+        for dname in dtypes:
+            dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dname]
+            qd, kd, vd, dod = (t.to(dt).cuda() for t in (q, k, v, do))
+            o, lse = fa.flash_attention_plain(qd, kd, vd, bias)
+            bwd = (qd, kd, vd, bias, dod, lse, fa.attention_delta(o, dod))
+            runs = [(fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd)) for _ in range(2)]
+            refs = (fa.flash_bwd_dq_plain(*bwd), *fa.flash_bwd_dkv_plain(*bwd))
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dname]["rel"]
+            for name, idx in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2, 3))):
+                err = max(_rel_err(runs[0][i], refs[i]) for i in idx)
+                same = all(torch.equal(runs[0][i], runs[1][i]) for i in idx)
+                ok = (err <= tol and same
+                      and all(bool(torch.isfinite(runs[0][i]).all()) for i in idx))
+                log(f"[edge] {name} {dname} N={N} Tq={Tq} Tk={Tk} d={d} ({shape}): rel err "
+                    f"{err:.3e}, tol {tol:g}, bit-equal twice {same} -> {'ok' if ok else 'FAIL'}")
+                rows.append((name, dname, shape, err, same, ok))
+                if strict and not ok:
+                    raise AssertionError(f"{name} {dname} at {shape}: {err}, bit-equal {same}")
+            del runs, refs, o, lse, bwd
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _library_calls(torch, q, k, v, bias, do):
@@ -469,13 +549,16 @@ def _library_calls(torch, q, k, v, bias, do):
 
 
 def _flash_bounds(torch, q, k, v, bias, do, lse, delta):
-    """((bound ms, by), split-TF32 bound ms) per flash kernel: each input read
-    once and each output written once; operations over the (query, key)
-    pairs that the mask leaves valid, d channels each: 4 flops (q.k, p.v)
-    for the forward, 6 for dq (s, dp, ds.k), 8 for dk/dv (s, dv, dp, dk);
-    against the f32 CUDA-core peak (the kernels' arithmetic), and beside it
-    against split TF32 (three TF32 products per f32 product), the f32-exact
-    tensor-core route of kernels 1 and 3 and of the library."""
+    """Per flash kernel ((bound ms, by, peak), f32 CUDA-core bound ms): each
+    input read once and each output written once, in the operands' dtype;
+    operations over the (query, key) pairs that the mask leaves valid, d
+    channels each: 4 flops (q.k, p.v) for the forward, 6 for dq (s, dp,
+    ds.k), 8 for dk/dv (s, dv, dp, dk). The peak is that of the least costly
+    route to the same result on this card: f32 operands at split TF32 (three
+    TF32 products per f32 product, 495 / 3 TFLOP/s: the f32-exact tensor-core
+    route of kernels 1, 3, 6 and 7 and of the library), with the f32
+    CUDA-core peak (67 TFLOP/s) beside it; bf16 operands at the bf16 tensor
+    cores' 989 TFLOP/s."""
     Tq, d = q.shape[1], q.shape[2]
     pairs = Tq * int((bias == 0).sum().item())
     fwd_in = _nbytes(q, k, v, bias)
@@ -484,8 +567,10 @@ def _flash_bounds(torch, q, k, v, bias, do, lse, delta):
             "flash_fwd_lse": (fwd_in + _nbytes(q, lse), 4),
             "flash_bwd_dq": (bwd_in + _nbytes(q), 6),
             "flash_bwd_dkv": (bwd_in + _nbytes(k, v, bias), 8)}
-    return {name: (_bound(n_bytes, per * pairs * d, "f32"),
-                   _bound(n_bytes, per * pairs * d, "3xtf32")[0])
+    kind = "3xtf32" if q.dtype == torch.float32 else "bf16"
+    peak = f"{PEAK_NAMES[kind]} at {PEAK_FLOPS[kind] / 1e12:g} TFLOP/s"
+    return {name: ((*_bound(n_bytes, per * pairs * d, kind), peak),
+                   _bound(n_bytes, per * pairs * d, "f32")[0])
             for name, (n_bytes, per) in work.items()}
 
 
@@ -630,6 +715,18 @@ def phase_profiles(torch, state_dict, unprofiled_s, smi):
     _profile_rollout(state_dict, unprofiled_s, smi)
 
 
+def busy_ms(spans):
+    """(ms the device was busy, ms from the first start to the last end)
+    of kernel intervals [(start µs, end µs)]: the length of their union."""
+    spans = sorted(spans)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy, cur_s = busy + (cur_e - cur_s), s0
+        cur_e = max(cur_e, e0)
+    return (busy + cur_e - cur_s) / 1e3, (max(e for _, e in spans) - spans[0][0]) / 1e3
+
+
 def _profile_rollout(state_dict, unprofiled_s, smi):
     """One rollout of the main path (99 evaluations) under torch.profiler,
     through the runtime that sim_inference drives, with its configuration
@@ -665,19 +762,13 @@ def _profile_rollout(state_dict, unprofiled_s, smi):
     if not events:
         log("[profile] torch.profiler saw no device activity: device time not measured")
         return
-    per, spans = {}, sorted((e.time_range.start, e.time_range.end) for e in events)
+    per = {}
     for e in events:
         n = _short(e.name)
         ms, count = per.get(n, (0.0, 0))
         per[n] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s0, e0 in spans[1:]:  # the union of the device's intervals
-        if s0 > cur_e:
-            busy, cur_s = busy + (cur_e - cur_s), s0
-        cur_e = max(cur_e, e0)
-    busy = (busy + cur_e - cur_s) / 1e3
+    busy, span_ms = busy_ms([(e.time_range.start, e.time_range.end) for e in events])
     device_ms = sum(ms for ms, _ in per.values())
-    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
     evals = EULER_STEPS - 1
     log(f"[profile] one main-path rollout ({evals} evaluations, {NUM_FRAMES} frames, {smi}): "
         f"device {device_ms:.1f} ms in {len(events)} launches ({len(events) / evals:.1f} per "
@@ -763,25 +854,35 @@ def phase_training(torch, smi):
         return _training(torch, smi, work)
 
 
-def _training(torch, smi, work):
+def train_argv(work):
+    """Writes the recipe's training data (8 synthetic tetrapeptides of 1100
+    frames and their split) into ``work``; returns the argv of
+    `mdgen_tpu_torch.train` for TRAIN_EPOCHS steps there (run ``run``)."""
     import numpy as np
 
-    from mdgen_tpu_torch import ops, sim_inference, train
     from mdgen_tpu_torch.data import synthetic_trajectory
-    from mdgen_tpu_torch.runtime import checkpoint
 
     for i, s in enumerate(TRAIN_SEQS):
         np.save(os.path.join(work, f"{s}.npy"), synthetic_trajectory(s, 1100, seed=i))
     split = os.path.join(work, "split.csv")
     with open(split, "w") as fh:
         fh.write("name,seqres\n" + "".join(f"{s},{s}\n" for s in TRAIN_SEQS))
-    argv = ["--sim_condition", "--num_frames", str(TRAIN_FRAMES), "--prepend_ipa",
+    return ["--sim_condition", "--num_frames", str(TRAIN_FRAMES), "--prepend_ipa",
             "--abs_pos_emb", "--abs_time_emb", "--crop", str(L), "--sampling_method", "euler",
             "--inference_steps", "2", "--ema", "--epochs", str(TRAIN_EPOCHS), "--val_batches",
             "1", "--val_epoch_freq", str(TRAIN_EPOCHS), "--ckpt_freq", str(TRAIN_EPOCHS),
             "--train_split", split, "--val_split", split, "--data_dir", work,
             "--workdir", work, "--run_name", "run", "--device", "cuda"]
 
+
+def _training(torch, smi, work):
+    import numpy as np
+
+    from mdgen_tpu_torch import ops, sim_inference, train
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    argv = train_argv(work)
+    split = os.path.join(work, "split.csv")
     ops.reset_launch_counts()
     rec = train.main(argv)
     counts = ops.launch_counts()
@@ -842,13 +943,12 @@ def main():
     train_counts, _ = phase_training(torch, smi)
     phase_profiles(torch, state_dict, rollout_s, smi)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (train_counts if k in FLASH_KERNELS else counts)[k],
-         "max_abs_err": parity[k]["max_abs_err"], "ms": parity[k]["ms"],
-         "device_ms": parity[k]["device_ms"],
-         "plain_ms": parity[k]["plain_ms"], "bound_ms": parity[k]["bound_ms"],
-         "bound_by": parity[k]["bound_by"], "library_ms": parity[k].get("library_ms")}
+         **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
+         **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 // Tensor-core tile GEMM for the serving sublayers (kernels 1 and 3; kernel 2
-// keeps the CUDA-core gemm16 of common.cuh for now).
+// keeps the CUDA-core gemm16 of common.cuh for now), and the warp products
+// of the flash backward (kernels 6 and 7: WarpMma, WarpMmaAccA).
 //
 // A block of WARPS_M x WARPS_N x WARPS_K warps computes, per pass, a
 // [BM, BN] tile of
@@ -10,7 +11,7 @@
 //   * bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32, fragments loaded with
 //     ldmatrix. The products of bf16 values are exact in f32.
 //   * f32: split TF32 on mma.sync.m16n8k8. Each operand is x = big + small
-//     with big = tf32(x) and small = tf32(x - big); the tile accumulates
+//     with big = tf32(x) and small = x - big (split_tf32); the tile accumulates
 //     a_small*b_big + a_big*b_small + a_big*b_big and drops a_small*b_small
 //     (about 2^-22 of the product), the 3xTF32 of PyTorch's memory-efficient
 //     attention. Plain TF32 keeps 10 mantissa bits, too few for the f32
@@ -73,6 +74,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4-byte async copy (one float), zero-filled when valid is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -91,6 +98,19 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
+}
+// Transposed: lane (g, t) gets rows 2t, 2t+1 of column g of each 8x8 matrix.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two floats as a bf16 pair, lo in the low half (round-to-nearest-even).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -111,10 +131,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// x = big + small, both TF32 (x - big is exact in f32)
+// x = big + small, both TF32 (x - big is exact in f32), in three
+// instructions: big by two integer operations (add half a tf32 ulp, drop the
+// 13 low bits), and small handed over as it is, since the tensor core takes
+// a tf32 operand's top 19 bits: small loses at most 2^-10 of itself, about
+// 2^-21 of x. Two cvt.rna take about ten instructions (SASS), which the
+// flash backward, bound by instruction throughput, paid for
+// (flash_attention.cu).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// Two floats as bf16 pairs, x = hi + lo: hi the top 16 bits of x after
+// adding half a bf16 ulp, lo = x - hi (exact in f32) rounded to bf16, so the
+// pair holds x to about 2^-17 of itself. Low halves from x0.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h0 = (__float_as_uint(x0) + 0x8000u) & 0xffff0000u;
+  const uint32_t h1 = (__float_as_uint(x1) + 0x8000u) & 0xffff0000u;
+  hi = __byte_perm(h0, h1, 0x7632);
+  lo = pack_bf16x2(x0 - __uint_as_float(h0), x1 - __uint_as_float(h1));
 }
 
 // One warp's [MT*16, NT*8] tile over KSPAN columns. A: the warp's first row
@@ -182,6 +218,68 @@ template <int MT, int NT, int KSPAN> struct WarpMma<float, MT, NT, KSPAN> {
   }
 };
 
+// out[16, NT*8] += A[16, KT*8] . B, where A is a warp's row of KT accumulator
+// tiles as WarpMma<W, 1, KT, ...> leaves them (FA2's P or dS, kept in
+// registers) and B is row-major [k][n] in shared memory with stride ldb:
+// read transposed against WarpMma's [n][k], so no copy of the tile is made.
+template <typename W, int KT, int NT> struct WarpMmaAccA;
+
+// bf16: accumulator tiles 2kk and 2kk+1 are exactly the A fragment of one
+// k16 step. A stays f32, as the reference's p and ds do: it enters as the
+// pair hi + lo of split_bf16x2, two MMAs a step; B comes through
+// ldmatrix.trans.
+template <int KT, int NT> struct WarpMmaAccA<__nv_bfloat16, KT, NT> {
+  static_assert(KT % 2 == 0, "k16 steps");
+  __device__ __forceinline__ static void run(float (&out)[NT][4], const float (&a)[KT][4],
+                                             const __nv_bfloat16* B, int ldb) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16x2(a[2 * kk][0], a[2 * kk][1], hi[0], lo[0]);
+      split_bf16x2(a[2 * kk][2], a[2 * kk][3], hi[1], lo[1]);
+      split_bf16x2(a[2 * kk + 1][0], a[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16x2(a[2 * kk + 1][2], a[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b[2];  // lanes 0-7: k rows 0-7, lanes 8-15: rows 8-15 (16-31 repeat)
+        ldmatrix_x2_trans(b, B + (kk * 16 + (lane & 15)) * ldb + nt * 8);
+        mma_bf16(out[nt], lo, b);
+        mma_bf16(out[nt], hi, b);
+      }
+    }
+  }
+};
+
+// f32, split TF32: the accumulator holds columns (2t, 2t+1) where the A
+// fragment of m16n8k8 wants (t, t+4). A sum over k does not care about the
+// order of k, so each k8 step takes logical k t as column 2t and t+4 as
+// 2t+1, and B's rows are read in that same order: no shuffles.
+template <int KT, int NT> struct WarpMmaAccA<float, KT, NT> {
+  __device__ __forceinline__ static void run(float (&out)[NT][4], const float (&a)[KT][4],
+                                             const float* B, int ldb) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ab[4], as[4];
+      split_tf32(a[kk][0], ab[0], as[0]);  // (g, 2t)
+      split_tf32(a[kk][2], ab[1], as[1]);  // (g+8, 2t)
+      split_tf32(a[kk][1], ab[2], as[2]);  // (g, 2t+1)
+      split_tf32(a[kk][3], ab[3], as[3]);  // (g+8, 2t+1)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* p = B + (kk * 8 + 2 * t) * ldb + nt * 8 + g;
+        uint32_t bb[2], bs[2];
+        split_tf32(p[0], bb[0], bs[0]);
+        split_tf32(p[ldb], bb[1], bs[1]);
+        mma_tf32(out[nt], as, bb);
+        mma_tf32(out[nt], ab, bs);
+        mma_tf32(out[nt], ab, bb);
+      }
+    }
+  }
+};
+
 // Copy columns [k0, k0 + BK) of R rows into a [R][tile_ld] stage. rowp(r)
 // points at row r's first element, or is nullptr past the valid rows; such
 // rows, and columns at or past K, are zero-filled (K % copy_elems == 0).
@@ -189,6 +287,7 @@ template <int MT, int NT, int KSPAN> struct WarpMma<float, MT, NT, KSPAN> {
 template <typename W, int R, int BK, typename RowPtr>
 __device__ __forceinline__ void stage_rows(W* dst, RowPtr rowp, const W* any, int k0, int K) {
   constexpr int kPerRow = BK / copy_elems<W>();
+  static_assert(kPerRow * copy_elems<W>() == BK, "whole 16-byte copies");
   for (int i = threadIdx.x; i < R * kPerRow; i += blockDim.x) {
     const int r = i / kPerRow, c = (i % kPerRow) * copy_elems<W>();
     const W* src = rowp(r);

@@ -190,14 +190,20 @@ def test_kernels_refuse_what_they_do_not_take():
 # Each kernel against its plain twin on the same inputs; the backward kernels
 # take the twin's (o, lse). Shapes: the training recipe's frame attention
 # (N = 8 x 4 x 16 = 512 rows, Tq = 1000, Tk = 1001, d = 24) and ragged small
-# ones (Tk not a multiple of the 64-row tile, d padded to 16 or 64).
+# ones (Tk not a multiple of the 64-row tile, d padded to 16 or 64), and the
+# edges of the tensor-core backward (kernels 6 and 7): Tq below one 16-row
+# MMA tile, Tq and Tk one past two 64-row tiles, N = 1, d = 64, and d = 7
+# (rows of no whole 16 bytes: loaded element by element, not by cp.async).
 # Tolerances: o and lse absolute, gradients relative to their largest entry;
-# f32 1e-4 / 1e-3 (sums of 1001 keys or 1000 queries in another order), bf16
-# operands 1e-2 (outputs rounded to bf16, one ulp is 2^-8).
+# f32 1e-4 / 1e-4 (sums of 1001 keys or 1000 queries in another order; split
+# TF32 keeps them to about 2e-5), bf16 operands 1e-2 (outputs rounded to
+# bf16, one ulp is 2^-8).
 
 FLASH_SHAPES = {"recipe": (512, 1000, 1001, 24), "ragged": (2, 300, 301, 8),
-                "single_tile": (3, 24, 25, 16), "d40": (2, 70, 65, 40)}
-FLASH_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-2, 1e-2)}
+                "single_tile": (3, 24, 25, 16), "d40": (2, 70, 65, 40),
+                "tq5": (2, 5, 6, 24), "tile_plus_one": (2, 129, 129, 24), "n1": (1, 65, 200, 32),
+                "d64": (2, 64, 64, 64), "d7": (2, 33, 70, 7)}
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 
 def _flash_inputs(N, Tq, Tk, d, dt, seed=0):
@@ -207,7 +213,8 @@ def _flash_inputs(N, Tq, Tk, d, dt, seed=0):
     do = torch.randn(N, Tq, d, generator=g)
     mask = torch.ones(N, Tk)
     mask[:, Tk // 3: Tk // 2] = 0.0
-    mask[0, :-1] = 0.0  # only the last (bias) key valid
+    if N > 1:  # row 0: only the last (bias) key valid (its dq, dk, dbias are 0)
+        mask[0, :-1] = 0.0
     bias = torch.where(mask > 0, 0.0, torch.finfo(torch.float32).min)
     return [t.to(dt).cuda() for t in (q, k, v)] + [bias.cuda(), do.to(dt).cuda()]
 
@@ -244,6 +251,23 @@ def test_flash_kernels_match_plain(shape, dtype):
     for got, ref in zip((dq, dk, dv, db), (dq_r, *fa.flash_bwd_dkv_plain(*bwd))):
         assert torch.isfinite(got).all()
         assert _rel_max(got, ref) <= rtol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", ["recipe", "tile_plus_one"])
+def test_flash_backward_kernels_are_deterministic(shape, dtype):
+    """Kernels 6 and 7 sum in a fixed order (no atomics): two calls on the
+    same inputs give the same bits."""
+    _need_cuda()
+    fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
+    q, k, v, bias, do = _flash_inputs(*FLASH_SHAPES[shape], DTYPES[dtype], seed=3)
+    o, lse = fa.flash_attention_plain(q, k, v, bias)
+    bwd = (q, k, v, bias, do, lse, fa.attention_delta(o, do))
+    first = (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))
+    second = (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_matches_dense_on_the_card():

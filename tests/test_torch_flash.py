@@ -5,8 +5,9 @@ The plain twins of the four CUDA kernels are held to the Pallas kernels
 themselves, run in interpret mode (MDGEN_PALLAS_INTERPRET=1, as
 ``tests/test_flash_vjp.py`` does): ``_flash_fwd_tpu`` (o, lse) and
 ``_flash_bwd_tpu`` (dq, dk, dv, dbias), at (Tq, Tk) = (300, 301), which takes
-JAX's multi-block and padding paths, and (24, 25), with masked keys. The
-backward twins take JAX's own (o, lse), so each output is held alone.
+JAX's multi-block and padding paths, and (24, 25), with masked keys; also at
+d = 24 and d = 40, (70, 65) and (40, 41). The backward twins take JAX's own
+(o, lse), so each output is held alone.
 Tolerances: f32 2e-5 absolute on o and lse (the bound of
 ``test_flash_vjp.py``: f32 online softmax against one dense softmax), 1e-5
 relative to each gradient's largest entry (f32 sums over 301 keys or 300
@@ -35,7 +36,10 @@ from mdgen_tpu_torch.models.attention import RoPEAttention, resolve_impl
 fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
 jax_flash = importlib.import_module("mdgen_tpu.ops.flash_attention")
 
-SHAPES = {"multi_block": (2, 300, 301, 8), "single_block": (3, 24, 25, 16)}
+# d = 24 (the recipe's head width) and 40: the widths that the tensor-core
+# backward kernels pad to a whole MMA step
+SHAPES = {"multi_block": (2, 300, 301, 8), "single_block": (3, 24, 25, 16),
+          "d24": (2, 70, 65, 24), "d40": (2, 40, 41, 40)}
 
 
 @pytest.fixture()
