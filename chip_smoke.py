@@ -27,9 +27,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      ran exactly 5 layers x 99 steps x 5 rollouts = 2475 times;
   6. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
-     a masked residue, f32 and bf16 operands; the tensor-core backward
-     (kernels 6 and 7) also at edge shapes (Tq below one MMA tile, one past
-     two 64-row tiles, N=1, d = 7, 8, 40, 64), and twice on the same inputs
+     a masked residue, f32 and bf16 operands, each twice on the same inputs
+     (bit-equal); all four (tensor cores) also at edge shapes (Tq below one
+     MMA tile, one past two 64-row tiles, N=1, d = 7, 8, 40, 64), twice
      (bit-equal, `[edge]` lines); times kernel, plain twin and the library
      call (PyTorch's memory-efficient attention: forward, forward with
      logsumexp, and its backward, one call for kernels 6 and 7) with CUDA
@@ -55,8 +55,8 @@ Phases, in order; any failure raises and the exit code is not 0:
   11. the kernels JSON line (with each kernel's bound: the larger of the
       bytes it must move over 3.35 TB/s and its operations over the peak of
       their type; the flash kernels add their bf16 device, library and
-      bound times and the f32 bound on CUDA cores), the nvidia-smi line, and
-      the result line.
+      bound times, the f32 bound on CUDA cores and their worst `[edge]`
+      error by dtype), the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -86,10 +86,10 @@ B_TRAIN, TRAIN_FRAMES, TRAIN_EPOCHS = 8, 1000, 20
 # outputs are rounded to bf16 (one ulp is 2^-8)
 FLASH_TOL = {"f32": {"abs": 1e-4, "rel": 1e-4}, "bf16": {"abs": 1e-2, "rel": 1e-2}}
 FLASH_SRC = "mdgen_tpu_torch/csrc/flash_attention.cu"
-# the tensor-core backward (kernels 6 and 7): (N, Tq, Tk, d) at its tile
-# edges, Tq below one 16-row MMA tile, one past two 64-row tiles, N = 1, the
-# widths it pads to a whole MMA step, and d = 7 (rows of no whole 16 bytes,
-# loaded element by element)
+# the tensor-core flash kernels (4-7): (N, Tq, Tk, d) at their tile edges,
+# Tq below one 16-row MMA tile, one past two 64-row tiles, N = 1, the widths
+# they pad to a whole MMA step, and d = 7 (rows of no whole 16 bytes, loaded
+# element by element)
 FLASH_EDGE_SHAPES = {"tq5": (2, 5, 6, 24), "tile_plus_one": (2, 129, 129, 24),
                      "n1": (1, 65, 200, 32), "d8": (2, 300, 301, 8), "d40": (2, 70, 65, 40),
                      "d64": (2, 64, 64, 64), "d7": (2, 33, 70, 7)}
@@ -356,9 +356,14 @@ def _launch_split(torch):
                 f"{per_launch or 'not measured: the profiler saw no device activity'}")
 
 
+def _abs_err(a, ref):
+    """max |a - ref| in f32."""
+    return (a.float() - ref.float()).abs().max().item()
+
+
 def _rel_err(a, ref):
     """max |a - ref| / max |ref| in f32."""
-    return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    return _abs_err(a, ref) / ref.float().abs().max().item()
 
 
 def phase_flash_parity(torch):
@@ -367,7 +372,7 @@ def phase_flash_parity(torch):
     bias token, d = 24), with one masked residue's 16 rows (every frame key
     finfo.min, only the bias key valid), in f32 and with bf16 operands. The
     backward kernels take the twin's (o, lse) so that each is held alone;
-    they run twice and must give the same bits. Then kernels 6 and 7 at the
+    each kernel runs twice and must give the same bits. Then all four at the
     edge shapes."""
     fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")  # not the function
 
@@ -384,21 +389,23 @@ def phase_flash_parity(torch):
         o_ref, lse_ref = fa.flash_attention_plain(qd, kd, vd, bias)
         delta = fa.attention_delta(o_ref, dod)
         bwd = (qd, kd, vd, bias, dod, lse_ref, delta)
-        o4 = fa.flash_fwd(qd, kd, vd, bias)
-        o5, lse5 = fa.flash_fwd_lse(qd, kd, vd, bias)
+        o4, o4b = fa.flash_fwd(qd, kd, vd, bias), fa.flash_fwd(qd, kd, vd, bias)
+        (o5, lse5), fwd2 = fa.flash_fwd_lse(qd, kd, vd, bias), fa.flash_fwd_lse(qd, kd, vd, bias)
         dq, dq2 = fa.flash_bwd_dq(*bwd), fa.flash_bwd_dq(*bwd)
         (dk, dv, db), dkv2 = fa.flash_bwd_dkv(*bwd), fa.flash_bwd_dkv(*bwd)
         dq_r = fa.flash_bwd_dq_plain(*bwd)
         dk_r, dv_r, db_r = fa.flash_bwd_dkv_plain(*bwd)
         torch.cuda.synchronize()
-        same = {"flash_fwd": True, "flash_fwd_lse": True, "flash_bwd_dq": torch.equal(dq, dq2),
+        same = {"flash_fwd": torch.equal(o4, o4b),
+                "flash_fwd_lse": torch.equal(o5, fwd2[0]) and torch.equal(lse5, fwd2[1]),
+                "flash_bwd_dq": torch.equal(dq, dq2),
                 "flash_bwd_dkv": all(torch.equal(a, b) for a, b in zip((dk, dv, db), dkv2))}
-        del dq2, dkv2
+        del o4b, fwd2, dq2, dkv2
         # o and lse: absolute; gradients: relative to their largest entry
         errs = {
-            "flash_fwd": [("o", (o4.float() - o_ref.float()).abs().max().item(), "abs")],
-            "flash_fwd_lse": [("o", (o5.float() - o_ref.float()).abs().max().item(), "abs"),
-                              ("lse", (lse5 - lse_ref).abs().max().item(), "abs")],
+            "flash_fwd": [("o", _abs_err(o4, o_ref), "abs")],
+            "flash_fwd_lse": [("o", _abs_err(o5, o_ref), "abs"),
+                              ("lse", _abs_err(lse5, lse_ref), "abs")],
             "flash_bwd_dq": [("dq", _rel_err(dq, dq_r), "rel")],
             "flash_bwd_dkv": [("dk", _rel_err(dk, dk_r), "rel"), ("dv", _rel_err(dv, dv_r), "rel"),
                               ("dbias", _rel_err(db, db_r), "rel")],
@@ -412,14 +419,12 @@ def phase_flash_parity(torch):
                 tol = FLASH_TOL[dname][kind]
                 ok = (err <= tol and same[name]
                       and all(bool(torch.isfinite(t).all()) for t in outs[name]))
-                twice = f", bit-equal twice {same[name]}" if name.startswith("flash_bwd") else ""
-                log(f"[flash] {name} {dname}: {what} {kind} err {err:.3e}, tol {tol:g}{twice} -> "
-                    f"{'ok' if ok else 'FAIL'}")
+                log(f"[flash] {name} {dname}: {what} {kind} err {err:.3e}, tol {tol:g}, bit-equal "
+                    f"twice {same[name]} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} {dname} {what} disagrees with its plain twin: "
                                          f"{err}, bit-equal twice {same[name]}")
-            abs_err = max((a.float() - b.float()).abs().max().item()
-                          for a, b in zip(outs[name], refs[name]))
+            abs_err = max(_abs_err(a, b) for a, b in zip(outs[name], refs[name]))
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
         del o_ref, dq_r, dk_r, dv_r, db_r, refs, outs, o4, o5, dq, dk, dv, db
         timed = {
@@ -465,17 +470,20 @@ def phase_flash_parity(torch):
                                      bf16_bound_ms=bound_ms, bf16_bound_by=bound_by)
         del lse_ref, library, lib_device, bwd, timed
         torch.cuda.empty_cache()
-    _check_flash_backward_edges(torch, fa)
+    for name, dname, _, err, _, _ in _check_flash_edges(torch, fa):
+        worst = results[name].setdefault("edge_err", {})
+        worst[dname] = max(worst.get(dname, 0.0), err)
     return results
 
 
-def _check_flash_backward_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f32", "bf16"),
-                                strict=True):
-    """Kernels 6 and 7 at ``shapes``, in ``dtypes`` (f32, bf16 operands),
-    keys of the middle third masked (and, with N > 1, row 0 with its last
-    key alone); against the plain twins within FLASH_TOL, and twice
-    bit-equal. Returns [(kernel, dtype, shape, rel err, bit-equal, ok)];
-    ``strict`` raises at the first that is not ok."""
+def _check_flash_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f32", "bf16"), strict=True):
+    """Kernels 4-7 at ``shapes``, in ``dtypes`` (f32, bf16 operands), keys
+    of the middle third masked (and, with N > 1, row 0 with its last key
+    alone); against the plain twins within FLASH_TOL (o and lse absolute,
+    the backward kernels' outputs relative to their largest entry, with the
+    twin's o and lse as inputs), and twice bit-equal. Returns [(kernel,
+    dtype, shape, err, bit-equal, ok)]; ``strict`` raises at the first that
+    is not ok."""
     rows = []
     for shape, (N, Tq, Tk, d) in shapes.items():
         g = torch.Generator().manual_seed(1)
@@ -492,16 +500,19 @@ def _check_flash_backward_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f3
             qd, kd, vd, dod = (t.to(dt).cuda() for t in (q, k, v, do))
             o, lse = fa.flash_attention_plain(qd, kd, vd, bias)
             bwd = (qd, kd, vd, bias, dod, lse, fa.attention_delta(o, dod))
-            runs = [(fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd)) for _ in range(2)]
-            refs = (fa.flash_bwd_dq_plain(*bwd), *fa.flash_bwd_dkv_plain(*bwd))
+            runs = [(fa.flash_fwd(qd, kd, vd, bias), *fa.flash_fwd_lse(qd, kd, vd, bias),
+                     fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd)) for _ in range(2)]
+            refs = (o, o, lse, fa.flash_bwd_dq_plain(*bwd), *fa.flash_bwd_dkv_plain(*bwd))
             torch.cuda.synchronize()
-            tol = FLASH_TOL[dname]["rel"]
-            for name, idx in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2, 3))):
-                err = max(_rel_err(runs[0][i], refs[i]) for i in idx)
+            for name, idx, kind in (("flash_fwd", (0,), "abs"), ("flash_fwd_lse", (1, 2), "abs"),
+                                    ("flash_bwd_dq", (3,), "rel"),
+                                    ("flash_bwd_dkv", (4, 5, 6), "rel")):
+                tol, diff = FLASH_TOL[dname][kind], {"abs": _abs_err, "rel": _rel_err}[kind]
+                err = max(diff(runs[0][i], refs[i]) for i in idx)
                 same = all(torch.equal(runs[0][i], runs[1][i]) for i in idx)
                 ok = (err <= tol and same
                       and all(bool(torch.isfinite(runs[0][i]).all()) for i in idx))
-                log(f"[edge] {name} {dname} N={N} Tq={Tq} Tk={Tk} d={d} ({shape}): rel err "
+                log(f"[edge] {name} {dname} N={N} Tq={Tq} Tk={Tk} d={d} ({shape}): {kind} err "
                     f"{err:.3e}, tol {tol:g}, bit-equal twice {same} -> {'ok' if ok else 'FAIL'}")
                 rows.append((name, dname, shape, err, same, ok))
                 if strict and not ok:

@@ -21,169 +21,249 @@
 // for dk/dv: the FA2 split, so no atomics) and streams the other side
 // through shared memory in tiles of 64 rows.
 //
-// Forward (kernels 4, 5): one thread per query row, every product an f32
-// FMA on CUDA cores (67 TFLOP/s); head widths padded to 16, 24, 32 or 64.
-//
-// Backward (kernels 6, 7), on the tensor cores with mma.sync: a block is 4
-// warps of 16 own rows. Its own two operands (q, dO for dq; k, v for dk/dv)
-// stay in shared memory for the whole loop; the streamed pair comes in by
-// cp.async through a ring of two stages, the next tile in flight while the
-// current one multiplies. Per tile a warp computes S = X U^T and dP = Y W^T
-// with WarpMma (the streamed rows as [n][k], no transpose), then P and dS in
-// its registers, which are the A operand of dQ += dS K, or of dV += P^T dO
-// and dK += dS^T q (WarpMmaAccA, the streamed tile read transposed). bf16
-// operands run m16n8k16 fed by ldmatrix, with P and dS kept in f32 as the
-// JAX kernels keep them: each enters as a pair of bf16 fragments, hi + lo,
-// two MMAs where FA2 rounds to bf16 and takes one; f32 operands run split
-// TF32 (three TF32 products per f32 one), f32-exact to about 2^-21 of a
-// product. The reduction over d is padded
-// with zeros to a whole k step (8 for TF32, 16 for bf16), which changes no
-// sum; outputs take d rounded up to 8. dbias sums in each thread's
-// registers and then across the quad in a fixed order: no atomics,
+// All four run on the tensor cores with mma.sync: a block is 4 warps of 16
+// own rows. Its own operands (q for the forward; q, dO for dq; k, v for
+// dk/dv) stay in shared memory for the whole loop; the streamed pair (k, v;
+// or q, dO) and its f32 row vectors come in by cp.async through a ring of
+// two stages, the next tile in flight while the current one multiplies. Per
+// tile a warp computes S = X U^T (and for the backward dP = Y W^T) with
+// WarpMma (the streamed rows as [n][k], no transpose), then P (and dS) in
+// its registers, which are the A operand of O += P V, dQ += dS K, or of
+// dV += P^T dO and dK += dS^T q (WarpMmaAccA, the streamed tile read
+// transposed). bf16 operands run m16n8k16 fed by ldmatrix, with P and dS
+// kept in f32 as the JAX kernels keep them: each enters as a pair of bf16
+// fragments, hi + lo, two MMAs where FA2 rounds to bf16 and takes one; f32
+// operands run split TF32 (three TF32 products per f32 one), f32-exact to
+// about 2^-21 of a product. The reduction over d is padded with zeros to a
+// whole k step (8 for TF32, 16 for bf16), which changes no sum; outputs take
+// d rounded up to 8. Every sum runs in a fixed order (dbias and the
+// forward's l per thread, then across the quad): no atomics,
 // bit-deterministic. Row strides of D + 4 floats (D + 8 bf16) keep both
 // read orders of a tile free of bank conflicts.
+//
+// The forward (kernels 4, 5): 4 N Tq Tk d = 49 GFLOP at the recipe shape,
+// 0.29 ms at split TF32's 165 TFLOP/s, 0.048 ms at bf16's 989; but it also
+// takes one exp per (query, key) pair, 5.1e8 of them, and the SFU's ex2
+// does 16 a clock on each of 132 SMs, about 3.9e12 a second: 0.12 to 0.14
+// ms for the exps alone. With bf16 operands the softmax, not the MMAs, sets
+// the floor. So each score costs one ex2 and no more (__expf: a multiply
+// and ex2.approx; expf would add a range reduction of some ten
+// instructions), the running max and l are rescaled once per 64-key tile
+// (two exps a thread per tile, not one per key), the quad reduces the max
+// with two shuffles and l once, at the end, and 4 warps a block and 4 to
+// 5 blocks an SM keep the SFU busy while other warps multiply. In f32,
+// split TF32 takes three MMAs a product and each warp splits its operands
+// itself (about 950 instructions a warp per 64-key tile, counted from the
+// source): as in the backward, instruction throughput rather than the MMAs
+// is the likely limit (an inference: no stall counters were read). Measured at the
+// recipe shape on an H100 at 700 W: 1.23 ms in f32, 0.68 ms with bf16
+// operands; keeping P in f32 (hi + lo) costs 0.045 ms of the 0.68
+// (tools/flash_fwd_variants.py).
 //
 // Semantics kept from the JAX kernels:
 //   * the running max starts at finfo(f32).min, not -inf, and a masked key
 //     carries bias finfo.min, so s stays finite and an all-masked tile gives
-//     exp(0) terms that the first valid key's rescale wipes out, as there;
+//     exp(0) terms that the first valid key's rescale wipes out, as there
+//     (m and m_new stay finite, so m - m_new is never NaN, and __expf gives
+//     0 for it at the first valid key after masked ones);
 //   * the ragged edge is masked, not padded: keys past Tk and queries past
 //     Tq are skipped, which is what JAX's padding gives (bias finfo.min on
 //     padded keys, zero dO on padded queries) whenever a row has a valid key;
-//   * inputs (f32 or bf16) are widened to f32 (the forward's p stays f32
-//     in P.V); every sum is f32; o, dq, dk and dv are rounded to the input
-//     dtype once, at the end; lse and dbias are f32.
-//   * the backward gives p = 0 explicitly to keys past Tk and queries past
-//     Tq, whose zero-filled rows would otherwise give exp(b - lse).
+//     keys past Tk, whose zero-filled rows would otherwise give exp(b - m) or
+//     exp(b - lse), get p = 0 explicitly, and so do queries past Tq in the
+//     backward;
+//   * inputs (f32 or bf16) are widened to f32 (p stays f32 in P V); every
+//     sum is f32; o, dq, dk and dv are rounded to the input dtype once, at
+//     the end; lse and dbias are f32.
 #include "mma_tile.cuh"
 
 namespace mdgen {
 
-constexpr int kTile = 64;   // rows per block, and rows per streamed tile
-constexpr int kChunk = 16;  // keys per online-softmax rescale in the forward
+constexpr int kFlashRows = 64;  // own rows of a block (16 a warp), rows of a streamed tile
+constexpr int kFlashWarps = kFlashRows / 16;
+constexpr int kFlashStages = 2;
 
-__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(v);
-}
-
-// Row `row` of a [rows, d] matrix into registers, zero-padded to D.
-template <int D, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ src, int row, int d,
-                                         bool valid, float (&dst)[D]) {
-#pragma unroll
-  for (int c = 0; c < D; ++c)
-    dst[c] = (valid && c < d) ? to_f(src[(size_t)row * d + c]) : 0.f;
-}
-
-// Rows [r0, r0 + rows) of a [*, d] matrix into a [kTile, D] f32 tile in
-// shared memory; columns past d and rows past `rows` are zero.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0, int rows,
-                                          int d, float* __restrict__ dst) {
-  for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
-    const int r = e / D, c = e % D;
-    dst[e] = (r < rows && c < d) ? to_f(src[(size_t)(r0 + r) * d + c]) : 0.f;
+// Shared memory of a block: `own` tiles of own rows (q for the forward; two
+// for the backward); then per stage the
+// streamed rows U, W and two f32 vectors over the streamed rows (the key
+// bias for the forward and dq; lse and delta for dk/dv). Every part starts
+// on 16 bytes.
+template <typename T, int D> struct FlashSmem {
+  static constexpr int ld = D + smem_pad<T>();
+  static constexpr int tile = kFlashRows * ld;  // elements
+  static constexpr size_t stage_bytes =
+      2 * tile * sizeof(T) + 2 * kFlashRows * sizeof(float);
+  static constexpr size_t bytes(int own) {
+    return own * tile * sizeof(T) + kFlashStages * stage_bytes;
   }
-}
-
-// a . b with a in registers and b a 16-byte aligned row in shared memory.
-template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D], const float* __restrict__ b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(b + c);
-    s = fmaf(a[c], w.x, s);
-    s = fmaf(a[c + 1], w.y, s);
-    s = fmaf(a[c + 2], w.z, s);
-    s = fmaf(a[c + 3], w.w, s);
+  __device__ static unsigned char* stage(unsigned char* base, int own, int s) {
+    return base + own * tile * sizeof(T) + s * stage_bytes;
   }
-  return s;
-}
+};
 
-// acc += w * b, b a 16-byte aligned row in shared memory.
-template <int D>
-__device__ __forceinline__ void axpy(float w, const float* __restrict__ b, float (&acc)[D]) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + c);
-    acc[c] = fmaf(w, x.x, acc[c]);
-    acc[c + 1] = fmaf(w, x.y, acc[c + 1]);
-    acc[c + 2] = fmaf(w, x.z, acc[c + 2]);
-    acc[c + 3] = fmaf(w, x.w, acc[c + 3]);
-  }
-}
-
-// grid (N, ceil(Tq / kTile)), kTile threads: one query row per thread.
+// Rows [r0, r0 + rows) of a [*, d] matrix into a [kFlashRows][D + pad]
+// tile; rows past `rows` and columns past d are zero, in every call. With
+// vec, 16-byte cp.async copies (d * sizeof(T) % 16 == 0 and src on 16
+// bytes); else element by element through registers (any d, any alignment).
 template <typename T, int D>
-__global__ void __launch_bounds__(kTile)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, int d) {
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-  __shared__ float bs[kTile];
-  const int n = blockIdx.x;
-  const int i = blockIdx.y * kTile + threadIdx.x;
-  const bool active = i < Tq;
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int r0, int rows,
+                                           int d, bool vec) {
+  if (vec) {
+    stage_rows<T, kFlashRows, D>(
+        dst, [&](int r) -> const T* { return r < rows ? src + (size_t)(r0 + r) * d : nullptr; },
+        src, 0, d);
+    return;
+  }
+  constexpr int ld = FlashSmem<T, D>::ld;
+  for (int i = threadIdx.x; i < kFlashRows * D; i += blockDim.x) {
+    const int r = i / D, c = i % D;
+    dst[r * ld + c] = (r < rows && c < d) ? src[(size_t)(r0 + r) * d + c] : from_f<T>(0.f);
+  }
+}
+
+// Streamed tile `it` (rows [64 it, 64 it + 64) of `total`) into stage st:
+// the rows of U and W, and of the f32 vectors v0 and (unless null) v1;
+// zero past `total`.
+template <typename T, int D>
+__device__ __forceinline__ void stage_streamed(unsigned char* st, const T* U, const T* W,
+                                               const float* v0, const float* v1, int it,
+                                               int total, int d, bool vec) {
+  using S = FlashSmem<T, D>;
+  const int c0 = it * kFlashRows, nc = min(kFlashRows, total - c0);
+  T* us = reinterpret_cast<T*>(st);
+  float* cv = reinterpret_cast<float*>(us + 2 * S::tile);
+  stage_tile<T, D>(us, U, c0, nc, d, vec);
+  stage_tile<T, D>(us + S::tile, W, c0, nc, d, vec);
+  for (int i = threadIdx.x; i < kFlashRows; i += blockDim.x) {
+    const bool ok = i < nc;
+    const int c = ok ? c0 + i : 0;
+    cp_async4(cv + i, v0 + c, ok);
+    if (v1 != nullptr) cp_async4(cv + kFlashRows + i, v1 + c, ok);
+  }
+}
+
+// -- forward (kernels 4 and 5) --------------------------------------------------
+
+// The forward keeps S (32 floats) and O (DN / 2) in registers across a tile:
+// 4 blocks an SM (at most 128 registers a thread) for every width, none of
+// which spills. At the recipe shape 2 blocks an SM made f32 1.07x slower
+// and 6 (80 registers, spills) bf16 1.03x slower, on an H100 at 700 W
+// (tools/flash_fwd_variants.py).
+constexpr int kFwdMinBlocks = 4;
+
+// grid (N, ceil(Tq / 64)), 4 warps, each owning 16 queries; keys streamed in
+// tiles of 64 (U = k, W = v, vector: the key bias). D: the reduction over d
+// padded to a k step; DN: output columns, d rounded up to 8.
+template <typename T, int D, int DN>
+__global__ void __launch_bounds__(kFlashWarps * 32, kFwdMinBlocks)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int d, int vec) {
+  using S = FlashSmem<T, D>;
+  constexpr int ld = S::ld, NT = kFlashRows / 8, NO = DN / 8;
+  static_assert(DN <= D && DN % 8 == 0, "output tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+
+  const int n = blockIdx.x, row0 = blockIdx.y * kFlashRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const T* kn = k + (size_t)n * Tk * d;
   const T* vn = v + (size_t)n * Tk * d;
-  const float* bn = bias + (size_t)n * Tk;
+  const float* bias_n = bias + (size_t)n * Tk;
 
-  float qr[D], acc[D];
-  load_row<D>(q + (size_t)n * Tq * d, i, d, active, qr);
+  stage_tile<T, D>(qs, q + (size_t)n * Tq * d, row0, min(kFlashRows, Tq - row0), d, vec);
+  auto load = [&](int it) {
+    stage_streamed<T, D>(S::stage(smem_raw, 1, it % kFlashStages), kn, vn, bias_n, nullptr, it,
+                         Tk, d, vec);
+  };
+
+  // rows g and g + 8 of the warp's 16 (h = 0, 1): running max, this
+  // thread's part of l (its columns 2t, 2t + 1 of each n8 tile), and O
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[NO][4];
 #pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = kNegInf, l = 0.f;
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  for (int k0 = 0; k0 < Tk; k0 += kTile) {
-    const int nk = min(kTile, Tk - k0);
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(kn, k0, nk, d, ks);
-    load_tile<D>(vn, k0, nk, d, vs);
-    if (threadIdx.x < nk) bs[threadIdx.x] = bn[k0 + threadIdx.x];
+  const int ntiles = (Tk + kFlashRows - 1) / kFlashRows;
+  load(0);
+  cp_async_commit();  // the own rows and the first tile
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: tile it has landed
     __syncthreads();
-    if (!active) continue;
-    for (int j0 = 0; j0 < nk; j0 += kChunk) {
-      float s[kChunk];
-      float m_new = m;
+    const T* ks = reinterpret_cast<const T*>(S::stage(smem_raw, 1, it % kFlashStages));
+    const T* vs = ks + S::tile;
+    const float* bs = reinterpret_cast<const float*>(vs + S::tile);
+    const int nc = min(kFlashRows, Tk - it * kFlashRows);
+
+    float s[1][NT][4];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = j0 + jj;
-        s[jj] = j < nk ? dot<D>(qr, ks + j * D) + bs[j] : kNegInf;
-        if (j < nk) m_new = fmaxf(m_new, s[jj]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[0][j][i] = 0.f;
+    WarpMma<T, 1, NT, D>::run(s, qs + warp * 16 * ld, ld, ks, ld);
+
+    // s + bias, and the row max over the tile's valid keys: this thread's
+    // 16 values, then the quad's (lanes 4g .. 4g + 3 hold the same rows)
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+        const int h = i >> 1, c = j * 8 + 2 * t + (i & 1);
+        s[0][j][i] += bs[c];
+        if (c < nc) m_new[h] = fmaxf(m_new[h], s[0][j][i]);
       }
-      const float scale = expf(m - m_new);
-      l *= scale;
+    float scale[2];
 #pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] *= scale;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = j0 + jj;
-        if (j < nk) {
-          const float p = expf(s[jj] - m_new);
-          l += p;
-          axpy<D>(p, vs + j * D, acc);
-        }
-      }
-      m = m_new;
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      scale[h] = __expf(m[h] - m_new[h]);
+      l[h] *= scale[h];
+      m[h] = m_new[h];
     }
-  }
-  if (!active) return;
-  const float l_safe = fmaxf(l, 1e-30f);
-  T* on = o + ((size_t)n * Tq + i) * d;
 #pragma unroll
-  for (int c = 0; c < D; ++c)
-    if (c < d) from_f(acc[c] / l_safe, on + c);
-  if (lse != nullptr) lse[(size_t)n * Tq + i] = m + logf(l_safe);
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] *= scale[i >> 1];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, c = j * 8 + 2 * t + (i & 1);
+        const float p = c < nc ? __expf(s[0][j][i] - m[h]) : 0.f;
+        l[h] += p;
+        s[0][j][i] = p;
+      }
+    WarpMmaAccA<T, NT, NO>::run(acc, s[0], vs, ld);  // O += P V
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);  // the quad's four parts, in a fixed order
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = row0 + warp * 16 + g + 8 * h;
+    if (r >= Tq) continue;
+    const float l_safe = fmaxf(l[h], 1e-30f);
+    T* on = o + ((size_t)n * Tq + r) * d;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + 2 * t + e;
+        if (c < d) on[c] = from_f<T>(acc[j][2 * h + e] / l_safe);
+      }
+    if (lse != nullptr && t == 0) lse[(size_t)n * Tq + r] = m[h] + logf(l_safe);
+  }
 }
 
 // -- backward (kernels 6 and 7) -------------------------------------------------
 
-constexpr int kBwdRows = 64;  // own rows of a block (16 a warp), rows of a streamed tile
-constexpr int kBwdWarps = kBwdRows / 16;
-constexpr int kBwdStages = 2;
 // The kernels run about ten instructions per MMA, so instruction throughput
 // bounds them: split_tf32's half-ulp split (3 instructions an operand, where
 // cvt.rna takes about 5) made dq 1.41x and dk/dv 1.42x faster in f32, and 4
@@ -194,57 +274,26 @@ constexpr int kBwdStages = 2;
 template <typename T, int DN>
 constexpr int kBwdMinBlocks = DN <= (sizeof(T) == 2 ? 24 : 32) ? 4 : 2;
 
-// Shared memory of a backward block: the own rows X, Y; then per stage the
-// streamed rows U, W and two f32 vectors over the streamed rows (lse and
-// delta for dk/dv, the key bias for dq). Every part starts on 16 bytes.
-template <typename T, int D> struct BwdSmem {
-  static constexpr int ld = D + smem_pad<T>();
-  static constexpr int tile = kBwdRows * ld;  // elements
-  static constexpr size_t stage_bytes = 2 * tile * sizeof(T) + 2 * kBwdRows * sizeof(float);
-  static constexpr size_t bytes = 2 * tile * sizeof(T) + kBwdStages * stage_bytes;
-};
-
-// Rows [r0, r0 + rows) of a [*, d] matrix into a [kBwdRows][D + pad] tile;
-// rows past `rows` and columns past d are zero. With vec, 16-byte cp.async
-// copies (d * sizeof(T) % 16 == 0 and src on 16 bytes); else element by
-// element through registers (any d, any alignment).
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int r0, int rows,
-                                           int d, bool vec) {
-  if (vec) {
-    stage_rows<T, kBwdRows, D>(
-        dst, [&](int r) -> const T* { return r < rows ? src + (size_t)(r0 + r) * d : nullptr; },
-        src, 0, d);
-    return;
-  }
-  constexpr int ld = BwdSmem<T, D>::ld;
-  for (int i = threadIdx.x; i < kBwdRows * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    dst[r * ld + c] = (r < rows && c < d) ? src[(size_t)(r0 + r) * d + c] : from_f<T>(0.f);
-  }
-}
-
 // grid (N, ceil(own rows / 64)), 4 warps. kDkv false: dq, own rows queries
 // (X = q, Y = dO), streamed keys (U = k, W = v, vector: bias). kDkv true:
 // dk, dv, dbias, own rows keys (X = k, Y = v), streamed queries (U = q,
 // W = dO, vectors: lse, delta). D: the reduction over d padded to a k step;
 // DN: output columns, d rounded up to 8.
 template <typename T, int D, int DN, bool kDkv>
-__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T, DN>)
+__global__ void __launch_bounds__(kFlashWarps * 32, kBwdMinBlocks<T, DN>)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  T* __restrict__ out1, T* __restrict__ out2, float* __restrict__ dbias, int Tq,
                  int Tk, int d, int vec) {
-  using S = BwdSmem<T, D>;
-  constexpr int ld = S::ld, NT = kBwdRows / 8, NO = DN / 8;
+  using S = FlashSmem<T, D>;
+  constexpr int ld = S::ld, NT = kFlashRows / 8, NO = DN / 8;
   static_assert(DN <= D && DN % 8 == 0, "output tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   T* ys = xs + S::tile;
-  auto stage = [&](int s) { return smem_raw + 2 * S::tile * sizeof(T) + s * S::stage_bytes; };
 
-  const int n = blockIdx.x, row0 = blockIdx.y * kBwdRows;
+  const int n = blockIdx.x, row0 = blockIdx.y * kFlashRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int own_total = kDkv ? Tk : Tq, cols_total = kDkv ? Tq : Tk;
   const size_t q_off = (size_t)n * Tq * d, k_off = (size_t)n * Tk * d;
@@ -256,25 +305,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float* delta_n = delta + (size_t)n * Tq;
   const float* bias_n = bias + (size_t)n * Tk;
 
-  stage_tile<T, D>(xs, X, row0, min(kBwdRows, own_total - row0), d, vec);
-  stage_tile<T, D>(ys, Y, row0, min(kBwdRows, own_total - row0), d, vec);
+  stage_tile<T, D>(xs, X, row0, min(kFlashRows, own_total - row0), d, vec);
+  stage_tile<T, D>(ys, Y, row0, min(kFlashRows, own_total - row0), d, vec);
   auto load = [&](int it) {
-    const int c0 = it * kBwdRows, nc = min(kBwdRows, cols_total - c0);
-    unsigned char* st = stage(it % kBwdStages);
-    T* us = reinterpret_cast<T*>(st);
-    float* cv = reinterpret_cast<float*>(us + 2 * S::tile);
-    stage_tile<T, D>(us, U, c0, nc, d, vec);
-    stage_tile<T, D>(us + S::tile, W, c0, nc, d, vec);
-    for (int i = threadIdx.x; i < kBwdRows; i += blockDim.x) {
-      const bool ok = i < nc;
-      const int c = ok ? c0 + i : 0;
-      if constexpr (kDkv) {
-        cp_async4(cv + i, lse_n + c, ok);
-        cp_async4(cv + kBwdRows + i, delta_n + c, ok);
-      } else {
-        cp_async4(cv + i, bias_n + c, ok);
-      }
-    }
+    stage_streamed<T, D>(S::stage(smem_raw, 2, it % kFlashStages), U, W,
+                         kDkv ? lse_n : bias_n, kDkv ? delta_n : nullptr, it, cols_total, d,
+                         vec);
   };
 
   // this thread's own rows g and g + 8 of the warp: validity, and the row
@@ -296,7 +332,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int i = 0; i < 4; ++i) o1[j][i] = o2[j][i] = 0.f;
 
-  const int ntiles = (cols_total + kBwdRows - 1) / kBwdRows;
+  const int ntiles = (cols_total + kFlashRows - 1) / kFlashRows;
   load(0);
   cp_async_commit();  // the own rows and the first tile
   for (int it = 0; it < ntiles; ++it) {
@@ -304,10 +340,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: tile it has landed
     __syncthreads();
-    const T* us = reinterpret_cast<const T*>(stage(it % kBwdStages));
+    const T* us = reinterpret_cast<const T*>(S::stage(smem_raw, 2, it % kFlashStages));
     const T* ws = us + S::tile;
     const float* cv = reinterpret_cast<const float*>(ws + S::tile);
-    const int nc = min(kBwdRows, cols_total - it * kBwdRows);
+    const int nc = min(kFlashRows, cols_total - it * kFlashRows);
 
     float s[1][NT][4], dp[1][NT][4];
 #pragma unroll
@@ -325,7 +361,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         float x, dl;
         if constexpr (kDkv) {
           x = s[0][j][i] + row_b[h] - cv[c];  // (s + b) - lse, as the JAX kernel
-          dl = cv[kBwdRows + c];
+          dl = cv[kFlashRows + c];
         } else {
           x = s[0][j][i] + cv[c] - row_lse[h];
           dl = row_delta[h];
@@ -362,6 +398,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// -- launch -----------------------------------------------------------------------
+
 // Everything one launch needs; each entry point fills what its kernel reads.
 struct FlashArgs {
   const void *q, *k, *v, *dout;
@@ -371,72 +409,64 @@ struct FlashArgs {
   int N, Tq, Tk, d;
 };
 
-inline dim3 grid_for(int N, int rows) { return dim3(N, (rows + kTile - 1) / kTile); }
-
-template <typename T, int D>
-cudaError_t run_fwd(const FlashArgs& a, cudaStream_t s) {
-  flash_fwd_kernel<T, D><<<grid_for(a.N, a.Tq), kTile, 0, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.bias, (T*)a.o, a.lse_out, a.Tq,
-      a.Tk, a.d);
-  return cudaGetLastError();
-}
+inline dim3 grid_for(int N, int rows) { return dim3(N, (rows + kFlashRows - 1) / kFlashRows); }
 
 inline bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, int D, int DN, bool kDkv>
-cudaError_t run_bwd(const FlashArgs& a, cudaStream_t s) {
-  static_assert(kTile == kBwdRows, "one grid for both directions");
-  constexpr size_t bytes = BwdSmem<T, D>::bytes;
-  static bool smem_set = false;
-  auto kernel = flash_bwd_kernel<T, D, DN, kDkv>;
-  cudaError_t e = allow_smem(kernel, bytes, smem_set);
-  if (e != cudaSuccess) return e;
-  const int vec = (a.d * sizeof(T)) % 16 == 0 && on16(a.q) && on16(a.k) && on16(a.v) &&
-                  on16(a.dout);
-  kernel<<<grid_for(a.N, kDkv ? a.Tk : a.Tq), kBwdWarps * 32, bytes, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.bias, (const T*)a.dout, a.lse_in,
-      a.delta, (T*)(kDkv ? a.dk : a.dq), (T*)a.dv, a.dbias, a.Tq, a.Tk, a.d, vec);
-  return cudaGetLastError();
+// Whole rows of 16 bytes, every operand on 16 bytes: cp.async copies.
+template <typename T> int vec_rows(const FlashArgs& a) {
+  return (a.d * sizeof(T)) % 16 == 0 && on16(a.q) && on16(a.k) && on16(a.v) && on16(a.dout);
 }
 
-// RUN<T, D> for the input dtype and the smallest padded width D >= d;
-// d outside 1..64 is refused.
-#define MDGEN_FLASH_DISPATCH(RUN)                                  \
-  do {                                                              \
-    if (a.d <= 0 || a.d > 64) return cudaErrorInvalidValue;         \
-    if (bf16) {                                                     \
-      if (a.d <= 16) return RUN<__nv_bfloat16, 16>(a, s);           \
-      if (a.d <= 24) return RUN<__nv_bfloat16, 24>(a, s);           \
-      if (a.d <= 32) return RUN<__nv_bfloat16, 32>(a, s);           \
-      return RUN<__nv_bfloat16, 64>(a, s);                          \
-    }                                                               \
-    if (a.d <= 16) return RUN<float, 16>(a, s);                     \
-    if (a.d <= 24) return RUN<float, 24>(a, s);                     \
-    if (a.d <= 32) return RUN<float, 32>(a, s);                     \
-    return RUN<float, 64>(a, s);                                    \
-  } while (0)
+struct RunFwd {
+  template <typename T, int D, int DN> static cudaError_t run(const FlashArgs& a, cudaStream_t s) {
+    constexpr size_t bytes = FlashSmem<T, D>::bytes(1);
+    static bool smem_set = false;
+    auto kernel = flash_fwd_kernel<T, D, DN>;
+    cudaError_t e = allow_smem(kernel, bytes, smem_set);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid_for(a.N, a.Tq), kFlashWarps * 32, bytes, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.bias, (T*)a.o, a.lse_out, a.Tq, a.Tk,
+        a.d, vec_rows<T>(a));
+    return cudaGetLastError();
+  }
+};
 
-// The backward for the input dtype, its output width DN (d rounded up to 8,
-// then to 16, 24, 32, 48 or 64) and the reduction D (DN rounded up to a
-// TF32 k8 step, or to a bf16 k16 step).
-template <bool kDkv>
-cudaError_t run_bwd_for(const FlashArgs& a, bool bf16, cudaStream_t s) {
+template <bool kDkv> struct RunBwd {
+  template <typename T, int D, int DN> static cudaError_t run(const FlashArgs& a, cudaStream_t s) {
+    constexpr size_t bytes = FlashSmem<T, D>::bytes(2);
+    static bool smem_set = false;
+    auto kernel = flash_bwd_kernel<T, D, DN, kDkv>;
+    cudaError_t e = allow_smem(kernel, bytes, smem_set);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid_for(a.N, kDkv ? a.Tk : a.Tq), kFlashWarps * 32, bytes, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.bias, (const T*)a.dout, a.lse_in,
+        a.delta, (T*)(kDkv ? a.dk : a.dq), (T*)a.dv, a.dbias, a.Tq, a.Tk, a.d, vec_rows<T>(a));
+    return cudaGetLastError();
+  }
+};
+
+// R::run<T, D, DN> for the input dtype, the output width DN (d rounded up to
+// 8, then to 16, 24, 32, 48 or 64) and the reduction D (DN rounded up to a
+// TF32 k8 step, or to a bf16 k16 step); d outside 1..64 is refused.
+template <typename R>
+cudaError_t run_for(const FlashArgs& a, bool bf16, cudaStream_t s) {
   using B = __nv_bfloat16;
   if (a.d <= 0 || a.d > 64) return cudaErrorInvalidValue;
   if (bf16) {
-    if (a.d <= 8) return run_bwd<B, 16, 8, kDkv>(a, s);
-    if (a.d <= 16) return run_bwd<B, 16, 16, kDkv>(a, s);
-    if (a.d <= 24) return run_bwd<B, 32, 24, kDkv>(a, s);
-    if (a.d <= 32) return run_bwd<B, 32, 32, kDkv>(a, s);
-    if (a.d <= 48) return run_bwd<B, 48, 48, kDkv>(a, s);
-    return run_bwd<B, 64, 64, kDkv>(a, s);
+    if (a.d <= 8) return R::template run<B, 16, 8>(a, s);
+    if (a.d <= 16) return R::template run<B, 16, 16>(a, s);
+    if (a.d <= 24) return R::template run<B, 32, 24>(a, s);
+    if (a.d <= 32) return R::template run<B, 32, 32>(a, s);
+    if (a.d <= 48) return R::template run<B, 48, 48>(a, s);
+    return R::template run<B, 64, 64>(a, s);
   }
-  if (a.d <= 8) return run_bwd<float, 8, 8, kDkv>(a, s);
-  if (a.d <= 16) return run_bwd<float, 16, 16, kDkv>(a, s);
-  if (a.d <= 24) return run_bwd<float, 24, 24, kDkv>(a, s);
-  if (a.d <= 32) return run_bwd<float, 32, 32, kDkv>(a, s);
-  if (a.d <= 48) return run_bwd<float, 48, 48, kDkv>(a, s);
-  return run_bwd<float, 64, 64, kDkv>(a, s);
+  if (a.d <= 8) return R::template run<float, 8, 8>(a, s);
+  if (a.d <= 16) return R::template run<float, 16, 16>(a, s);
+  if (a.d <= 24) return R::template run<float, 24, 24>(a, s);
+  if (a.d <= 32) return R::template run<float, 32, 32>(a, s);
+  if (a.d <= 48) return R::template run<float, 48, 48>(a, s);
+  return R::template run<float, 64, 64>(a, s);
 }
 
 }  // namespace mdgen
@@ -447,11 +477,10 @@ extern "C" int mdgen_flash_fwd(const void* q, const void* k, const void* v,
                                const float* bias, void* o, float* lse, int N, int Tq,
                                int Tk, int d, int bf16, void* stream) {
   using namespace mdgen;
-  const auto s = static_cast<cudaStream_t>(stream);
   FlashArgs a{};
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.o = o, a.lse_out = lse;
   a.N = N, a.Tq = Tq, a.Tk = Tk, a.d = d;
-  MDGEN_FLASH_DISPATCH(run_fwd);
+  return run_for<RunFwd>(a, bf16 != 0, static_cast<cudaStream_t>(stream));
 }
 
 // + dout [N, Tq, d] in the input dtype, lse / delta [N, Tq] f32 -> dq.
@@ -463,7 +492,7 @@ extern "C" int mdgen_flash_bwd_dq(const void* q, const void* k, const void* v,
   FlashArgs a{};
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.dout = dout, a.lse_in = lse;
   a.delta = delta, a.dq = dq, a.N = N, a.Tq = Tq, a.Tk = Tk, a.d = d;
-  return run_bwd_for<false>(a, bf16 != 0, static_cast<cudaStream_t>(stream));
+  return run_for<RunBwd<false>>(a, bf16 != 0, static_cast<cudaStream_t>(stream));
 }
 
 // The same inputs -> dk, dv [N, Tk, d] in the input dtype, dbias [N, Tk] f32.
@@ -476,5 +505,5 @@ extern "C" int mdgen_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.dout = dout, a.lse_in = lse;
   a.delta = delta, a.dk = dk, a.dv = dv, a.dbias = dbias;
   a.N = N, a.Tq = Tq, a.Tk = Tk, a.d = d;
-  return run_bwd_for<true>(a, bf16 != 0, static_cast<cudaStream_t>(stream));
+  return run_for<RunBwd<true>>(a, bf16 != 0, static_cast<cudaStream_t>(stream));
 }

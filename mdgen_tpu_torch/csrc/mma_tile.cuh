@@ -1,6 +1,6 @@
 // Tensor-core tile GEMM for the serving sublayers (kernels 1 and 3; kernel 2
 // keeps the CUDA-core gemm16 of common.cuh for now), and the warp products
-// of the flash backward (kernels 6 and 7: WarpMma, WarpMmaAccA).
+// of the flash kernels (4 to 7: WarpMma, WarpMmaAccA).
 //
 // A block of WARPS_M x WARPS_N x WARPS_K warps computes, per pass, a
 // [BM, BN] tile of

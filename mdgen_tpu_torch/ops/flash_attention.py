@@ -14,8 +14,8 @@ kernel, each behind a wrapper that counts its launches:
   * :func:`flash_bwd_dq` -> dq (kernel 6);
   * :func:`flash_bwd_dkv` -> (dk, dv, dbias) (kernel 7).
 
-The forward kernels run on CUDA cores; the backward pair runs on the tensor
-cores (``mma.sync``: bf16 operands as bf16, f32 operands as split TF32).
+All four run on the tensor cores (``mma.sync``: bf16 operands as bf16, f32
+operands as split TF32), with the probabilities kept in f32.
 
 A CPU tensor takes the plain twin (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`, the FA2 formulas on dense logits); a

@@ -191,7 +191,7 @@ def test_kernels_refuse_what_they_do_not_take():
 # take the twin's (o, lse). Shapes: the training recipe's frame attention
 # (N = 8 x 4 x 16 = 512 rows, Tq = 1000, Tk = 1001, d = 24) and ragged small
 # ones (Tk not a multiple of the 64-row tile, d padded to 16 or 64), and the
-# edges of the tensor-core backward (kernels 6 and 7): Tq below one 16-row
+# edges of the tensor-core kernels (4-7): Tq below one 16-row
 # MMA tile, Tq and Tk one past two 64-row tiles, N = 1, d = 64, and d = 7
 # (rows of no whole 16 bytes: loaded element by element, not by cp.async).
 # Tolerances: o and lse absolute, gradients relative to their largest entry;
@@ -255,16 +255,23 @@ def test_flash_kernels_match_plain(shape, dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", ["recipe", "tile_plus_one"])
-def test_flash_backward_kernels_are_deterministic(shape, dtype):
-    """Kernels 6 and 7 sum in a fixed order (no atomics): two calls on the
-    same inputs give the same bits."""
+@pytest.mark.parametrize("kernels", ["fwd", "fwd_lse", "bwd"])
+def test_flash_backward_kernels_are_deterministic(kernels, shape, dtype):
+    """Every flash kernel sums in a fixed order (no atomics): two calls on
+    the same inputs give the same bits. Cases: kernel 4 (o), kernel 5 (o,
+    lse), and the backward pair, kernels 6 and 7 (dq, dk, dv, dbias)."""
     _need_cuda()
     fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
     q, k, v, bias, do = _flash_inputs(*FLASH_SHAPES[shape], DTYPES[dtype], seed=3)
-    o, lse = fa.flash_attention_plain(q, k, v, bias)
-    bwd = (q, k, v, bias, do, lse, fa.attention_delta(o, do))
-    first = (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))
-    second = (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))
+    if kernels == "fwd":
+        run = lambda: (fa.flash_fwd(q, k, v, bias),)  # noqa: E731
+    elif kernels == "fwd_lse":
+        run = lambda: fa.flash_fwd_lse(q, k, v, bias)  # noqa: E731
+    else:
+        o, lse = fa.flash_attention_plain(q, k, v, bias)
+        bwd = (q, k, v, bias, do, lse, fa.attention_delta(o, do))
+        run = lambda: (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))  # noqa: E731
+    first, second = run(), run()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

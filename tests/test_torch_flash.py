@@ -3,11 +3,14 @@ against the JAX package's, on the CPU.
 
 The plain twins of the four CUDA kernels are held to the Pallas kernels
 themselves, run in interpret mode (MDGEN_PALLAS_INTERPRET=1, as
-``tests/test_flash_vjp.py`` does): ``_flash_fwd_tpu`` (o, lse) and
-``_flash_bwd_tpu`` (dq, dk, dv, dbias), at (Tq, Tk) = (300, 301), which takes
-JAX's multi-block and padding paths, and (24, 25), with masked keys; also at
-d = 24 and d = 40, (70, 65) and (40, 41). The backward twins take JAX's own
-(o, lse), so each output is held alone.
+``tests/test_flash_vjp.py`` does): ``_flash_attention_tpu`` (o, kernel 4),
+``_flash_fwd_tpu`` (o, lse, kernel 5) and ``_flash_bwd_tpu`` (dq, dk, dv,
+dbias, kernels 6 and 7), at (Tq, Tk) = (300, 301), which takes JAX's
+multi-block and padding paths, and (24, 25), with masked keys; also at d = 24
+and d = 40, (70, 65) and (40, 41); and at the edges of the tensor-core
+kernels' tiles: Tq = 5, fewer rows than one MMA tile, and d = 7, rows of no
+whole 16 bytes. The backward twins take JAX's own (o, lse), so each output is
+held alone.
 Tolerances: f32 2e-5 absolute on o and lse (the bound of
 ``test_flash_vjp.py``: f32 online softmax against one dense softmax), 1e-5
 relative to each gradient's largest entry (f32 sums over 301 keys or 300
@@ -37,9 +40,12 @@ fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
 jax_flash = importlib.import_module("mdgen_tpu.ops.flash_attention")
 
 # d = 24 (the recipe's head width) and 40: the widths that the tensor-core
-# backward kernels pad to a whole MMA step
+# kernels pad to a whole MMA step; tq5: fewer queries than one 16-row MMA
+# tile; d7: rows of no whole 16 bytes (loaded element by element)
 SHAPES = {"multi_block": (2, 300, 301, 8), "single_block": (3, 24, 25, 16),
-          "d24": (2, 70, 65, 24), "d40": (2, 40, 41, 40)}
+          "d24": (2, 70, 65, 24), "d40": (2, 40, 41, 40), "tq5": (2, 5, 6, 24),
+          "d7": (2, 33, 70, 7)}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
 @pytest.fixture()
@@ -69,8 +75,7 @@ def _rel(a, b):
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_plain_twins_match_pallas_kernels(interp, shape, dtype):
     q, k, v, bias, do = _inputs(*SHAPES[shape])
-    jdt, tdt = {"f32": (jnp.float32, torch.float32),
-                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jdt, tdt = DTYPES[dtype]
     jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
     with jax.default_matmul_precision("highest"):
         o_j, lse_j = jax_flash._flash_fwd_tpu(jq, jk, jv, jnp.asarray(bias))
@@ -94,6 +99,28 @@ def test_plain_twins_match_pallas_kernels(interp, shape, dtype):
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, grads_j):
         assert a.dtype == (torch.float32 if name == "dbias" else tdt), name
         assert _rel(a.float(), b) <= tol, (name, _rel(a.float(), b))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_no_grad_forward_matches_pallas_kernel(interp, shape, dtype):
+    """Kernel 4: the port's ``flash_fwd`` on CPU tensors (its plain twin)
+    against ``_flash_attention_tpu``, the JAX package's no-grad forward,
+    with the tolerances of test_plain_twins_match_pallas_kernels."""
+    q, k, v, bias, _ = _inputs(*SHAPES[shape])
+    jdt, tdt = DTYPES[dtype]
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    with jax.default_matmul_precision("highest"):
+        o_j = jax_flash._flash_attention_tpu(jq, jk, jv, jnp.asarray(bias))
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt) for x in (jq, jk, jv))
+    before = fa.flash_fwd.launches
+    o = fa.flash_fwd(tq, tk, tv, torch.from_numpy(bias))
+    assert fa.flash_fwd.launches == before  # a CPU tensor takes the plain twin
+    assert o.dtype == tdt and o.shape == tq.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=2e-5)
+    else:
+        assert _rel(o.float(), o_j.astype(jnp.float32)) <= 1e-2
 
 
 def test_chunked_attention_matches_jax():

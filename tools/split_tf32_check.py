@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Shows that chip_smoke.py's f32 tolerance for the flash backward (kernels
-6 and 7) catches a split-TF32 product that lost a term.
+"""Shows that chip_smoke.py's f32 tolerance for the flash kernels (4 to 7:
+the forward with and without lse, dq, dk/dv) catches a split-TF32 product
+that lost a term.
 
     python3 tools/split_tf32_check.py [ROOT]
 
@@ -13,13 +14,14 @@ WarpMmaAccA):
     TF32, as if the hardware dropped every small half);
   * no_small_a: the a_small * b_big product dropped (one split term lost).
 
-Each copy builds its own kernels and, in a fresh process, holds kernels 6
-and 7 in f32 against their plain twins at the training recipe's shape (N =
+Each copy builds its own kernels and, in a fresh process, holds kernels 4
+to 7 in f32 against their plain twins at the training recipe's shape (N =
 512, Tq = 1000, Tk = 1001, d = 24) and at chip_smoke.py's edge shapes,
-under chip_smoke.py's FLASH_TOL, with its inputs (`_check_flash_backward_edges`).
-Prints an `[edge]` line per kernel and shape and one JSON line per build;
-exits non-zero unless the build as it is passes everywhere and each faulty
-build fails somewhere. Needs a CUDA device and the CUDA toolkit.
+under chip_smoke.py's FLASH_TOL (o and lse absolute, gradients relative),
+with its inputs (`_check_flash_edges`). Prints an `[edge]` line per kernel
+and shape and one JSON line per build; exits non-zero unless the build as
+it is passes everywhere and each faulty build fails each of the four
+kernels somewhere. Needs a CUDA device and the CUDA toolkit.
 """
 import importlib
 import json
@@ -67,14 +69,14 @@ def _one(root, fault):
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
     shapes = {"recipe": RECIPE, **cs.FLASH_EDGE_SHAPES}
-    rows = cs._check_flash_backward_edges(torch, fa, shapes, dtypes=("f32",), strict=False)
-    worst = {}
-    for name, _, shape, err, _, ok in rows:
-        worst.setdefault(name, {})[shape] = err
+    rows = cs._check_flash_edges(torch, fa, shapes, dtypes=("f32",), strict=False)
+    err, passes = {}, {}
+    for name, _, shape, e, _, ok in rows:
+        err.setdefault(name, {})[shape] = e
+        passes[name] = passes.get(name, True) and ok
     print("[split_tf32_check]", json.dumps({
         "fault": fault, "card": smi, "kernels_from": _build.build_info["path"],
-        "tol": cs.FLASH_TOL["f32"]["rel"], "passes": all(r[-1] for r in rows),
-        "rel_err": worst}), flush=True)
+        "tol": cs.FLASH_TOL["f32"], "passes": passes, "err": err}), flush=True)
 
 
 def main(argv):
@@ -90,7 +92,8 @@ def main(argv):
         print(out, end="", flush=True)
         line = next(x for x in out.splitlines() if x.startswith("[split_tf32_check]"))
         passes[fault] = json.loads(line.split(" ", 1)[1])["passes"]
-    if not passes["as_is"] or any(passes[f] for f in FAULTS if f != "as_is"):
+    if not all(passes["as_is"].values()) or any(
+            any(passes[f].values()) for f in FAULTS if f != "as_is"):
         raise SystemExit(f"the tolerance does not separate the builds: passes {passes}")
 
 
