@@ -9,17 +9,21 @@ Phases, in order; any failure raises and the exit code is not 0:
      with nvcc for sm_90a (-Xptxas -v; registers, shared memory, spills);
   3. kernel parity: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (B=1, T=100, L=4, C=384, 16 heads), in
-     f32 and in bf16 operands, with a masked residue; the tensor-core
-     kernels 1 and 3 also at token counts that are no multiple of their
-     tiles, and twice on the same inputs (bit-equal); times kernel and plain
-     version with CUDA events eagerly through the wrapper (`ms`, what a
-     caller waits for) and around a CUDA graph of 20 calls (`device_ms`: the
-     wrappers' host time is not counted), and the wrapper's host time per
-     call;
+     f32 and in bf16 operands, with a masked residue; all three (tensor
+     cores) also at token counts that are no multiple of their tiles, and
+     kernel 2 at the edges of its 64-frame tiles (T = 1, 63, 64, 65, 129),
+     at the model's gate (T = 1024), at head widths 8, 32 and 64 and with a
+     batch entry whose residues are all masked, each twice on the same
+     inputs (bit-equal, `[edge]` lines); times kernel and plain version with
+     CUDA events eagerly through the wrapper (`ms`, what a caller waits for)
+     and around a CUDA graph of 20 calls (`device_ms`: the wrappers' host
+     time is not counted), and the wrapper's host time per call; kernel 2
+     also at T = 1000, where the sampling path of phase 9 calls it;
   4. model parity: one 5 x 384 x 16 LatentMDGenModel forward with the fused
      kernels against the dense plain path, and a short fused-vs-dense
-     rollout, on seeded weights (noise on the zero-init adaLN and output
-     head, which would otherwise hide every trunk sublayer);
+     rollout (each fused rollout from the dense one's start), on seeded
+     weights (noise on the zero-init adaLN and output head, which would
+     otherwise hide every trunk sublayer);
   5. main path: 4AA forward simulation through
      `mdgen_tpu_torch.sim_inference.main(... --fused_block)` at the bench
      configuration (T=100, 100 Euler steps, bf16-mixed), 5 rollouts; checks
@@ -49,14 +53,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      directory and rolls out once at T=1000 with 2 Euler steps;
   10. profiles, last because a torch.profiler session slows the host work
       of the rest of the process: each launch's device µs of the fused
-      kernels (one CUDA-graph replay under torch.profiler), then one more
+      kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
+      T = 1000), then one more
       main-path rollout under torch.profiler: device ms per kernel name,
       the device's busy share, launches per evaluation, frames/s;
   11. the kernels JSON line (with each kernel's bound: the larger of the
       bytes it must move over 3.35 TB/s and its operations over the peak of
-      their type; the flash kernels add their bf16 device, library and
-      bound times, the f32 bound on CUDA cores and their worst `[edge]`
-      error by dtype), the nvidia-smi line, and the result line.
+      their type; each adds its worst `[edge]` error by dtype; kernel 2 its
+      T = 1000 times and bound; the flash kernels their bf16 device, library
+      and bound times and the f32 bound on CUDA cores), the nvidia-smi line,
+      and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -103,10 +109,17 @@ KERNELS = {
     "flash_bwd_dkv": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:346"),
 }
 FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
-# the tensor-core kernels (1 and 3): edge shapes (B, T, L), token counts no
-# multiple of their 32-token tiles
+# the fused kernels (1-3): edge shapes (B, T, L), token counts no multiple of
+# their 32-token tiles
 EDGE_SHAPES = {"tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1), "L7": (2, 19, 7),
                "L16": (1, 20, 16)}
+# kernel 2 also at (B, T, L, heads): T at the edges of its 64-frame tiles and
+# at the model's gate (1024), head widths 8, 32 and 64 at C = 384, and a batch
+# entry whose residues are all masked (every query sees the bias token alone)
+FRAME_EDGE_SHAPES = {"T1": (2, 1, 4, H), "T63": (1, 63, 4, H), "T64": (1, 64, 4, H),
+                     "T65": (2, 65, 3, H), "T129": (1, 129, 4, H), "T1024": (1, 1024, 4, H),
+                     "hd8": (1, 100, 4, 48), "hd32": (1, 100, 4, 12), "hd64": (1, 100, 4, 6),
+                     "all_masked": (2, 37, 4, H)}
 # the card's published peaks (H100 SXM, at 700 W): memory, and operations
 # by type (f32 outside the tensor cores; split TF32, three TF32 products per
 # f32 product, shown beside it)
@@ -270,14 +283,14 @@ def _fused_fns():
     }
 
 
-def _fused_args(base, mask, names, is_attn, dt):
+def _fused_args(base, mask, names, is_attn, dt, heads=H):
     """(args, kwargs) of a fused sublayer, serving style: parameters and
     adaLN chunks in the compute dtype ``dt``, x in f32."""
     args = [base["x"]] + [base[n].to(dt) for n in names]
     kw = dict(compute_dtype=dt)
     if is_attn:
         args.insert(4, mask)
-        kw["num_heads"] = H
+        kw["num_heads"] = heads
     return args, kw
 
 
@@ -316,44 +329,89 @@ def phase_kernel_parity(torch):
                 f"{res['bound_ms']:.5f} ms ({res['bound_by']}), {res['bound_ms'] / res['ms']:.2%} "
                 f"of it reached eagerly, {res['bound_ms'] / device_ms:.2%} in device time")
         results[name] = res
-    _check_tensor_core_edges(torch)
+    results["fused_t_sublayer"].update(_time_frame_long(torch))
+    for name, dname, err in _check_tensor_core_edges(torch):
+        worst = results[name].setdefault("edge_err", {})
+        worst[dname] = max(worst.get(dname, 0.0), err)
     return results
 
 
+def _time_frame_long(torch):
+    """Kernel 2 at T = 1000, L = 4 (the sampling path of a run trained at the
+    recipe's frame count, phase 9), bf16: parity, then times as at the main
+    shape. Returns its numbers for the kernels line."""
+    b, t = 1, TRAIN_FRAMES
+    base, mask = _sublayer_inputs(torch, b, t, L, seed=0)
+    kern, plain, names, _ = _fused_fns()["fused_t_sublayer"]
+    args, kw = _fused_args(base, mask, names, True, torch.bfloat16)
+    y, ref = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    if not (bool(torch.isfinite(y).all()) and err <= TOL["bf16"]):
+        raise AssertionError(f"fused_t_sublayer bf16 at T={t} disagrees with its plain version: {err}")
+    call, twin = (lambda: kern(*args, **kw)), (lambda: plain(*args, **kw))
+    ms, plain_ms = _time_ms(torch, call), _time_ms(torch, twin)
+    device_ms, plain_device_ms = _graph_ms(torch, call), _graph_ms(torch, twin)
+    bound_ms, bound_by = _sublayer_bound(torch, "fused_t_sublayer", args, y, mask)
+    log(f"[time] fused_t_sublayer bf16 B={b} T={t} L={L}: max_abs_err {err:.3e} (tol "
+        f"{TOL['bf16']:g}); eager through the wrapper (CUDA events, 20 calls): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms; device: kernel {device_ms:.4f} ms, plain "
+        f"{plain_device_ms:.4f} ms (CUDA graph of 20 calls); bound {bound_ms:.5f} ms "
+        f"({bound_by}), {bound_ms / device_ms:.2%} of it in device time")
+    return {"t1000_max_abs_err": err, "t1000_ms": ms, "t1000_device_ms": device_ms,
+            "t1000_plain_ms": plain_ms, "t1000_plain_device_ms": plain_device_ms,
+            "t1000_bound_ms": bound_ms, "t1000_bound_by": bound_by}
+
+
 def _check_tensor_core_edges(torch):
-    """Kernels 1 and 3 at token counts that are no multiple of their tiles,
-    f32 and bf16, a masked residue; two calls on the same inputs bit-equal."""
+    """The fused kernels (1-3) at token counts that are no multiple of their
+    tiles, and kernel 2 at FRAME_EDGE_SHAPES; f32 and bf16, a masked residue;
+    two calls on the same inputs bit-equal. Returns [(kernel, dtype, err)]."""
     fns = _fused_fns()
-    for shape, (b, t, l) in EDGE_SHAPES.items():
+    cases = [(shape, (*dims, H), list(fns)) for shape, dims in EDGE_SHAPES.items()]
+    cases += [(shape, dims, ["fused_t_sublayer"]) for shape, dims in FRAME_EDGE_SHAPES.items()]
+    rows = []
+    for shape, (b, t, l, heads), kernels in cases:
         base, mask = _sublayer_inputs(torch, b, t, l, seed=1)
-        for name in ("fused_l_sublayer", "fused_ffn_sublayer"):
+        if shape == "all_masked":
+            mask[0] = 0.0
+        for name in kernels:
             kern, plain, names, is_attn = fns[name]
             for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-                args, kw = _fused_args(base, mask, names, is_attn, dt)
+                args, kw = _fused_args(base, mask, names, is_attn, dt, heads)
                 y1, y2, ref = kern(*args, **kw), kern(*args, **kw), plain(*args, **kw)
                 torch.cuda.synchronize()
                 err = (y1 - ref).abs().max().item()
                 same = torch.equal(y1, y2)
                 ok = bool(torch.isfinite(y1).all()) and err <= TOL[dname] and same
-                log(f"[edge] {name} {dname} B={b} T={t} L={l} ({b * t * l} tokens): max_abs_err "
-                    f"{err:.3e}, tol {TOL[dname]:g}, bit-equal twice {same} -> "
-                    f"{'ok' if ok else 'FAIL'}")
+                log(f"[edge] {name} {dname} B={b} T={t} L={l} heads={heads} ({shape}, "
+                    f"{b * t * l} tokens): max_abs_err {err:.3e}, tol {TOL[dname]:g}, bit-equal "
+                    f"twice {same} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} {dname} at {shape}: {err}, bit-equal {same}")
+                rows.append((name, dname, err))
+        del base
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _launch_split(torch):
-    """Each fused kernel's launches at the main shape: device µs per call of
-    each kernel name, from one CUDA-graph replay under torch.profiler."""
-    base, mask = _sublayer_inputs(torch, B, T, L, seed=0)
-    for name, (kern, _, names, is_attn) in _fused_fns().items():
-        for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            args, kw = _fused_args(base, mask, names, is_attn, dt)
-            split = {}
-            _graph_ms(torch, lambda: kern(*args, **kw), split=split)
-            per_launch = ", ".join(f"{n} {us:.2f} us" for n, us in split.items())
-            log(f"[profile] {name} {dname} (CUDA graph replay of 20 calls): per launch "
-                f"{per_launch or 'not measured: the profiler saw no device activity'}")
+    """Each fused kernel's launches at the main shape, and kernel 2's at T =
+    1000 in bf16: device µs per call of each kernel name, from one
+    CUDA-graph replay under torch.profiler."""
+    fns = _fused_fns()
+    runs = [(name, dname, dt, T) for name in fns
+            for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    runs.append(("fused_t_sublayer", "bf16", torch.bfloat16, TRAIN_FRAMES))
+    for name, dname, dt, t in runs:
+        kern, _, names, is_attn = fns[name]
+        base, mask = _sublayer_inputs(torch, B, t, L, seed=0)
+        args, kw = _fused_args(base, mask, names, is_attn, dt)
+        split = {}
+        _graph_ms(torch, lambda: kern(*args, **kw), split=split)
+        per_launch = ", ".join(f"{n} {us:.2f} us" for n, us in split.items())
+        log(f"[profile] {name} {dname} T={t} (CUDA graph replay of 20 calls): per launch "
+            f"{per_launch or 'not measured: the profiler saw no device activity'}")
 
 
 def _abs_err(a, ref):
@@ -648,18 +706,30 @@ def phase_model_parity(torch, state_dict):
         if not ok:
             raise AssertionError(f"fused and dense forwards disagree ({precision}): {err}")
 
-    # a short rollout (T=100, 4 Euler steps, 2 rollouts, f32), same noise
-    trajs = {}
+    # a short rollout (T=100, 4 Euler steps, 2 rollouts, f32), same noise; each
+    # fused rollout starts where the dense one did. Re-encoding a start is
+    # ill-conditioned at residue 0: its pre-omega torsion comes from a frame
+    # whose two padding atoms (the absent previous residue) coincide, so it is
+    # rounding noise that enters x_cond (as in the JAX package). A difference
+    # of an f32 ulp at the end of rollout 1 then gives rollout 2 another
+    # conditioning torsion, on either path: the chained figure is printed, not
+    # held.
     noise = torch.randn(2, B, T, L, 21, device="cuda", generator=g.manual_seed(2))
+    rts = {}
     for fused in (False, True):
         cfg = bench_config(precision="32-true", fused_block=fused, inference_steps=4)
         model = LatentMDGenModel(cfg, cfg.latent_dim)
         model.load_state_dict(state_dict)
-        trajs[fused] = MDGenRuntime(cfg, model.cuda()).rollout(start, seqres, mask, 2, noise=noise)
-    err = (trajs[True] - trajs[False]).abs().max().item()
-    ok = bool(torch.isfinite(trajs[True]).all()) and err <= 1e-3
-    log(f"[model] rollout 2 x 100 frames, 4 Euler steps, f32: fused vs dense max_abs_err "
-        f"{err:.3e} A, tol 1e-3 A -> {'ok' if ok else 'FAIL'}")
+        rts[fused] = MDGenRuntime(cfg, model.cuda())
+    dense = rts[False].rollout(start, seqres, mask, 2, noise=noise)
+    fused = torch.cat([rts[True].rollout(s, seqres, mask, 1, noise=noise[r:r + 1])
+                       for r, s in enumerate((start, dense[:, T - 1]))], dim=1)
+    chained = (rts[True].rollout(start, seqres, mask, 2, noise=noise) - dense).abs().max().item()
+    err = (fused - dense).abs().max().item()
+    ok = bool(torch.isfinite(fused).all()) and err <= 1e-3
+    log(f"[model] rollout 2 x 100 frames, 4 Euler steps, f32, each fused rollout from the dense "
+        f"one's start: fused vs dense max_abs_err {err:.3e} A, tol 1e-3 A -> "
+        f"{'ok' if ok else 'FAIL'} (chained from its own start: {chained:.3e} A, not held)")
     if not ok:
         raise AssertionError(f"fused and dense rollouts disagree: {err} A")
 

@@ -6,10 +6,11 @@
 //     compute dtype W (float or __nv_bfloat16);
 //   * small vectors (biases, adaLN chunks, bias key/value) arrive as V
 //     (float or __nv_bfloat16) and are widened to float on load;
-//   * every sum is a float32 FMA chain on CUDA cores. With W = bf16 the
-//     matmul operands are rounded to bf16 first (round-to-nearest-even),
-//     which is exactly what the JAX kernels' `astype(dt)` does; with
-//     W = float nothing is rounded and no TF32 is involved.
+//   * every sum is float32. With W = bf16 the matmul operands are rounded
+//     to bf16 first (round-to-nearest-even), which is exactly what the JAX
+//     kernels' `astype(dt)` does; with W = float nothing is rounded, and
+//     the tensor-core products take each operand as a split TF32 pair
+//     (mma_tile.cuh), f32-exact to about 2^-21 of a product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,12 +19,6 @@
 namespace mdgen {
 
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
-constexpr int kRows = 16;          // tokens per GEMM tile (rows of A)
-constexpr int kColTile = 128;      // output columns per GEMM pass
-constexpr int kKTile = 16;         // reduction depth staged per pass
-constexpr int kWsStride = kColTile + 1;
-constexpr int kGemmThreads = 256;  // gemm16 assumes exactly this block size
-constexpr int kWsFloats = kKTile * kWsStride;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -70,57 +65,6 @@ __device__ __forceinline__ void ln_modulate(const float* __restrict__ x,
     const float h = (x[c] - mu) * inv * (1.f + to_f(scale[c])) + to_f(shift[c]);
     out[c] = from_f<O>(rnd<W>(h));
   }
-}
-
-// Block GEMM over one tile of kRows rows:
-//   acc(r, n) = sum_k A[r * lda + k] * Wrow(n)[k],   r < kRows, n < N,
-// then epi(r, n, acc) for every output. A is float in shared memory (already
-// rounded to W where the semantics ask for it; rows past the valid count
-// must hold finite values). Wrow(n) returns a pointer to the K weights of
-// output n (one row of an [out, in] matrix). Ws is kWsFloats of shared
-// scratch. Each pass stages a [kKTile x kColTile] weight tile in shared
-// memory (coalesced along k); each thread then owns a 4 x 2 block of
-// outputs. Must be called by all kGemmThreads threads of the block.
-template <typename W, typename RowPtr, typename Epi>
-__device__ __forceinline__ void gemm16(const float* __restrict__ A, int lda, int K,
-                                       int N, RowPtr wrow, float* __restrict__ Ws,
-                                       Epi epi) {
-  const int tid = threadIdx.x;
-  const int rg = tid >> 6;  // rows 4*rg .. 4*rg+3 (warp-uniform)
-  const int cg = tid & 63;  // columns cg and cg + 64 of the tile
-  for (int n0 = 0; n0 < N; n0 += kColTile) {
-    float acc[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kKTile) {
-      __syncthreads();  // the previous tile is consumed
-      for (int e = tid; e < kKTile * kColTile; e += kGemmThreads) {
-        const int nn = e / kKTile, kk = e % kKTile;
-        const int n = n0 + nn, k = k0 + kk;
-        Ws[kk * kWsStride + nn] = (n < N && k < K) ? to_f(wrow(n)[k]) : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(kKTile, K - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float w0 = Ws[kk * kWsStride + cg];
-        const float w1 = Ws[kk * kWsStride + cg + 64];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = A[(rg * 4 + i) * lda + k0 + kk];
-          acc[i][0] = fmaf(a, w0, acc[i][0]);
-          acc[i][1] = fmaf(a, w1, acc[i][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = n0 + cg + 64 * j;
-        if (n < N) epi(rg * 4 + i, n, acc[i][j]);
-      }
-  }
-  __syncthreads();
 }
 
 // Rotate one head's vector in place (GPT-NeoX half rotation, ESM tables):

@@ -26,7 +26,8 @@
 //      staged in shared memory by cp.async; recomputed per block) into a
 //      resident tile, rounded to the operand dtype; the q, k and v columns
 //      of its heads (3 x 48 rows of qkv_w: all its attention needs, one GEMM
-//      pass), + bias, in f32; q scale and RoPE; one thread per (token, head,
+//      pass), + bias, in f32; q scale and RoPE (up to here qkv_project of
+//      mma_tile.cuh, shared with kernel 2); one thread per (token, head,
 //      key) for the logits, then one per (token, head, channel) for the f32
 //      softmax over the row's L keys and the bias token and the weighted
 //      values; the output, rounded to the operand dtype, goes to ao
@@ -40,26 +41,16 @@
 namespace mdgen {
 
 constexpr int kMaxL = 16;  // the model's gate for the fused path
-constexpr int kLBM = 32;   // tokens per block: whole rows of L tokens
-constexpr int kLBN = 144;  // qkv columns per GEMM pass: 2 heads of 24 at once
 
-// 12 warps (2 x 6, each 16 x 24), 4 stages
-template <typename W>
-using LQkvGemm = TileGemm<W, kLBM, kLBN, 2, 6, 1, true, 4>;
-
-// Shared memory of launch A, in this order: the GEMM stages; the resident
-// A; the x rows [BM][C], whose space then holds the f32 q, k, v of the
-// block's heads [BM][3 G hd]; the roped bias keys [G hd]; the logits
-// [BM][G][kMaxL + 1].
+// Shared memory of launch A: qkv_project's (mma_tile.cuh), then the roped
+// bias keys [G hd] and the logits [BM][G][kMaxL + 1].
 template <typename W>
 inline size_t l_attn_smem(int C, int G, int hd) {
-  const size_t xq = kLBM * (size_t)(C > 3 * G * hd ? C : 3 * G * hd);
-  return LQkvGemm<W>::smem_bytes + sizeof(W) * kLBM * resident_ld<W>(C) +
-         sizeof(float) * (xq + G * hd + kLBM * G * (kMaxL + 1));
+  return qkv_smem<W>(C, G * hd) + sizeof(float) * (G * hd + kQkvBM * G * (kMaxL + 1));
 }
 
 template <typename W, typename V>
-__global__ void __launch_bounds__(LQkvGemm<W>::kThreads, 1)
+__global__ void __launch_bounds__(QkvGemm<W>::kThreads, 1)
 l_attn_kernel(const float* __restrict__ x, const V* __restrict__ shift,
               const V* __restrict__ scale, const float* __restrict__ mask,
               const W* __restrict__ qkv_w, const V* __restrict__ qkv_b,
@@ -67,63 +58,33 @@ l_attn_kernel(const float* __restrict__ x, const V* __restrict__ shift,
               const float* __restrict__ sin_t, const float* __restrict__ cos_t,
               W* __restrict__ ao, int n_rows, int T, int L, int C, int H, int G, int use_rope,
               float q_scale) {
-  using Gm = LQkvGemm<W>;
   const int hd = C / H, half = hd / 2, GW = G * hd, QW = 3 * GW;
-  const int lda = resident_ld<W>(C);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  W* stages = reinterpret_cast<W*>(smem_raw);
-  W* As = reinterpret_cast<W*>(smem_raw + Gm::smem_bytes);
-  float* xs = reinterpret_cast<float*>(smem_raw + Gm::smem_bytes + sizeof(W) * kLBM * lda);
-  float* qkv = xs;  // the x rows are consumed by the LN before the GEMM's epilogue
-  float* kbs = xs + kLBM * max(C, QW);
+  float* kbs = reinterpret_cast<float*>(smem_raw + qkv_smem<W>(C, GW));
   float* lg = kbs + GW;
-  const int tile_tok = kLBM / L * L;
+  const int tile_tok = kQkvBM / L * L;
   const int tok0 = blockIdx.x * tile_tok, n_tok = n_rows * L;
   const int used = min(tile_tok, n_tok - tok0);
   const int tok_per_batch = T * L;
   const int h0 = blockIdx.y * G;
 
-  stage_x_rows(xs, x, tok0, used, C);
-  for (int c = threadIdx.x; c < GW; c += blockDim.x) {
+  for (int c = threadIdx.x; c < GW; c += blockDim.x) {  // the bias keys, roped at position L
     const int i = c % hd, gc = h0 * hd + c;
     const float v = to_f(bias_k[gc]);
     if (!use_rope) {
       kbs[c] = v;
     } else {
-      const float* s = sin_t + L * hd;  // the bias token sits at position L
+      const float* s = sin_t + L * hd;
       const float* co = cos_t + L * hd;
       kbs[c] = i < half ? v * co[i] - to_f(bias_k[gc + half]) * s[i]
                         : v * co[i] + to_f(bias_k[gc - half]) * s[i];
     }
   }
-
-  // local column n: segment (q, k, v) n / GW, channel h0 * hd + n % GW
-  auto row_of = [&](int n) { const int seg = n / GW; return seg * C + h0 * hd + (n - seg * GW); };
-  Gm::run(
-      As, lda, nullptr, [&](int n) { return qkv_w + (size_t)row_of(n) * C; }, qkv_w, C, QW,
-      stages,
-      [&] {  // LN + modulate while the first weight stages are in flight
-        cp_async_wait<Gm::kStagesAhead>();
-        __syncthreads();
-        ln_modulate_rows<W, V>(xs, shift, scale, tok0, used, tok_per_batch, C, kLBM, As, lda);
-      },
-      [&](int r, int n, float acc) { qkv[r * QW + n] = acc + to_f(qkv_b[row_of(n)]); });
-  __syncthreads();
-
-  // q scale, then RoPE on q and k at the token's residue position
-  for (int p = threadIdx.x; p < used * G * half; p += blockDim.x) {
-    const int r = p / (G * half), hl = (p / half) % G, i = p % half;
-    float* q = qkv + r * QW + hl * hd;
-    float* k = q + GW;
-    q[i] *= q_scale;
-    q[i + half] *= q_scale;
-    if (use_rope) {
-      const int pos = r % L;
-      rope_pair(q, i, half, sin_t + pos * hd, cos_t + pos * hd);
-      rope_pair(k, i, half, sin_t + pos * hd, cos_t + pos * hd);
-    }
-  }
-  __syncthreads();
+  // q, k, v of the block's heads, RoPE at the token's residue position (the
+  // barriers inside also publish kbs)
+  const float* qkv = qkv_project<W, V>(smem_raw, x, shift, scale, qkv_w, qkv_b, sin_t, cos_t,
+                                       tok0, used, tok_per_batch, C, hd, h0, G, use_rope,
+                                       q_scale, [&](int tok) { return tok % L; });
 
   // one thread per (token, head, key): the logit against the row's L keys
   // (finfo.min where masked) and, as key L, the bias key
@@ -167,7 +128,7 @@ static cudaError_t launch_l(const float* x, float* y, const void* shift,
                             const float* sin_t, const float* cos_t, void* ao, int B, int T,
                             int L, int C, int H, int use_rope, float q_scale,
                             cudaStream_t stream) {
-  const int G = H % 2 == 0 ? 2 : 1;  // heads per block
+  const int G = qkv_heads_per_block(H);
   const size_t smem = l_attn_smem<W>(C, G, C / H);
   if (L < 1 || L > kMaxL || C % H != 0 || (C / H) % 2 != 0 || C % 8 != 0 || smem > kMaxSmem)
     return cudaErrorInvalidValue;
@@ -175,9 +136,9 @@ static cudaError_t launch_l(const float* x, float* y, const void* shift,
   auto kernel = l_attn_kernel<W, V>;
   cudaError_t e = allow_smem(kernel, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const int n_rows = B * T, rows_per_block = kLBM / L;
+  const int n_rows = B * T, rows_per_block = kQkvBM / L;
   const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, H / G);
-  kernel<<<grid, LQkvGemm<W>::kThreads, smem, stream>>>(
+  kernel<<<grid, QkvGemm<W>::kThreads, smem, stream>>>(
       x, (const V*)shift, (const V*)scale, mask, (const W*)qkv_w, (const V*)qkv_b,
       (const V*)bias_k, (const V*)bias_v, sin_t, cos_t, (W*)ao, n_rows, T, L, C, H, G,
       use_rope, q_scale);

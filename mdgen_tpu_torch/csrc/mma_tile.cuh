@@ -1,6 +1,7 @@
-// Tensor-core tile GEMM for the serving sublayers (kernels 1 and 3; kernel 2
-// keeps the CUDA-core gemm16 of common.cuh for now), and the warp products
-// of the flash kernels (4 to 7: WarpMma, WarpMmaAccA).
+// Tensor-core tile GEMM for the serving sublayers (kernels 1 to 3: TileGemm,
+// the q/k/v projection of kernels 1 and 2, the gated out-projection of all
+// three), and the warp products of the attention kernels (the flash kernels
+// 4 to 7 and kernel 2's frame attention: WarpMma, WarpMmaAccA).
 //
 // A block of WARPS_M x WARPS_N x WARPS_K warps computes, per pass, a
 // [BM, BN] tile of
@@ -222,13 +223,15 @@ template <int MT, int NT, int KSPAN> struct WarpMma<float, MT, NT, KSPAN> {
 // tiles as WarpMma<W, 1, KT, ...> leaves them (FA2's P or dS, kept in
 // registers) and B is row-major [k][n] in shared memory with stride ldb:
 // read transposed against WarpMma's [n][k], so no copy of the tile is made.
-template <typename W, int KT, int NT> struct WarpMmaAccA;
+// ROUND_A: A is rounded to W once, as the reference rounds it (kernel 2's P).
+template <typename W, int KT, int NT, bool ROUND_A = false> struct WarpMmaAccA;
 
 // bf16: accumulator tiles 2kk and 2kk+1 are exactly the A fragment of one
-// k16 step. A stays f32, as the reference's p and ds do: it enters as the
-// pair hi + lo of split_bf16x2, two MMAs a step; B comes through
-// ldmatrix.trans.
-template <int KT, int NT> struct WarpMmaAccA<__nv_bfloat16, KT, NT> {
+// k16 step. A stays f32, as the flash kernels' reference keeps p and ds: it
+// enters as the pair hi + lo of split_bf16x2, two MMAs a step; with ROUND_A
+// it is rounded to bf16 (to nearest even, as astype does) and enters once.
+// B comes through ldmatrix.trans.
+template <int KT, int NT, bool ROUND_A> struct WarpMmaAccA<__nv_bfloat16, KT, NT, ROUND_A> {
   static_assert(KT % 2 == 0, "k16 steps");
   __device__ __forceinline__ static void run(float (&out)[NT][4], const float (&a)[KT][4],
                                              const __nv_bfloat16* B, int ldb) {
@@ -236,15 +239,22 @@ template <int KT, int NT> struct WarpMmaAccA<__nv_bfloat16, KT, NT> {
 #pragma unroll
     for (int kk = 0; kk < KT / 2; ++kk) {
       uint32_t hi[4], lo[4];
-      split_bf16x2(a[2 * kk][0], a[2 * kk][1], hi[0], lo[0]);
-      split_bf16x2(a[2 * kk][2], a[2 * kk][3], hi[1], lo[1]);
-      split_bf16x2(a[2 * kk + 1][0], a[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16x2(a[2 * kk + 1][2], a[2 * kk + 1][3], hi[3], lo[3]);
+      if constexpr (ROUND_A) {
+        hi[0] = pack_bf16x2(a[2 * kk][0], a[2 * kk][1]);
+        hi[1] = pack_bf16x2(a[2 * kk][2], a[2 * kk][3]);
+        hi[2] = pack_bf16x2(a[2 * kk + 1][0], a[2 * kk + 1][1]);
+        hi[3] = pack_bf16x2(a[2 * kk + 1][2], a[2 * kk + 1][3]);
+      } else {
+        split_bf16x2(a[2 * kk][0], a[2 * kk][1], hi[0], lo[0]);
+        split_bf16x2(a[2 * kk][2], a[2 * kk][3], hi[1], lo[1]);
+        split_bf16x2(a[2 * kk + 1][0], a[2 * kk + 1][1], hi[2], lo[2]);
+        split_bf16x2(a[2 * kk + 1][2], a[2 * kk + 1][3], hi[3], lo[3]);
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         uint32_t b[2];  // lanes 0-7: k rows 0-7, lanes 8-15: rows 8-15 (16-31 repeat)
         ldmatrix_x2_trans(b, B + (kk * 16 + (lane & 15)) * ldb + nt * 8);
-        mma_bf16(out[nt], lo, b);
+        if constexpr (!ROUND_A) mma_bf16(out[nt], lo, b);
         mma_bf16(out[nt], hi, b);
       }
     }
@@ -254,8 +264,9 @@ template <int KT, int NT> struct WarpMmaAccA<__nv_bfloat16, KT, NT> {
 // f32, split TF32: the accumulator holds columns (2t, 2t+1) where the A
 // fragment of m16n8k8 wants (t, t+4). A sum over k does not care about the
 // order of k, so each k8 step takes logical k t as column 2t and t+4 as
-// 2t+1, and B's rows are read in that same order: no shuffles.
-template <int KT, int NT> struct WarpMmaAccA<float, KT, NT> {
+// 2t+1, and B's rows are read in that same order: no shuffles. Rounding to
+// f32 is the identity, so ROUND_A changes nothing.
+template <int KT, int NT, bool ROUND_A> struct WarpMmaAccA<float, KT, NT, ROUND_A> {
   __device__ __forceinline__ static void run(float (&out)[NT][4], const float (&a)[KT][4],
                                              const float* B, int ldb) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -445,8 +456,76 @@ __device__ __forceinline__ void ln_modulate_rows(const float* xs, const V* __res
   }
 }
 
+// The q/k/v projection that opens the attention sublayers (kernels 1 and 2).
+// Block = (32 tokens, a group of G heads): 12 warps (2 x 6, each 16 x 24),
+// 4 stages; one GEMM pass covers the 3 x 48 qkv columns of 2 heads of 24.
+constexpr int kQkvBM = 32;
+constexpr int kQkvBN = 144;
+template <typename W>
+using QkvGemm = TileGemm<W, kQkvBM, kQkvBN, 2, 6, 1, true, 4>;
+
+inline int qkv_heads_per_block(int H) { return H % 2 == 0 ? 2 : 1; }
+
+// Shared memory of qkv_project, in this order: the GEMM stages; the
+// resident A; the x rows [BM][C], whose space then holds the f32 q, k, v
+// [BM][3 GW] (GW = G hd). A caller's own parts follow at this offset.
+template <typename W> __host__ __device__ inline size_t qkv_smem(int C, int GW) {
+  return QkvGemm<W>::smem_bytes + sizeof(W) * kQkvBM * resident_ld<W>(C) +
+         sizeof(float) * kQkvBM * (size_t)(C > 3 * GW ? C : 3 * GW);
+}
+
+// q, k and v of the `used` tokens from tok0, for heads h0 .. h0 + G - 1:
+// the first weight stages are issued, then LN + modulate of the rows (x
+// staged by cp.async) into a resident tile rounded to W, projected onto the
+// heads' 3 G hd rows of qkv_w, + bias, in f32; q scaled, then q and k roped
+// at the table row pos(token) when use_rope. Returns the f32 [kQkvBM][3 GW]
+// tile (q, k, v, each G heads of hd) in shared memory, after a barrier.
+// Called by all threads.
+template <typename W, typename V, typename Pos>
+__device__ __forceinline__ float* qkv_project(
+    unsigned char* smem, const float* __restrict__ x, const V* __restrict__ shift,
+    const V* __restrict__ scale, const W* __restrict__ qkv_w, const V* __restrict__ qkv_b,
+    const float* __restrict__ sin_t, const float* __restrict__ cos_t, int tok0, int used,
+    int tok_per_batch, int C, int hd, int h0, int G, int use_rope, float q_scale, Pos pos) {
+  using Gm = QkvGemm<W>;
+  const int half = hd / 2, GW = G * hd, QW = 3 * GW, lda = resident_ld<W>(C);
+  W* stages = reinterpret_cast<W*>(smem);
+  W* As = reinterpret_cast<W*>(smem + Gm::smem_bytes);
+  float* xs = reinterpret_cast<float*>(smem + Gm::smem_bytes + sizeof(W) * kQkvBM * lda);
+  float* qkv = xs;  // the x rows are consumed by the LN before the GEMM's epilogue
+
+  stage_x_rows(xs, x, tok0, used, C);
+  // local column n: segment (q, k, v) n / GW, channel h0 * hd + n % GW
+  auto row_of = [&](int n) { const int seg = n / GW; return seg * C + h0 * hd + (n - seg * GW); };
+  Gm::run(
+      As, lda, nullptr, [&](int n) { return qkv_w + (size_t)row_of(n) * C; }, qkv_w, C, QW,
+      stages,
+      [&] {  // LN + modulate while the first weight stages are in flight
+        cp_async_wait<Gm::kStagesAhead>();
+        __syncthreads();
+        ln_modulate_rows<W, V>(xs, shift, scale, tok0, used, tok_per_batch, C, kQkvBM, As, lda);
+      },
+      [&](int r, int n, float acc) { qkv[r * QW + n] = acc + to_f(qkv_b[row_of(n)]); });
+  __syncthreads();
+
+  for (int p = threadIdx.x; p < used * G * half; p += blockDim.x) {
+    const int r = p / (G * half), hl = (p / half) % G, i = p % half;
+    float* q = qkv + r * QW + hl * hd;
+    float* k = q + GW;
+    q[i] *= q_scale;
+    q[i + half] *= q_scale;
+    if (use_rope) {
+      const int at = pos(tok0 + r);
+      rope_pair(q, i, half, sin_t + at * hd, cos_t + at * hd);
+      rope_pair(k, i, half, sin_t + at * hd, cos_t + at * hd);
+    }
+  }
+  __syncthreads();
+  return qkv;
+}
+
 // y[tok, c] = x[tok, c] + gate[b, c] * (sum_k A[tok, k] w[c, k] + bias[c]):
-// the last projection and gated residual of kernels 1 and 3. Block = (32
+// the last projection and gated residual of kernels 1 to 3. Block = (32
 // tokens, 32 output columns), so each block reads only its slice of w; A
 // and w both stream through 8 stages (K is up to 1536 here); 8 warps, two
 // k groups of 2 x 2.

@@ -5,8 +5,8 @@ only (it refuses tensors that require grad): for each (b, l), attention
 over the T frames plus the learned bias token at position T. The residue mask is frame-constant: a masked residue
 has no valid frame key, so its queries attend to the bias token alone.
 CPU tensors take :func:`fused_t_sublayer_plain`; CUDA tensors take the
-hand-written kernels of ``csrc/fused_t_sublayer.cu`` (three launches per
-call; the launch count below counts calls).
+hand-written kernel ``csrc/fused_t_sublayer.cu`` (three launches on the
+tensor cores, or raise; the launch count below counts calls).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 from ..models.attention import NEG_INF, rotate_half
 from . import _build
 from ._common import (
-    check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rnd, rope_tables,
+    check_aligned16, check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rnd, rope_tables,
     same_device, stream_ptr, vectors, weights,
 )
 
@@ -74,25 +74,28 @@ def fused_t_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
     B, T, L, C = x.shape
     H = num_heads
     hd = C // H
-    if hd * H != C or hd % 2 or hd > 64 or qkv_w.shape != (3 * C, C) or mask.shape != (B, L):
+    if (hd * H != C or hd % 2 or hd > 64 or C % 8 or qkv_w.shape != (3 * C, C)
+            or mask.shape != (B, L)):
         raise ValueError("fused_t_sublayer: unsupported shape")
     same_device(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v, out_w, out_b)
     qkv_wc, out_wc = weights(compute_dtype, qkv_w, out_w)
+    check_aligned16(x, qkv_wc, out_wc)
     v_bf16, (sh, sc, g, qb, bk, bv, ob) = vectors(
         shift, scale, gate, qkv_b, bias_k.reshape(-1), bias_v.reshape(-1), out_b
     )
     mask = mask.float().contiguous()
     sin, cos = rope_tables(T + 1, hd, x.device)
     y = torch.empty_like(x)
-    qkvh = torch.empty((B, L, H, T, 3 * hd), dtype=torch.float32, device=x.device)
-    attn = torch.empty_like(x)
+    # q, k, v in the flash layout, and the attention output [tokens, C]
+    qkv = torch.empty((3, B * L * H, T, hd), dtype=compute_dtype, device=x.device)
+    ao = torch.empty((B * T * L, C), dtype=compute_dtype, device=x.device)
     if x.numel():
         _build.call(
             "mdgen_fused_t_sublayer",
             x.data_ptr(), y.data_ptr(), sh.data_ptr(), sc.data_ptr(), g.data_ptr(),
             mask.data_ptr(), qkv_wc.data_ptr(), qb.data_ptr(), bk.data_ptr(),
             bv.data_ptr(), out_wc.data_ptr(), ob.data_ptr(), sin.data_ptr(),
-            cos.data_ptr(), qkvh.data_ptr(), attn.data_ptr(), B, T, L, C, H,
+            cos.data_ptr(), qkv.data_ptr(), ao.data_ptr(), B, T, L, C, H,
             int(use_rope), float(hd**-0.5), int(compute_dtype == torch.bfloat16),
             v_bf16, stream_ptr(),
         )

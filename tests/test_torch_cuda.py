@@ -10,9 +10,11 @@ no CUDA device is present.
 
 Shapes: the main path's (B=1, T=100, L=4, C=384, 16 heads, hidden 1536),
 plus the edges of the model's gates (L=16 and L=3 residues, T=1024 frames)
-and a batch of 2 with a masked residue; and token counts that are no
-multiple of the 32-token tiles of the tensor-core kernels 1 and 3 (4
-tokens; B=3, T=37; L = 1 and 7), which must also be bit-deterministic.
+and a batch of 2 with a masked residue; token counts that are no multiple of
+the 32-token tiles of the fused kernels (4 tokens; B=3, T=37; L = 1 and 7);
+and for the frame kernel (2) the edges of its 64-frame tiles (T = 1, 63, 64,
+65, 129), head widths 8, 32 and 64 (48, 12 and 6 heads at C = 384), and a
+batch entry whose residues are all masked. All must be bit-deterministic.
 
 Tolerances: f32 1e-4 (the same f32 operands, sums of 384..1536 products
 taken in another order, |y| up to ~10); bf16 operands 1e-2 (both versions
@@ -39,9 +41,10 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _inputs(B, T, L, dt, seed=0):
+def _inputs(B, T, L, dt, seed=0, all_masked=False):
     """x f32; parameters and adaLN chunks in ``dt``, as after the serving cast;
-    the last residue of the last batch entry masked."""
+    the last residue of the last batch entry masked (with ``all_masked``,
+    every residue of the first too)."""
     g = torch.Generator().manual_seed(seed)
 
     def f(*s, sc=1.0, dtype=dt):
@@ -49,6 +52,8 @@ def _inputs(B, T, L, dt, seed=0):
 
     mask = torch.ones(B, L)
     mask[-1, -1] = 0.0
+    if all_masked:
+        mask[0] = 0.0
     return dict(
         x=f(B, T, L, C, dtype=torch.float32), shift=f(B, 1, C, sc=0.1),
         scale=f(B, 1, C, sc=0.1), gate=f(B, 1, C, sc=0.5), mask=mask.cuda(),
@@ -67,11 +72,17 @@ ATTN = {
     "t": (ops.fused_t_sublayer, ops.fused_t_sublayer_plain),
 }
 # name: (B, T, L)
-# (T1024, the frame kernel's gate, is only a batch size to the residue kernel)
 SHAPES = {"main": (1, 100, 4), "batch2": (2, 37, 4), "L16": (1, 20, 16), "L3": (2, 30, 3),
           "T1024": (1, 1024, 2), "tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1),
-          "L7": (2, 19, 7)}
-# the tile edges of the tensor-core kernels (1 and 3)
+          "L7": (2, 19, 7), "T1": (2, 1, 4), "T63": (1, 63, 4), "T64": (1, 64, 4),
+          "T65": (2, 65, 3), "T129": (1, 129, 4), "hd8": (1, 100, 4), "hd32": (1, 100, 4),
+          "hd64": (1, 100, 4), "all_masked": (2, 37, 4)}
+# heads where not 16: the head widths 8, 32 and 64
+HEADS = {"hd8": 48, "hd32": 12, "hd64": 6}
+# the frame kernel's own edges (T1024, its gate, is only a batch size to the
+# residue kernel)
+FRAME_EDGES = ["T1024", "T1", "T63", "T64", "T65", "T129", "hd8", "hd32", "hd64", "all_masked"]
+# the token-tile edges of the fused kernels (1-3)
 EDGES = ["main", "tokens4", "batch3", "L1", "L7", "L16"]
 
 
@@ -85,16 +96,15 @@ def _check(y, ref, dt):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize(
-    "kernel,shape", [(k, s) for k in ATTN for s in SHAPES if not (k == "l" and s == "T1024")]
+    "kernel,shape", [(k, s) for k in ATTN for s in SHAPES if k == "t" or s not in FRAME_EDGES]
 )
 def test_attention_kernel_matches_plain(kernel, shape, dtype):
     _need_cuda()
-    B, T, L = SHAPES[shape]
     dt = DTYPES[dtype]
-    a = _inputs(B, T, L, dt)
+    a = _inputs(*SHAPES[shape], dt, all_masked=shape == "all_masked")
     fn, plain = ATTN[kernel]
     args = [a[n] for n in ATTN_ARGS]
-    kw = dict(num_heads=H, compute_dtype=dt)
+    kw = dict(num_heads=HEADS.get(shape, H), compute_dtype=dt)
     before = fn.launches
     y = fn(*args, **kw)
     assert fn.launches == before + 1
@@ -128,13 +138,13 @@ def test_ffn_kernel_matches_plain(shape, dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", ["main", "batch3", "L7"])
-@pytest.mark.parametrize("kernel", ["l", "ffn"])
+@pytest.mark.parametrize("kernel", ["l", "t", "ffn"])
 def test_tensor_core_kernels_are_deterministic(kernel, shape, dtype):
     """No sum crosses blocks (no atomics): two calls give the same bits."""
     _need_cuda()
     a = _inputs(*SHAPES[shape], DTYPES[dtype], seed=2)
-    if kernel == "l":
-        fn, args, kw = ops.fused_l_sublayer, [a[n] for n in ATTN_ARGS], dict(num_heads=H)
+    if kernel in ATTN:
+        fn, args, kw = ATTN[kernel][0], [a[n] for n in ATTN_ARGS], dict(num_heads=H)
     else:
         fn, args, kw = ops.fused_ffn_sublayer, [a[n] for n in FFN_ARGS], {}
     kw["compute_dtype"] = DTYPES[dtype]
@@ -144,7 +154,8 @@ def test_tensor_core_kernels_are_deterministic(kernel, shape, dtype):
 
 
 def test_tensor_core_kernels_refuse_widths_off_16_bytes():
-    """Kernels 1 and 3 copy rows 16 bytes at a time: C % 8 != 0 raises."""
+    """The fused kernels (1-3) copy rows 16 bytes at a time: C % 8 != 0
+    raises (here with an even head width of 18, which the kernels take)."""
     _need_cuda()
     c = 36
     z = lambda *s: torch.zeros(*s, device="cuda")  # noqa: E731
@@ -152,10 +163,10 @@ def test_tensor_core_kernels_refuse_widths_off_16_bytes():
     with pytest.raises(ValueError):
         ops.fused_ffn_sublayer(x, v, v, v, z(4 * c, c), z(4 * c), z(c, 4 * c), z(c),
                                compute_dtype=torch.float32)
-    with pytest.raises(ValueError):
-        ops.fused_l_sublayer(x, v, v, v, torch.ones(1, 4, device="cuda"), z(3 * c, c),
-                             z(3 * c), z(c), z(c), z(c, c), z(c), num_heads=2,
-                             compute_dtype=torch.float32)
+    for fn, _ in ATTN.values():
+        with pytest.raises(ValueError):
+            fn(x, v, v, v, torch.ones(1, 4, device="cuda"), z(3 * c, c), z(3 * c), z(c), z(c),
+               z(c, c), z(c), num_heads=2, compute_dtype=torch.float32)
 
 
 def test_tensor_core_kernels_refuse_rows_off_16_bytes():
@@ -166,9 +177,9 @@ def test_tensor_core_kernels_refuse_rows_off_16_bytes():
     x = torch.empty(a["x"].numel() + 1, device="cuda")[1:].view_as(a["x"]).copy_(a["x"])
     with pytest.raises(ValueError, match="16-byte"):
         ops.fused_ffn_sublayer(x, *[a[n] for n in FFN_ARGS[1:]], compute_dtype=torch.float32)
-    with pytest.raises(ValueError, match="16-byte"):
-        ops.fused_l_sublayer(x, *[a[n] for n in ATTN_ARGS[1:]], num_heads=H,
-                             compute_dtype=torch.float32)
+    for fn, _ in ATTN.values():
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(x, *[a[n] for n in ATTN_ARGS[1:]], num_heads=H, compute_dtype=torch.float32)
 
 
 def test_kernels_refuse_what_they_do_not_take():

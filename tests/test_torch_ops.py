@@ -56,24 +56,49 @@ def _tol(dtype):
     return 2e-5 if dtype == "f32" else 0.05
 
 
+def _check_attention(kernel, a, heads, use_rope, dtype, interpret):
+    """The port's sublayer (CPU: its plain twin) against the JAX kernel."""
+    jdt, tdt = _DT[dtype]
+    jax_fn, torch_fn = ATTN[kernel]
+    names = ["x", "shift", "scale", "gate", "mask", "qkv_w", "qkv_b", "bias_k",
+             "bias_v", "out_w", "out_b"]
+    with jax.default_matmul_precision("highest"):
+        y_jax = jax_fn(*[jnp.asarray(a[n]) for n in names], num_heads=heads,
+                       use_rope=use_rope, compute_dtype=jdt, interpret=interpret)
+    args = [_torch(a[n], transpose=n in ("qkv_w", "out_w")) for n in names]
+    y = torch_fn(*args, num_heads=heads, use_rope=use_rope, compute_dtype=tdt)
+    assert y.dtype == torch.float32 and y.shape == a["x"].shape
+    tol = _tol(dtype)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("interpret", [False, True], ids=["fallback", "interpret"])
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("kernel", list(ATTN))
 def test_attention_sublayer_matches_jax(kernel, case, interpret):
     T, use_rope, dtype = CASES[case]
-    jdt, tdt = _DT[dtype]
-    a = _inputs(T)
-    jax_fn, torch_fn = ATTN[kernel]
-    names = ["x", "shift", "scale", "gate", "mask", "qkv_w", "qkv_b", "bias_k",
-             "bias_v", "out_w", "out_b"]
-    with jax.default_matmul_precision("highest"):
-        y_jax = jax_fn(*[jnp.asarray(a[n]) for n in names], num_heads=H,
-                       use_rope=use_rope, compute_dtype=jdt, interpret=interpret)
-    args = [_torch(a[n], transpose=n in ("qkv_w", "out_w")) for n in names]
-    y = torch_fn(*args, num_heads=H, use_rope=use_rope, compute_dtype=tdt)
-    assert y.dtype == torch.float32 and y.shape == a["x"].shape
-    tol = _tol(dtype)
-    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), rtol=tol, atol=tol)
+    _check_attention(kernel, _inputs(T), H, use_rope, dtype, interpret)
+
+
+# the frame kernel's tile edges on the card, held here through its twin: T
+# at one frame and one past one and two 64-frame tiles, a head width of 32
+# (C = 64, H = 2), and a batch entry whose residues are all masked
+FRAME_CASES = {
+    # name: (T, heads, all residues of batch entry 0 masked)
+    "T1": (1, H, False), "T65": (65, H, False), "T129": (129, H, False),
+    "hd32": (10, 2, False), "all_masked": (10, H, True),
+}
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["fallback", "interpret"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FRAME_CASES))
+def test_frame_sublayer_matches_jax_at_tile_edges(case, dtype, interpret):
+    T, heads, all_masked = FRAME_CASES[case]
+    a = _inputs(T, seed=2)
+    if all_masked:
+        a["mask"][0] = 0.0
+    _check_attention("t", a, heads, True, dtype, interpret)
 
 
 @pytest.mark.parametrize("interpret", [False, True], ids=["fallback", "interpret"])

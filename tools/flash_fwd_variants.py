@@ -35,7 +35,7 @@ import tempfile
 # variant: [(file under csrc/, line as it is, line in the variant)]
 VARIANTS = {
     "as_is": [],
-    "p_bf16": [("mma_tile.cuh", "        mma_bf16(out[nt], lo, b);\n", "")],
+    "p_bf16": [("mma_tile.cuh", "        if constexpr (!ROUND_A) mma_bf16(out[nt], lo, b);\n", "")],
     "blocks_2": [("flash_attention.cu", "constexpr int kFwdMinBlocks = 4;\n",
                   "constexpr int kFwdMinBlocks = 2;\n")],
     "blocks_6": [("flash_attention.cu", "constexpr int kFwdMinBlocks = 4;\n",
