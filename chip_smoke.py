@@ -18,7 +18,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      CUDA events eagerly through the wrapper (`ms`, what a caller waits for)
      and around a CUDA graph of 20 calls (`device_ms`: the wrappers' host
      time is not counted), and the wrapper's host time per call; kernel 2
-     also at T = 1000, where the sampling path of phase 9 calls it;
+     also at T = 1000, where the sampling path of phase 11 calls it;
   4. model parity: one 5 x 384 x 16 LatentMDGenModel forward with the fused
      kernels against the dense plain path, and a short fused-vs-dense
      rollout (each fused rollout from the dense one's start), on seeded
@@ -29,7 +29,21 @@ Phases, in order; any failure raises and the exit code is not 0:
      configuration (T=100, 100 Euler steps, bf16-mixed), 5 rollouts; checks
      the PDB (500 frames x 4 residues, finite) and that each fused kernel
      ran exactly 5 layers x 99 steps x 5 rollouts = 2475 times;
-  6. flash kernel parity: kernels 4-7 against their plain twins at the
+  6. dopri5 at full width: one adaptive dopri5 rollout (T=100) of the bench
+     model through MDGenRuntime, in 32-true fused (kernels 1-3) and dense
+     from the same start and noise, then in bf16-mixed fused; checks that
+     the f32 fused solve reaches t1, that kernels 1-3 ran 5 layers x its
+     drift evaluations times, and that its atoms are within DOPRI5_TOL of
+     the dense solve's; prints attempts, accepted, rejected, evaluations, ms
+     per solve and frames/s beside phase 5's Euler rollout (a bf16 solve
+     that spends max_steps is printed, not failed);
+  7. the quality chain: `mdgen_tpu_torch.quality_run` on the card at a small
+     budget (the default 128 x 3 model, QUALITY_MD_FRAMES MD frames,
+     QUALITY_EPOCHS steps, 2 dopri5 rollouts, --xtc): out.pkl, every JSD
+     finite and in [0, 1], each XTC read back with its frame-0 PDB topology
+     and within XTC precision (1e-3 nm) of the sampled atoms superposed onto
+     frame 0, and the printed JSON (its JSDs mean nothing at this budget);
+  8. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
      a masked residue, f32 and bf16 operands, each twice on the same inputs
      (bit-equal); all four (tensor cores) also at edge shapes (Tq below one
@@ -40,24 +54,24 @@ Phases, in order; any failure raises and the exit code is not 0:
      events, in both dtypes, and kernel and library device time around a
      CUDA graph of 5 calls, each beside its bound (f32: split TF32; bf16
      operands: bf16 tensor cores);
-  7. model gradient parity: one training loss and backward of the 5 x 384 x
+  9. model gradient parity: one training loss and backward of the 5 x 384 x
      16 model at the recipe shape (B=8, T=1000, L=4, f32) through the flash
      kernels against dense attention: loss, every gradient, the grad norm;
-  8. the training path: `mdgen_tpu_torch.train.main` at the 4AA recipe
+  10. the training path: `mdgen_tpu_torch.train.main` at the 4AA recipe
      (batch 8, T=1000, crop 4, Adam 1e-4, clip 1, EMA) on 8 synthetic
      tetrapeptides of 1100 frames, 20 epochs of one step; checks 20 finite
      losses, each of kernels 5-7 launched exactly 5 layers x 20 steps = 100
      times and kernel 4 5 times (one validation batch), and the step_20
      checkpoint; prints ms per train step over steps 5-20;
-  9. sampling from that run: `sim_inference --fused_block` restores the run
+  11. sampling from that run: `sim_inference --fused_block` restores the run
      directory and rolls out once at T=1000 with 2 Euler steps;
-  10. profiles, last because a torch.profiler session slows the host work
+  12. profiles, last because a torch.profiler session slows the host work
       of the rest of the process: each launch's device µs of the fused
       kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
       T = 1000), then one more
       main-path rollout under torch.profiler: device ms per kernel name,
       the device's busy share, launches per evaluation, frames/s;
-  11. the kernels JSON line (with each kernel's bound: the larger of the
+  13. the kernels JSON line (with each kernel's bound: the larger of the
       bytes it must move over 3.35 TB/s and its operations over the peak of
       their type; each adds its worst `[edge]` error by dtype; kernel 2 its
       T = 1000 times and bound; the flash kernels their bf16 device, library
@@ -120,6 +134,16 @@ FRAME_EDGE_SHAPES = {"T1": (2, 1, 4, H), "T63": (1, 63, 4, H), "T64": (1, 64, 4,
                      "T65": (2, 65, 3, H), "T129": (1, 129, 4, H), "T1024": (1, 1024, 4, H),
                      "hd8": (1, 100, 4, 48), "hd32": (1, 100, 4, 12), "hd64": (1, 100, 4, 6),
                      "all_masked": (2, 37, 4, H)}
+# dopri5 at full width: the f32 fused solve against the dense one from the
+# same start and noise, max |atoms| difference in Angstrom. The adaptive
+# solver amplifies f32 rounding (its error estimate is a difference of two
+# nearly equal states, so the last digit of one evaluation moves every later
+# step size): 1.75e-3 A on the H100 with the seeded bench model (97
+# evaluations each, PERF.md), held with margin; Euler's 4 steps in phase 4
+# read 6e-6 A
+DOPRI5_TOL = 1e-2
+# the quality chain at a small budget (its JSDs mean nothing)
+QUALITY_MD_FRAMES, QUALITY_EPOCHS, QUALITY_ROLLOUTS = 300, 40, 2
 # the card's published peaks (H100 SXM, at 700 W): memory, and operations
 # by type (f32 outside the tensor cores; split TF32, three TF32 products per
 # f32 product, shown beside it)
@@ -338,7 +362,7 @@ def phase_kernel_parity(torch):
 
 def _time_frame_long(torch):
     """Kernel 2 at T = 1000, L = 4 (the sampling path of a run trained at the
-    recipe's frame count, phase 9), bf16: parity, then times as at the main
+    recipe's frame count, phase 11), bf16: parity, then times as at the main
     shape. Returns its numbers for the kernels line."""
     b, t = 1, TRAIN_FRAMES
     base, mask = _sublayer_inputs(torch, b, t, L, seed=0)
@@ -780,6 +804,133 @@ def _main_path(state_dict, smi, work):
     return counts, rec["seconds"] / ROLLOUTS
 
 
+def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
+    """One dopri5 rollout (T=100 frames) of the bench model: 32-true fused
+    and dense from the same start and noise, then bf16-mixed fused. Returns
+    the f32 fused solve's stats."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime
+
+    start = torch.from_numpy(synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32))[None].cuda()
+    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long().cuda()
+    mask = torch.ones(B, L, device="cuda")
+    noise = torch.randn(1, B, T, L, 21, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(7))
+    euler_fps = NUM_FRAMES / euler_rollout_s
+    runs = {}
+    for name, precision, fused in (("f32 fused", "32-true", True), ("f32 dense", "32-true", False),
+                                   ("bf16 fused", "bf16-mixed", True)):
+        cfg = bench_config(precision=precision, fused_block=fused, sampling_method="dopri5")
+        model = LatentMDGenModel(cfg, cfg.latent_dim)
+        model.load_state_dict(state_dict)
+        rt = MDGenRuntime(cfg, model.cuda())
+        solves = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        atoms = rt.rollout(start, seqres, mask, 1, noise=noise, stats=solves)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        st = solves[0]
+        runs[name] = (atoms, st, counts)
+        log(f"[dopri5] {name} ({precision}), one rollout of {NUM_FRAMES} frames: "
+            f"{st['attempts']} attempts, {st['accepted']} accepted, {st['rejected']} rejected, "
+            f"{st['evals']} drift evaluations, t1 {'reached' if st['reached_t1'] else 'NOT reached'}"
+            f" (t = {st['t_final']:.6f}); {sec * 1e3:.1f} ms per solve = "
+            f"{NUM_FRAMES / sec:.1f} frames/s (Euler, {EULER_STEPS - 1} evaluations, phase 5: "
+            f"{euler_rollout_s * 1e3:.1f} ms = {euler_fps:.1f} frames/s); "
+            f"{sec * 1e3 / st['evals']:.2f} ms per evaluation; launches {counts} ({smi})")
+        if not bool(torch.isfinite(atoms).all()):
+            raise AssertionError(f"dopri5 {name}: non-finite atoms")
+        if name == "bf16 fused" and not st["reached_t1"]:
+            log(f"[dopri5] finding: the bf16-mixed fused solve spent max_steps "
+                f"({st['attempts']} attempts) and stopped at t = {st['t_final']:.6f} < 1")
+        del model, rt
+    (fused, st, counts), (dense, _, dense_counts) = runs["f32 fused"], runs["f32 dense"]
+    err = (fused - dense).abs().max().item()
+    want = 5 * st["evals"]
+    ok = (st["reached_t1"] and err <= DOPRI5_TOL and all(
+        counts[k] == want for k in ("fused_l_sublayer", "fused_t_sublayer", "fused_ffn_sublayer"))
+        and not any(dense_counts.values()))
+    log(f"[dopri5] f32 fused vs dense, same start and noise: max_abs_err {err:.3e} A, tol "
+        f"{DOPRI5_TOL:g} A; dense {runs['f32 dense'][1]['evals']} evaluations; each fused "
+        f"kernel {want} launches expected -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dopri5 f32 fused solve: t1 reached {st['reached_t1']}, "
+                             f"err {err} A, launches {counts} (want {want})")
+    torch.cuda.empty_cache()
+    return st
+
+
+def phase_quality(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_quality_") as work:
+        return _quality(torch, smi, work)
+
+
+def _quality(torch, smi, work):
+    """quality_run at a small budget on the card; checks its outputs."""
+    import pickle
+
+    import numpy as np
+
+    from mdgen_tpu_torch import quality_run
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.protein import load_pdb_trajectory, load_trajectory
+    from mdgen_tpu_torch.xtc import read_xtc, superpose
+
+    t0 = time.perf_counter()
+    res = quality_run.main(["--out", work, "--md_frames", str(QUALITY_MD_FRAMES), "--epochs",
+                            str(QUALITY_EPOCHS), "--num_rollouts", str(QUALITY_ROLLOUTS),
+                            "--device", "cuda"], keep_trajectories=True)
+    sec = time.perf_counter() - t0
+    pkl = os.path.join(res["samp_dir"], "out.pkl")
+    with open(pkl, "rb") as fh:
+        out = pickle.load(fh)
+    jsds = [v for d in out.values() for v in d["JSD"].values()]
+    if sorted(out) != sorted(quality_run.PEPTIDES) or not jsds or \
+            not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in jsds):
+        raise AssertionError(f"bad out.pkl: {sorted(out)}, JSDs {jsds}")
+    worst, solves = 0.0, []
+    for rec in res["samples"]:
+        solves += rec["solves"]
+        for j, (name, pdb) in enumerate(zip(rec["names"], rec["paths"])):
+            traj = rec["traj"][j]
+            topo, aatype = load_pdb_trajectory(pdb)
+            coords_nm = read_xtc(os.path.splitext(pdb)[0] + ".xtc")[0]
+            atoms, aat2 = load_trajectory(pdb)  # raises if the XTC's atoms are not the PDB's
+            if topo.shape[0] != 1 or rc.aatype_to_str_sequence(aatype) != name or \
+                    not np.array_equal(aatype, aat2) or atoms.shape != traj.shape or \
+                    coords_nm.shape[0] != traj.shape[0]:
+                raise AssertionError(f"{name}: topology {topo.shape}, XTC {coords_nm.shape}, "
+                                     f"read back {atoms.shape}, sampled {traj.shape}")
+            T_, L_ = traj.shape[:2]
+            mask14 = rc.RESTYPE_ATOM14_MASK[aatype].astype(bool) & (np.abs(traj[0]).sum(-1) > 1e-7)
+            aligned = superpose(traj.reshape(T_, L_ * 14, 3), mask14.reshape(-1)).reshape(traj.shape)
+            worst = max(worst, float(np.abs(atoms - aligned * mask14[..., None]).max()),
+                        float(np.abs(topo[0] - atoms[0]).max()))
+    s = res["summary"]
+    ok = (worst <= 1e-2 and set(s) == {"per_peptide_mean_torsion_jsd", "mean_torsion_jsd",
+                                       "mean_all_jsd"}
+          and all(np.isfinite(v) for v in (s["mean_torsion_jsd"], s["mean_all_jsd"])))
+    evals = [x["evals"] for x in solves]
+    log(f"[quality] quality_run on the card ({QUALITY_EPOCHS} steps of the 128 x 3 model, "
+        f"{QUALITY_MD_FRAMES} MD frames, {QUALITY_ROLLOUTS} dopri5 rollouts x 8 peptides, --xtc): "
+        f"{sec:.1f} s; {res['ms_per_step']:.2f} ms per train step (median); "
+        f"{sum(evals) / len(evals):.1f} drift evaluations per solve (min {min(evals)}, max "
+        f"{max(evals)}, {sum(not x['reached_t1'] for x in solves)} short of t1); XTC read back vs "
+        f"the sampled atoms superposed onto frame 0: max {worst:.3e} A, tol 1e-2 A (1e-3 nm); "
+        f"{len(jsds)} JSDs finite in [0, 1]; printed {json.dumps(s)} ({smi}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quality chain: XTC err {worst} A, summary {s}")
+
+
 def _short(name):
     """A kernel's name without its return type, namespace and template
     arguments (`void mdgen::ffn_up_kernel<...>(...)` -> `ffn_up_kernel`)."""
@@ -1019,6 +1170,8 @@ def main():
     state_dict = seeded_model(torch, bench_config()).state_dict()
     phase_model_parity(torch, state_dict)
     counts, rollout_s = phase_main_path(state_dict, smi)
+    phase_dopri5(torch, state_dict, rollout_s, smi)
+    phase_quality(torch, smi)
     parity.update(phase_flash_parity(torch))
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)

@@ -2,8 +2,9 @@
 (:class:`MDGenRuntime`) and training (:class:`TrainRuntime`).
 
 PyTorch runs eagerly: each rollout tokenizes its start frame on the device,
-integrates the Euler ODE over the denoiser (one model call per step,
-launched from the host), decodes the latents to atom14 and re-tokenizes the
+integrates the probability-flow ODE over the denoiser with the configured
+solver (Euler, Heun or dopri5; one model call per stage, launched from the
+host), decodes the latents to atom14 and re-tokenizes the
 last frame for the next rollout. A train step tokenizes the raw atom14
 batch on the device, takes the flow-matching loss and its gradient with
 autograd (at T=1000 through the flash kernels' backward), and applies the
@@ -88,9 +89,10 @@ class MDGenRuntime:
 
     @torch.inference_mode()
     def inference(self, batch: dict, generator: Optional[torch.Generator] = None,
-                  noise: Optional[torch.Tensor] = None):
-        """noise -> Euler ODE sample -> (atom14 [B,T,L,14,3], aatype [B,T,L]).
-        ``noise`` [B,T,L,latent_dim] replaces the draw from ``generator``."""
+                  noise: Optional[torch.Tensor] = None, stats: Optional[dict] = None):
+        """noise -> ODE sample (``cfg.sampling_method``) -> (atom14 [B,T,L,14,3],
+        aatype [B,T,L]). ``noise`` [B,T,L,latent_dim] replaces the draw from
+        ``generator``; ``stats`` receives the solver's counts."""
         cfg = self.cfg
         tok = tokenize_atom14(batch)
         prep = prep_batch(cfg, tok)
@@ -100,7 +102,7 @@ class MDGenRuntime:
                                 device=self.device)
         sample_fn = self.sampler.sample_ode(
             self.model_inf, sampling_method=cfg.sampling_method,
-            num_steps=cfg.inference_steps,
+            num_steps=cfg.inference_steps, stats=stats,
         )
         samples = sample_fn(noise.float(), **prep.model_kwargs)
         return decode_latents(cfg, samples, prep.rigids, tok["seqres"])
@@ -108,9 +110,10 @@ class MDGenRuntime:
     @torch.inference_mode()
     def rollout(self, start_atom14, seqres, mask, num_rollouts: int,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None, stats: Optional[list] = None):
         """Autoregressive forward simulation: start [B,L,14,3] ->
-        [B, R*T, L, 14, 3]. ``noise`` [R,B,T,L,latent_dim] replaces the draws."""
+        [B, R*T, L, 14, 3]. ``noise`` [R,B,T,L,latent_dim] replaces the draws;
+        ``stats``, a list, receives one dict of solver counts per rollout."""
         B, L = seqres.shape
         T = self.cfg.num_frames
         start = start_atom14.float()
@@ -121,9 +124,12 @@ class MDGenRuntime:
                 "seqres": seqres,
                 "mask": mask,
             }
+            solve = {}
             atom14, _ = self.inference(
-                batch, generator, None if noise is None else noise[r]
+                batch, generator, None if noise is None else noise[r], solve
             )
+            if stats is not None:
+                stats.append(solve)
             start = atom14[:, -1]
             trajs.append(atom14)
         return torch.stack(trajs, dim=1).reshape(B, num_rollouts * T, L, 14, 3)

@@ -6,9 +6,13 @@ Port of the repository's ``sim_inference.py`` on PyTorch:
       --split splits/4AA_test.csv --num_rollouts 10 --out_dir OUT --fused_block
 
 ``CKPT`` is a port checkpoint directory (``runtime/checkpoint.py``; convert a
-JAX one with ``tools/jax_to_torch_ckpt.py``). The split CSV is read with the
-``csv`` module. The run needs a CUDA device unless ``--device cpu`` is
-given explicitly.
+JAX one with ``tools/jax_to_torch_ckpt.py``). The ODE solver is the
+checkpoint's ``sampling_method`` (euler, heun or dopri5); each batch prints
+its drift evaluations per solve (and dopri5's attempts and rejections).
+``--xtc`` superposes every frame onto frame 0 and writes ``{name}.xtc``
+beside a frame-0 ``{name}.pdb``; without it ``{name}.pdb`` holds every
+frame. The split CSV is read with the ``csv`` module. The run needs a CUDA
+device unless ``--device cpu`` is given explicitly.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=1,
                    help="peptides sampled per device batch")
     p.add_argument("--xtc", action="store_true",
-                   help="superpose and write XTC (not ported yet)")
+                   help="superpose to frame 0 and write XTC + frame-0 PDB")
     p.add_argument("--fused_block", action="store_true",
                    help="run each trunk layer as three fused CUDA sublayer "
                         "kernels (ops/, csrc/)")
@@ -42,11 +46,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    """Returns one record per sampled batch: {names, frames, seconds, paths}."""
+def main(argv=None, keep_trajectories: bool = False):
+    """Returns one record per sampled batch: {names, frames, seconds, paths
+    (the PDBs), solves (the solver's counts, one dict per rollout)}, and with
+    ``keep_trajectories`` the sampled atom14 [B, R*T, L, 14, 3] as "traj"."""
     args = parse_args(argv)
-    if args.xtc:
-        raise NotImplementedError("--xtc waits for the port of xtc.py (ROADMAP)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
@@ -54,7 +58,7 @@ def main(argv=None):
 
     from .data import read_split
     from .geometry import constants as rc
-    from .protein import atom14_to_pdb
+    from .protein import save_trajectory
     from .runtime import MDGenRuntime, checkpoint
 
     cfg = checkpoint.load_config(args.sim_ckpt)
@@ -89,19 +93,40 @@ def main(argv=None):
             if device.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            traj = rt.rollout(start, seqres_t, mask, args.num_rollouts, generator=generator)
+            solves = []
+            traj = rt.rollout(start, seqres_t, mask, args.num_rollouts, generator=generator,
+                              stats=solves)
             traj = traj.cpu().numpy()  # synchronizes
             dur = time.perf_counter() - t0
             frames = len(chunk) * traj.shape[1]
             print(f"{','.join(chunk)}: {frames} frames in {dur:.2f}s "
-                  f"({frames / dur:.1f} frames/s)")
+                  f"({frames / dur:.1f} frames/s); {_solve_line(cfg.sampling_method, solves)}")
             paths = []
             for j, name in enumerate(chunk):
                 path = os.path.join(args.out_dir, f"{name}.pdb")
-                atom14_to_pdb(traj[j], seqres[j], path)
+                save_trajectory(traj[j], seqres[j], path,
+                                xtc_path=os.path.splitext(path)[0] + ".xtc" if args.xtc else None)
                 paths.append(path)
-            records.append({"names": chunk, "frames": frames, "seconds": dur, "paths": paths})
+            records.append({"names": chunk, "frames": frames, "seconds": dur, "paths": paths,
+                            "solves": solves})
+            if keep_trajectories:
+                records[-1]["traj"] = traj
     return records
+
+
+def _solve_line(method: str, solves) -> str:
+    """Drift evaluations per solve and, for dopri5, its attempts and
+    rejections; a solve that stopped short of t1 is named."""
+    evals = [s["evals"] for s in solves]
+    line = (f"{method}, {sum(evals) / len(evals):.1f} drift evaluations per solve "
+            f"(min {min(evals)}, max {max(evals)})")
+    if method == "dopri5":
+        line += (f", {sum(s['attempts'] for s in solves)} attempts, "
+                 f"{sum(s['rejected'] for s in solves)} rejected")
+    short = [i for i, s in enumerate(solves) if not s["reached_t1"]]
+    if short:
+        line += f"; rollouts {short} spent max_steps before t1"
+    return line
 
 
 if __name__ == "__main__":

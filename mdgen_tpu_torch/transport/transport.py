@@ -122,22 +122,29 @@ class Sampler:
         self.transport = transport
 
     def sample_ode(self, model_fn: Callable, *, sampling_method: str = "dopri5",
-                   num_steps: int = 50, reverse: bool = False) -> Callable:
-        """Returns ``sample(x_init, **model_kwargs) -> x_final``."""
-        if sampling_method != "euler":
-            raise NotImplementedError(
-                f"sampling_method={sampling_method!r} is not ported yet "
-                "(ROADMAP: remaining samplers); use euler"
-            )
+                   num_steps: int = 50, atol: float = 1e-6, rtol: float = 1e-3,
+                   reverse: bool = False, stats: Optional[dict] = None) -> Callable:
+        """Returns ``sample(x_init, **model_kwargs) -> x_final`` integrating
+        with ``euler`` or ``heun`` (``num_steps`` grid points) or ``dopri5``
+        (adaptive, ``atol``/``rtol``); any other method raises. Each solve
+        fills ``stats`` (``integrators``) when it is given."""
+        t0, t1 = self.transport.check_interval(sde=False, eval=True, reverse=reverse)
+        solvers = {
+            "euler": lambda f, x: integrators.ode_euler(f, x, t0, t1, num_steps, stats=stats),
+            "heun": lambda f, x: integrators.ode_heun(f, x, t0, t1, num_steps, stats=stats),
+            "dopri5": lambda f, x: integrators.ode_dopri5(f, x, t0, t1, rtol=rtol, atol=atol,
+                                                          stats=stats),
+        }
+        if sampling_method not in solvers:
+            raise NotImplementedError(f"sampling_method={sampling_method!r}: the ODE "
+                                      f"samplers are {', '.join(solvers)}")
+        solve = solvers[sampling_method]
         drift = self.transport.drift_fn(model_fn)
         if reverse:
             base = drift
             drift = lambda x, t, **kw: base(x, 1 - t, **kw)  # noqa: E731
-        t0, t1 = self.transport.check_interval(sde=False, eval=True, reverse=reverse)
 
         def sample(x, **model_kwargs):
-            return integrators.ode_euler(
-                lambda xx, tt: drift(xx, tt, **model_kwargs), x, t0, t1, num_steps
-            )
+            return solve(lambda xx, tt: drift(xx, tt, **model_kwargs), x)
 
         return sample

@@ -2,7 +2,9 @@
 nothing ``chip_smoke.py`` imports) opens or imports a file of the JAX
 package, and each copy the port keeps of a jax-free JAX module agrees with
 its original: the config, the residue constants, the batching loader, the
-metric logger and the graceful stop.
+metric logger, the graceful stop, the XTC codec and the analysis metrics and
+MSM toolkit; and the rotamer dataset writer, a port onto the port's
+geometry, writes the JAX package's files.
 """
 import argparse
 import ast
@@ -19,11 +21,19 @@ import pytest
 
 import mdgen_tpu_torch
 from mdgen_tpu import config as jax_config
+from mdgen_tpu import xtc as jax_xtc
+from mdgen_tpu.analysis import metrics as jax_metrics
+from mdgen_tpu.analysis import msm as jax_msm
+from mdgen_tpu.data import write_synthetic_dataset as jax_write_dataset
 from mdgen_tpu.data.loader import Loader as JaxLoader
 from mdgen_tpu.geometry import constants as jax_rc
 from mdgen_tpu.runtime.metrics import MetricLogger as JaxMetricLogger
 from mdgen_tpu.runtime.preempt import GracefulStop as JaxGracefulStop
 from mdgen_tpu_torch import config as torch_config
+from mdgen_tpu_torch import xtc as torch_xtc
+from mdgen_tpu_torch.analysis import metrics as torch_metrics
+from mdgen_tpu_torch.analysis import msm as torch_msm
+from mdgen_tpu_torch.data import write_synthetic_dataset as torch_write_dataset
 from mdgen_tpu_torch.data.loader import Loader as TorchLoader
 from mdgen_tpu_torch.geometry import constants as torch_rc
 from mdgen_tpu_torch.runtime.metrics import MetricLogger as TorchMetricLogger
@@ -88,10 +98,20 @@ def _is_module(name):
         os.path.join(REPO, *name.split(".")))
 
 
+# modules the quality chain added; the walk over the package must find them
+QUALITY_CHAIN = ["mdgen_tpu_torch.xtc", "mdgen_tpu_torch.protein", "mdgen_tpu_torch.analysis",
+                 "mdgen_tpu_torch.analysis.featurize", "mdgen_tpu_torch.analysis.metrics",
+                 "mdgen_tpu_torch.analysis.msm", "mdgen_tpu_torch.analysis.reference_msm",
+                 "mdgen_tpu_torch.analyze_peptide_sim", "mdgen_tpu_torch.quality_run",
+                 "mdgen_tpu_torch.data.synthetic", "mdgen_tpu_torch.transport.integrators"]
+
+
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
 def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
+    if which == "package":
+        assert set(QUALITY_CHAIN) <= set(names), set(QUALITY_CHAIN) - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr
     assert f"imported {len(names)} modules" in r.stdout
@@ -235,3 +255,98 @@ def test_metric_logger_flushes_the_same_means_and_csv(tmp_path):
     assert tm == jm and tval == jval
     assert tm["train_loss"] == pytest.approx(1.25)
     assert tcsv.splitlines() == jcsv.splitlines()
+
+
+def _seeded_msm_inputs():
+    rng = np.random.default_rng(11)
+    # a slow 3-well signal in 4 features, and its discretisation
+    wells = np.repeat(rng.integers(0, 3, size=60), 25)
+    feats = np.stack([np.cos(wells + 0.1 * rng.normal(size=wells.size)),
+                      np.sin(wells + 0.1 * rng.normal(size=wells.size)),
+                      0.3 * rng.normal(size=wells.size),
+                      wells + 0.2 * rng.normal(size=wells.size)], axis=1)
+    return feats, wells
+
+
+def _msm_outputs(msm):
+    feats, wells = _seeded_msm_inputs()
+    tica = msm.TICA(lag=5).fit(feats)
+    Y = tica.transform(feats)
+    km = msm.KMeans(k=8, seed=3).fit(Y)
+    dtraj = km.transform(Y)
+    model = msm.estimate_markov_model(dtraj, lag=2, n_states=8).pcca(3)
+    coarse = msm.estimate_markov_model(model.metastable_assignments[dtraj], lag=2, n_states=3)
+    tp = msm.sample_tp(coarse.transition_matrix, 0, len(coarse.active_set) - 1, 6, 20,
+                       rng=np.random.default_rng(4))
+    return [tica.eigenvalues, Y, km.centers, dtraj, model.transition_matrix, model.pi,
+            model.active_set, model.metastable_assignments, coarse.transition_matrix, tp,
+            msm.get_tp_likelihood(tp, coarse.transition_matrix), msm.get_state_probs(tp, 3),
+            msm.pcca_assignments(model.transition_matrix, 2)]
+
+
+def _metrics_outputs(metrics):
+    rng = np.random.default_rng(12)
+    a, b = rng.vonmises(0.5, 2.0, size=(2, 500))
+    c, d = rng.vonmises(-1.0, 1.0, size=(2, 500))
+    p, q = rng.integers(0, 9, size=(2, 30))
+    return [metrics.jensen_shannon(p, q), metrics.hist_jsd(a, c), metrics.hist_jsd_2d(a, b, c, d),
+            metrics.acovf(a, 50), metrics.acovf(a, 50, adjusted=True, demean=False),
+            metrics.autocorrelation(b, 40), metrics.torsion_decorrelation_curve(a, 60),
+            metrics.torsion_decorrelation(c, 30)]
+
+
+@pytest.mark.parametrize("which", ["msm", "metrics"])
+def test_analysis_copies_give_the_same_outputs(which):
+    run = {"msm": _msm_outputs, "metrics": _metrics_outputs}[which]
+    want, got = run({"msm": jax_msm, "metrics": jax_metrics}[which]), \
+        run({"msm": torch_msm, "metrics": torch_metrics}[which])
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), i
+
+
+def test_xtc_copy_gives_the_same_outputs(tmp_path):
+    rng = np.random.default_rng(13)
+    coords = (rng.normal(size=(5, 23, 3)) * 1.7).astype(np.float32)
+    mask = rng.random(23) > 0.3
+    assert np.array_equal(torch_xtc.superpose(coords, mask), jax_xtc.superpose(coords, mask))
+    for fn, (got, want) in {"kabsch": (torch_xtc.kabsch(coords[1], coords[0]),
+                                       jax_xtc.kabsch(coords[1], coords[0]))}.items():
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), fn
+    a, b = str(tmp_path / "a.xtc"), str(tmp_path / "b.xtc")
+    torch_xtc.write_xtc_angstrom(a, coords * 10, steps=np.arange(5) * 7, times=np.arange(5) * 0.5)
+    jax_xtc.write_xtc_angstrom(b, coords * 10, steps=np.arange(5) * 7, times=np.arange(5) * 0.5,
+                               use_native=False)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    for g, w in zip(torch_xtc.read_xtc(a), jax_xtc.read_xtc(b)):
+        assert np.array_equal(g, w)
+
+
+ROTAMER_PEPTIDES = [("ACDE", "ACDE"), ("WYNK", "WYNK"), ("FHMT", "FHMT")]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(path_seed=5, replay_frames=400)],
+                         ids=["default", "path_seed_replay"])
+def test_rotamer_dataset_writer_matches_jax(tmp_path, kw):
+    """The same split.csv bytes; the same .npy shape and dtype (float16), and
+    the same numpy draws: every element within one float16 ulp of the JAX
+    file's, or within 2^-22 A for elements near 0 (subnormal float16, whose
+    ulp is below the f32 rounding of the Angstrom-sized terms the geometry
+    sums). The atoms are rebuilt by f32 geometry in another framework, so a
+    few elements round the other way: 1 to 8 of 50400 per peptide at 300
+    frames (one of them a 2-subnormal-ulp difference of 1.2e-7 A)."""
+    j, t = tmp_path / "jax", tmp_path / "torch"
+    jax_csv = jax_write_dataset(str(j), ROTAMER_PEPTIDES, 300, seed=0, rotamers=True, **kw)
+    torch_csv = torch_write_dataset(str(t), ROTAMER_PEPTIDES, 300, seed=0, rotamers=True, **kw)
+    assert open(torch_csv, "rb").read() == open(jax_csv, "rb").read()
+    differ = 0
+    for name, _ in ROTAMER_PEPTIDES:
+        want, got = np.load(j / f"{name}.npy"), np.load(t / f"{name}.npy")
+        assert got.shape == want.shape == (300, 4, 14, 3) and got.dtype == want.dtype == np.float16
+        assert np.isfinite(got).all()
+        ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+        diff = np.abs(got.astype(np.float32) - want.astype(np.float32))
+        assert (diff <= np.maximum(ulp.astype(np.float32), 2.0**-22)).all(), name
+        differ += int((got != want).sum())
+    assert differ <= 0.001 * 3 * got.size, differ  # a few in 50400 per peptide
