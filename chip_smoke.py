@@ -43,6 +43,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      finite and in [0, 1], each XTC read back with its frame-0 PDB topology
      and within XTC precision (1e-3 nm) of the sampled atoms superposed onto
      frame 0, and the printed JSON (its JSDs mean nothing at this budget);
+  7a. TPS: `mdgen_tpu_torch.tps_inference.main(... --fused_block)` with a
+     seeded full-width TPS checkpoint (the IPA tower from both endpoints) on
+     a synthetic rotamer tetrapeptide's MD (TPS_MD_FRAMES frames, the MSM at
+     lags TPS_TICA_LAG / TPS_MSM_LAG): one batch of TPS_PATHS paths, T=100,
+     bf16-mixed, dopri5; checks 100 frames per path PDB, kernels 1-3 at 5
+     layers x the solve's drift evaluations, then the same endpoints and
+     noise fused vs dense in 32-true within DOPRI5_TOL; prints paths/s and ms
+     per evaluation;
+  7b. upsampling: `mdgen_tpu_torch.upsampling_inference.main(... --fused_block
+     --xtc)` at the reference recipe (T=1000, cond_interval 100, batch 1,
+     bf16-mixed, dopri5) on the 30 kept frames of a 3000-frame synthetic
+     trajectory (3 windows); checks 3000 frames read back, kernels 1-3 at 5 x
+     the evaluations of the 3 solves, kernel 2 at T=1000 only, the kept
+     frames' backbones decoded from the windows' conditioning latents within
+     KEPT_TOL, and window 1 fused vs dense (flash kernel 4 on its frame axis)
+     from the same noise in 32-true within DOPRI5_TOL; prints frames/s, ms
+     per evaluation and (not held: random weights) how far the sampled kept
+     frames lie from their inputs;
+  7c. `quality_run --task tps` and `--task upsampling` at the budget of 7:
+     the pickle's peptides and every metric finite, the printed JSON;
   8. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
      a masked residue, f32 and bf16 operands, each twice on the same inputs
@@ -70,12 +90,16 @@ Phases, in order; any failure raises and the exit code is not 0:
       kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
       T = 1000), then one more
       main-path rollout under torch.profiler: device ms per kernel name,
-      the device's busy share, launches per evaluation, frames/s;
+      the device's busy share, launches per evaluation, frames/s; and one
+      upsampling window of 7b (T=1000): the same, and kernel 2's device µs
+      per launch there;
   13. the kernels JSON line (with each kernel's bound: the larger of the
       bytes it must move over 3.35 TB/s and its operations over the peak of
       their type; each adds its worst `[edge]` error by dtype; kernel 2 its
-      T = 1000 times and bound; the flash kernels their bf16 device, library
-      and bound times and the f32 bound on CUDA cores), the nvidia-smi line,
+      T = 1000 times and bound and its µs per launch on the upsampling path;
+      the flash kernels their bf16 device, library and bound times and the
+      f32 bound on CUDA cores; every kernel its launches on the TPS and
+      upsampling paths), the nvidia-smi line,
       and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -123,6 +147,7 @@ KERNELS = {
     "flash_bwd_dkv": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:346"),
 }
 FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
+FUSED_KERNELS = tuple(k for k in KERNELS if k.startswith("fused_"))
 # the fused kernels (1-3): edge shapes (B, T, L), token counts no multiple of
 # their 32-token tiles
 EDGE_SHAPES = {"tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1), "L7": (2, 19, 7),
@@ -144,6 +169,17 @@ FRAME_EDGE_SHAPES = {"T1": (2, 1, 4, H), "T63": (1, 63, 4, H), "T64": (1, 64, 4,
 DOPRI5_TOL = 1e-2
 # the quality chain at a small budget (its JSDs mean nothing)
 QUALITY_MD_FRAMES, QUALITY_EPOCHS, QUALITY_ROLLOUTS = 300, 40, 2
+# the TPS path: one batch of TPS_PATHS endpoint-conditioned paths (T = 100)
+# between the lowest-flux states of a synthetic rotamer tetrapeptide's MD of
+# TPS_MD_FRAMES frames (its MSM at these lags)
+TPS_PATHS, TPS_MD_FRAMES, TPS_TICA_LAG, TPS_MSM_LAG = 10, 600, 10, 2
+# the upsampling path, the reference recipe: T = 1000 with every 100th frame
+# given, on a synthetic trajectory of 3000 frames (30 kept frames, 3 windows)
+UPS_FRAMES, UPS_INTERVAL, UPS_MD_FRAMES = 1000, 100, 3000
+# the kept frames' backbone atoms (N, CA, C) decoded from the windows'
+# conditioning latents against the kept input: the input is stored in
+# float16 and the rebuild uses ideal geometry (7.3e-3 A on the CPU)
+KEPT_TOL = 2e-2
 # the card's published peaks (H100 SXM, at 700 W): memory, and operations
 # by type (f32 outside the tensor cores; split TF32, three TF32 products per
 # f32 product, shown beside it)
@@ -931,6 +967,295 @@ def _quality(torch, smi, work):
         raise AssertionError(f"quality chain: XTC err {worst} A, summary {s}")
 
 
+def task_config(**kw):
+    """The bench model's widths (5 x 384 x 16, IPA 4 x 32, qk 8, v 8) in a
+    task configuration; bf16-mixed and the default sampler, dopri5."""
+    from mdgen_tpu_torch.config import MDGenConfig
+
+    base = dict(prepend_ipa=True, abs_pos_emb=True, abs_time_emb=True, crop=L,
+                precision="bf16-mixed")
+    base.update(kw)
+    return MDGenConfig(**base)
+
+
+def _count_models(path):
+    with open(path) as fh:
+        text = fh.read()
+    return text.count("\nENDMDL") + text.startswith("ENDMDL")
+
+
+def _fused_vs_dense(torch, cfg, state_dict, batch, noise):
+    """One dopri5 solve of ``batch`` from ``noise`` in 32-true, fused and
+    dense: {fused: (atoms, solver stats, launch counts)}."""
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime
+
+    runs = {}
+    for fused in (True, False):
+        c = cfg.replace(precision="32-true", fused_block=fused)
+        model = LatentMDGenModel(c, c.latent_dim)
+        model.load_state_dict(state_dict)
+        rt = MDGenRuntime(c, model.cuda())
+        st = {}
+        ops.reset_launch_counts()
+        atoms, _ = rt.inference(batch, noise=noise, stats=st)
+        torch.cuda.synchronize()
+        runs[fused] = (atoms, st, ops.launch_counts())
+        del model, rt
+    return runs
+
+
+def _check_fused_vs_dense(torch, tag, runs, dense_flash):
+    """fused vs dense atoms within DOPRI5_TOL, both solves at t1, kernels 1-3
+    at 5 launches per evaluation of the fused solve, and the dense solve's
+    frame attention through ``dense_flash`` flash launches per evaluation."""
+    (fused, st, counts), (dense, st_d, counts_d) = runs[True], runs[False]
+    err = (fused.float() - dense.float()).abs().max().item()
+    ok = (bool(torch.isfinite(fused).all()) and err <= DOPRI5_TOL
+          and st["reached_t1"] and st_d["reached_t1"]
+          and all(counts[k] == 5 * st["evals"] for k in FUSED_KERNELS)
+          and counts_d["flash_fwd"] == dense_flash * st_d["evals"]
+          and not any(counts_d[k] for k in FUSED_KERNELS))
+    log(f"[{tag}] fused vs dense, 32-true dopri5, same inputs and noise: max_abs_err {err:.3e} "
+        f"A, tol {DOPRI5_TOL:g} A; {st['evals']} / {st_d['evals']} drift evaluations; launches "
+        f"fused {counts}, dense {counts_d} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: fused and dense solves disagree: {err} A, {st}, {st_d}")
+    return err
+
+
+def phase_tps(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_tps_") as work:
+        return _tps(torch, smi, work)
+
+
+def _tps(torch, smi, work):
+    """TPS through `mdgen_tpu_torch.tps_inference.main(... --fused_block)`:
+    the MSM of a synthetic rotamer tetrapeptide, one batch of TPS_PATHS
+    paths (T = 100, bf16-mixed, dopri5) of the seeded full-width TPS model;
+    then the same endpoints and noise fused and dense in 32-true."""
+    import shutil
+
+    import numpy as np
+
+    from mdgen_tpu_torch import ops, tps_inference
+    from mdgen_tpu_torch.data import synthetic_rotamer_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    cfg = task_config(tps_condition=True, num_frames=NUM_FRAMES)
+    state_dict = seeded_model(torch, cfg).state_dict()
+    md = synthetic_rotamer_trajectory(SEQ, TPS_MD_FRAMES, seed=0)
+    np.save(os.path.join(work, f"{SEQ}.npy"), md)
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write(f"name,seqres\n{SEQ},{SEQ}\n")
+    ckpt = os.path.join(work, "ckpt")
+    checkpoint.save_checkpoint(ckpt, cfg, state_dict)
+    argv = ["--sim_ckpt", ckpt, "--data_dir", work, "--split", split, "--num_batches", "1",
+            "--batch_size", str(TPS_PATHS), "--tica_lag", str(TPS_TICA_LAG), "--msm_lag",
+            str(TPS_MSM_LAG), "--fused_block", "--device", "cuda"]
+    warm, out = os.path.join(work, "warm"), os.path.join(work, "out")
+    tps_inference.main(argv + ["--out_dir", warm])  # warm-up (allocator, caches, the MSM)
+    os.makedirs(out)
+    shutil.copy(os.path.join(warm, f"{SEQ}_metadata.pkl"), out)
+    ops.reset_launch_counts()
+    rec = tps_inference.main(argv + ["--out_dir", out])[0]
+    counts = ops.launch_counts()
+
+    st = rec["solves"][0]
+    want = 5 * st["evals"]
+    frames = [_count_models(p) for p in rec["paths"]]
+    with open(os.path.join(out, f"{SEQ}_metadata.json")) as fh:
+        meta = json.load(fh)
+    paths_s, ms_eval = TPS_PATHS / rec["seconds"], rec["seconds"] * 1e3 / st["evals"]
+    ok = (frames == [NUM_FRAMES] * TPS_PATHS and len(meta) == TPS_PATHS and st["reached_t1"]
+          and all(counts[k] == want for k in FUSED_KERNELS)
+          and not any(counts[k] for k in FLASH_KERNELS))
+    log(f"[tps] tps_inference --fused_block (5x384x16, bf16-mixed, dopri5): {TPS_PATHS} paths x "
+        f"{NUM_FRAMES} frames between states {meta[0]['start_state']} and "
+        f"{meta[0]['end_state']} in {rec['seconds']:.3f} s = {paths_s:.2f} paths/s; "
+        f"{st['evals']} drift evaluations ({st['attempts']} attempts, {st['rejected']} "
+        f"rejected), {ms_eval:.2f} ms per evaluation; PDB frames {frames}; launches {counts}, "
+        f"want {want} of each fused kernel ({smi}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"TPS path: frames {frames}, solve {st}, launches {counts}")
+
+    atom14 = np.empty((TPS_PATHS, NUM_FRAMES, L, 14, 3), np.float32)
+    for j, (si, ei) in enumerate(zip(rec["start_idx"], rec["end_idx"])):
+        atom14[j, :] = md[si]
+        atom14[j, -1] = md[ei]
+    batch = {"atom14": torch.from_numpy(atom14).cuda(),
+             "seqres": torch.from_numpy(rc.str_sequence_to_aatype(SEQ)).long().cuda()
+             .expand(TPS_PATHS, L),
+             "mask": torch.ones(TPS_PATHS, L, device="cuda")}
+    noise = torch.randn(TPS_PATHS, NUM_FRAMES, L, cfg.latent_dim, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(11))
+    err = _check_fused_vs_dense(torch, "tps", _fused_vs_dense(torch, cfg, state_dict, batch, noise),
+                                0)
+    torch.cuda.empty_cache()
+    return counts, {"paths_per_s": paths_s, "ms_per_eval": ms_eval, "evals": st["evals"],
+                    "fused_vs_dense_A": err}
+
+
+def phase_upsampling(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_ups_") as work:
+        return _upsampling(torch, smi, work)
+
+
+def _upsampling(torch, smi, work):
+    """Upsampling through `mdgen_tpu_torch.upsampling_inference.main(...
+    --fused_block)` at the reference recipe (T = 1000, cond_interval 100,
+    batch 1, bf16-mixed, dopri5) of the seeded full-width model: 30 kept
+    frames of a 3000-frame synthetic trajectory, 3 windows; then window 1
+    fused and dense (its frame attention: flash kernel 4, 1001 keys) from
+    the same noise in 32-true. Returns (launch counts, numbers, what the
+    profile phase needs)."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops, upsampling_inference
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.protein import load_trajectory
+    from mdgen_tpu_torch.runtime import checkpoint, tokenize_atom14
+    from mdgen_tpu_torch.tasks import build_upsampling_windows, decode_latents, prep_batch
+
+    cfg = task_config(sim_condition=True, cond_interval=UPS_INTERVAL, num_frames=UPS_FRAMES)
+    state_dict = seeded_model(torch, cfg).state_dict()
+    kept = synthetic_trajectory(SEQ, UPS_MD_FRAMES, seed=0)[::UPS_INTERVAL]
+    per_window = UPS_FRAMES // UPS_INTERVAL
+    np.save(os.path.join(work, f"{SEQ}_i{UPS_INTERVAL}.npy"), kept)
+    np.save(os.path.join(work, f"WARM_i{UPS_INTERVAL}.npy"), kept[:per_window])  # one window
+    splits = {}
+    for name in (SEQ, "WARM"):
+        splits[name] = os.path.join(work, f"{name}.csv")
+        with open(splits[name], "w") as fh:
+            fh.write(f"name,seqres\n{name},{SEQ}\n")
+    ckpt = os.path.join(work, "ckpt")
+    checkpoint.save_checkpoint(ckpt, cfg, state_dict)
+    argv = ["--ckpt", ckpt, "--data_dir", work, "--suffix", f"_i{UPS_INTERVAL}", "--batch_size",
+            "1", "--xtc", "--fused_block", "--device", "cuda"]
+    upsampling_inference.main(argv + ["--split", splits["WARM"], "--out_dir",
+                                      os.path.join(work, "warm")])  # warm-up
+    # the frame kernel's T on this path, seen through its wrapper
+    seen_t, kernel_2 = set(), ops.fused_t_sublayer
+
+    def frame_kernel(x, *args, **kw):
+        seen_t.add(x.shape[1])
+        return kernel_2(x, *args, **kw)
+
+    ops.fused_t_sublayer = frame_kernel  # the model looks it up at each call
+    try:
+        ops.reset_launch_counts()
+        rec = upsampling_inference.main(argv + ["--split", splits[SEQ], "--out_dir",
+                                                os.path.join(work, "out")])[0]
+        counts = ops.launch_counts()
+    finally:
+        ops.fused_t_sublayer = kernel_2
+    evals = [x["evals"] for x in rec["solves"]]
+    want = 5 * sum(evals)
+    atoms, _ = load_trajectory(rec["path"])  # the frame-0 PDB and its XTC
+    fps, ms_eval = rec["frames"] / rec["seconds"], rec["seconds"] * 1e3 / sum(evals)
+    ok = (rec["frames"] == UPS_MD_FRAMES and rec["windows"] == 3 and atoms.shape[0] ==
+          UPS_MD_FRAMES and bool(np.isfinite(atoms).all()) and seen_t == {UPS_FRAMES}
+          and all(x["reached_t1"] for x in rec["solves"])
+          and all(counts[k] == want for k in FUSED_KERNELS)
+          and not any(counts[k] for k in FLASH_KERNELS))
+    log(f"[upsampling] upsampling_inference --fused_block (5x384x16, T={UPS_FRAMES}, "
+        f"cond_interval {UPS_INTERVAL}, bf16-mixed, dopri5, --xtc): {rec['frames']} frames "
+        f"({rec['windows']} windows) in {rec['seconds']:.3f} s = {fps:.1f} frames/s; drift "
+        f"evaluations per window {evals}, {ms_eval:.2f} ms per evaluation; frame kernel at "
+        f"T = {sorted(seen_t)}; XTC read back {atoms.shape}; launches {counts}, want {want} of "
+        f"each fused kernel; sampled kept frames vs their inputs (seeded random weights, not "
+        f"held): backbone max {rec['kept_err'][0]:.3f} A, mean {rec['kept_err'][1]:.3f} A "
+        f"({smi}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"upsampling path: {rec['frames']} frames, T {seen_t}, launches "
+                             f"{counts}, solves {rec['solves']}")
+
+    # the kept frames reach the conditioning at their slots: the windows'
+    # conditioning latents, decoded, give back the kept backbones
+    aatype = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long().cuda()
+    tok = tokenize_atom14({"atom14": torch.from_numpy(kept.astype(np.float32)[None]).cuda(),
+                           "seqres": aatype, "mask": torch.ones(1, L, device="cuda")})
+    windows = build_upsampling_windows({k: v[0].cpu().numpy() for k, v in tok.items()},
+                                       UPS_FRAMES, UPS_INTERVAL)
+    batch = {k: torch.from_numpy(np.stack([w[k] for w in windows])).cuda() for k in windows[0]}
+    batch["seqres"] = batch["seqres"].long()
+    prep = prep_batch(cfg, batch)
+    lat = prep.model_kwargs["x_cond"].clone()
+    tors = lat[..., 7:21].reshape(*lat.shape[:3], 7, 2)  # undefined torsions: angle 0
+    tors = torch.where(tors.norm(dim=-1, keepdim=True) < 0.5, torch.tensor([0.0, 1.0]).cuda(), tors)
+    lat[..., 7:21] = tors.reshape(*lat.shape[:3], 14)
+    back = decode_latents(cfg, lat, prep.rigids, batch["seqres"])[0][:, ::UPS_INTERVAL]
+    kept_err = float(np.abs(back.reshape(-1, L, 14, 3)[:, :, :3].cpu().numpy()
+                            - kept[:, :, :3]).max())
+    cond_slots = prep.model_kwargs["x_cond_mask"][0, :, 0].nonzero().flatten().tolist()
+    ok = kept_err <= KEPT_TOL and cond_slots == list(range(0, UPS_FRAMES, UPS_INTERVAL))
+    log(f"[upsampling] the kept frames' backbones decoded from the windows' conditioning latents: "
+        f"max |diff| {kept_err:.3e} A, tol {KEPT_TOL:g} A; conditioned slots "
+        f"{cond_slots[:3]}..{cond_slots[-1]} ({len(cond_slots)}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kept frames: {kept_err} A, slots {cond_slots}")
+
+    window = {k: v[:1] for k, v in batch.items()}
+    noise = torch.randn(1, UPS_FRAMES, L, cfg.latent_dim, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(13))
+    err = _check_fused_vs_dense(torch, "upsampling",
+                                _fused_vs_dense(torch, cfg, state_dict, window, noise), 5)
+    torch.cuda.empty_cache()
+    return counts, {"frames_per_s": fps, "ms_per_eval": ms_eval, "evals": evals,
+                    "fused_vs_dense_A": err}, (cfg, state_dict, window)
+
+
+def phase_quality_task(torch, smi, task):
+    with tempfile.TemporaryDirectory(prefix=f"mdgen_quality_{task}_") as work:
+        return _quality_task(torch, smi, task, work)
+
+
+def _quality_task(torch, smi, task, work):
+    """quality_run --task tps|upsampling at the small budget of the sim
+    quality phase; checks the pickle and that every metric is finite."""
+    import pickle
+
+    import numpy as np
+
+    from mdgen_tpu_torch import quality_run
+
+    t0 = time.perf_counter()
+    res = quality_run.main(["--task", task, "--out", work, "--md_frames", str(QUALITY_MD_FRAMES),
+                            "--epochs", str(QUALITY_EPOCHS), "--device", "cuda"])
+    sec = time.perf_counter() - t0
+    pkl = os.path.join(res["samp_dir"], {"tps": "tps_out.pkl",
+                                         "upsampling": "upsampling_out.pkl"}[task])
+    with open(pkl, "rb") as fh:
+        out = pickle.load(fh)
+    if task == "tps":
+        # gen_valid_prob is nan where no path is valid (gen_valid_rate 0)
+        values = [v for d in out.values() for k, v in d.items()
+                  if k != "gen_valid_prob" or d["gen_valid_rate"] > 0]
+        summary = [res["summary"]["mean_gen_valid_rate"], res["summary"]["median_gen_JSD"]]
+    else:
+        values = [c for d in out.values() for sec_ in d.values() for curves in sec_.values()
+                  for c in curves.values()]
+        values = [float(x) for c in values for x in np.asarray(c, np.float32)]
+        summary = [res["summary"]["live_mean_acf_err"] or res["summary"]["sub_nyquist_mean_acf_err"]]
+    solves = [x for r in res["samples"] for x in r["solves"]]
+    evals = [x["evals"] for x in solves]
+    ok = (sorted(out) == sorted(quality_run.PEPTIDES) and values
+          and all(np.isfinite(v) for v in values + summary))
+    log(f"[quality-{task}] quality_run --task {task} on the card ({QUALITY_EPOCHS} steps of the "
+        f"128 x 3 model, {QUALITY_MD_FRAMES} MD frames, --xtc): {sec:.1f} s; "
+        f"{res['ms_per_step']:.2f} ms per train step (median); {sum(evals) / len(evals):.1f} drift "
+        f"evaluations per solve (min {min(evals)}, max {max(evals)}, {len(solves)} solves, "
+        f"{sum(not x['reached_t1'] for x in solves)} short of t1); {len(values)} values in "
+        f"{os.path.basename(pkl)} finite; printed {json.dumps(res['summary'])} ({smi}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quality chain --task {task}: {sorted(out)}, summary {res['summary']}")
+
+
 def _short(name):
     """A kernel's name without its return type, namespace and template
     arguments (`void mdgen::ffn_up_kernel<...>(...)` -> `ffn_up_kernel`)."""
@@ -938,13 +1263,80 @@ def _short(name):
     return (base.removeprefix("void ").split("::")[-1] or name)[:60]
 
 
-def phase_profiles(torch, state_dict, unprofiled_s, smi):
+def phase_profiles(torch, state_dict, unprofiled_s, smi, upsampling):
     """The torch.profiler sessions, after every timed phase: a session
     leaves the process's host work slower for the rest of its life (a
     training step after one reads slower than before it, in the same
-    process: `tools/train_step_ab.py --after-profiler`)."""
+    process: `tools/train_step_ab.py --after-profiler`). Returns kernel 2's
+    device µs per launch on the upsampling path."""
     _launch_split(torch)
     _profile_rollout(state_dict, unprofiled_s, smi)
+    return _profile_upsampling_window(torch, *upsampling, smi)
+
+
+def _profiled(torch, fn):
+    """Runs ``fn`` under torch.profiler: ({kernel name: (device ms,
+    launches)}, [(start µs, end µs)] of the device events, host wall s), or
+    None if the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    per = {}
+    for e in events:
+        n = _short(e.name)
+        ms, count = per.get(n, (0.0, 0))
+        per[n] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return per, [(e.time_range.start, e.time_range.end) for e in events], wall
+
+
+# kernel 2's three launches (`gated_out_proj_kernel` is kernel 1's too)
+FRAME_KERNEL_NAMES = ("frame_qkv_kernel", "frame_attn_kernel", "gated_out_proj_kernel")
+
+
+def _profile_upsampling_window(torch, cfg, state_dict, window, smi):
+    """One upsampling window (T = 1000, bf16-mixed, fused, dopri5) under
+    torch.profiler, through MDGenRuntime.inference: device ms per kernel
+    name, the device's busy share, and kernel 2's device µs per launch."""
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime
+
+    c = cfg.replace(fused_block=True)
+    model = LatentMDGenModel(c, c.latent_dim)
+    model.load_state_dict(state_dict)
+    rt = MDGenRuntime(c, model.cuda())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rt.inference(window, gen)  # warm-up
+    torch.cuda.synchronize()
+    st = {}
+    res = _profiled(torch, lambda: rt.inference(window, gen, stats=st))
+    if res is None:
+        log("[profile] upsampling window: torch.profiler saw no device activity: not measured")
+        return None
+    per, spans, wall = res
+    busy, span_ms = busy_ms(spans)
+    device_ms = sum(ms for ms, _ in per.values())
+    evals = st["evals"]
+    log(f"[profile] one upsampling window (T={UPS_FRAMES}, {evals} drift evaluations, {smi}): "
+        f"device {device_ms:.1f} ms in {len(spans)} launches ({len(spans) / evals:.1f} per "
+        f"evaluation); device busy {busy:.1f} ms of the {span_ms:.1f} ms from its first launch to "
+        f"its last ({busy / span_ms:.1%}); profiled wall {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / evals:.2f} ms per evaluation)")
+    for n, (ms, count) in sorted(per.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile]   {n}: {ms:.2f} ms, {100 * ms / device_ms:.1f}%, {count} launches "
+            f"({count / evals:.2f} per evaluation, {1e3 * ms / count:.2f} us each)")
+    frame = {n: 1e3 * per[n][0] / per[n][1] for n in FRAME_KERNEL_NAMES if n in per}
+    log(f"[profile] kernel 2 at T={UPS_FRAMES} on the upsampling path, device us per launch: "
+        + ", ".join(f"{n} {us:.2f}" for n, us in frame.items())
+        + " (gated_out_proj_kernel: kernels 1 and 2 together)")
+    return frame
 
 
 def busy_ms(spans):
@@ -966,8 +1358,6 @@ def _profile_rollout(state_dict, unprofiled_s, smi):
     launches per evaluation, frames/s."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mdgen_tpu_torch.data import synthetic_trajectory
     from mdgen_tpu_torch.geometry import constants as rc
@@ -985,25 +1375,16 @@ def _profile_rollout(state_dict, unprofiled_s, smi):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rt.rollout(start, seqres, mask, 1, generator=gen)  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rt.rollout(start, seqres, mask, 1, generator=gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
+    res = _profiled(torch, lambda: rt.rollout(start, seqres, mask, 1, generator=gen))
+    if res is None:
         log("[profile] torch.profiler saw no device activity: device time not measured")
         return
-    per = {}
-    for e in events:
-        n = _short(e.name)
-        ms, count = per.get(n, (0.0, 0))
-        per[n] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    busy, span_ms = busy_ms([(e.time_range.start, e.time_range.end) for e in events])
+    per, spans, wall = res
+    busy, span_ms = busy_ms(spans)
     device_ms = sum(ms for ms, _ in per.values())
     evals = EULER_STEPS - 1
     log(f"[profile] one main-path rollout ({evals} evaluations, {NUM_FRAMES} frames, {smi}): "
-        f"device {device_ms:.1f} ms in {len(events)} launches ({len(events) / evals:.1f} per "
+        f"device {device_ms:.1f} ms in {len(spans)} launches ({len(spans) / evals:.1f} per "
         f"evaluation); device busy {busy:.1f} ms of the {span_ms:.1f} ms from its first launch "
         f"to its last ({busy / span_ms:.1%}); profiled wall {wall * 1e3:.1f} ms "
         f"({NUM_FRAMES / wall:.1f} frames/s); unprofiled {unprofiled_s * 1e3:.1f} ms per "
@@ -1172,15 +1553,21 @@ def main():
     counts, rollout_s = phase_main_path(state_dict, smi)
     phase_dopri5(torch, state_dict, rollout_s, smi)
     phase_quality(torch, smi)
+    tps_counts, _ = phase_tps(torch, smi)
+    ups_counts, _, upsampling = phase_upsampling(torch, smi)
+    for task in ("tps", "upsampling"):
+        phase_quality_task(torch, smi, task)
     parity.update(phase_flash_parity(torch))
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)
-    phase_profiles(torch, state_dict, rollout_s, smi)
+    frame_us = phase_profiles(torch, state_dict, rollout_s, smi, upsampling)
+    parity["fused_t_sublayer"]["upsampling_t1000_us_per_launch"] = frame_us
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (train_counts if k in FLASH_KERNELS else counts)[k],
+         "tps_launches": tps_counts[k], "upsampling_launches": ups_counts[k],
          **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
          **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}
         for k, (src, rep) in KERNELS.items()

@@ -30,6 +30,7 @@ from .metrics import (  # noqa: F401
 from .reference_msm import (  # noqa: F401
     build_reference_msm,
     highest_flux_states,
+    load_msm_cache,
     load_or_build_msm,
     lowest_flux_states,
 )

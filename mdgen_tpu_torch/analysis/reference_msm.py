@@ -57,10 +57,36 @@ def build_reference_msm(
     }
 
 
+class _PortUnpickler(pickle.Unpickler):
+    """Refuses a class of the JAX package: a cache written by
+    ``mdgen_tpu``'s CLIs names ``mdgen_tpu.analysis.msm``, and loading it
+    would import jax."""
+
+    def __init__(self, fh, path: str):
+        super().__init__(fh)
+        self.path = path
+
+    def find_class(self, module, name):
+        if module == "mdgen_tpu" or module.startswith("mdgen_tpu."):
+            raise ValueError(
+                f"{self.path} was written by the JAX package (it pickles {module}.{name}); "
+                "the port does not load it: delete it, or use another --out_dir, to rebuild "
+                "the MSM with mdgen_tpu_torch")
+        return super().find_class(module, name)
+
+
+def load_msm_cache(path: str) -> dict:
+    """The metadata pickle that :func:`load_or_build_msm` wrote; raises
+    ValueError for one written by the JAX package."""
+    with open(path, "rb") as fh:
+        return _PortUnpickler(fh, path).load()
+
+
 def load_or_build_msm(cache_path: str, arr, aatype, **kw) -> dict:
+    """The cached MSM at ``cache_path`` (one the port wrote), else a new one,
+    written there."""
     if os.path.exists(cache_path):
-        with open(cache_path, "rb") as fh:
-            return pickle.load(fh)
+        return load_msm_cache(cache_path)
     meta = build_reference_msm(arr, aatype, **kw)
     with open(cache_path, "wb") as fh:
         pickle.dump(meta, fh)

@@ -163,7 +163,11 @@ class RoPEAttention(nn.Module):
         S, S_k = q.shape[axis], k.shape[axis]
         # (B, T, L, H, hd) -> (B, other, H, S, hd)
         perm = (0, 2, 3, 1, 4) if axis == 1 else (0, 1, 3, 2, 4)
-        qf, kf, vf = (t.permute(perm).reshape(-1, t.shape[axis], hd) for t in (q, k, v))
+        # reshape copies unless (B, other, H) merge in place, as they do at
+        # B = 1: the view it returns then is not contiguous, and the kernels
+        # take contiguous rows
+        qf, kf, vf = (t.permute(perm).reshape(-1, t.shape[axis], hd).contiguous()
+                      for t in (q, k, v))
         if mask is None:
             mflat = torch.ones(qf.shape[0] // H, S_k, device=q.device)
         else:

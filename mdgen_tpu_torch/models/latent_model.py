@@ -2,10 +2,13 @@
 
 A DiT over (B, T, L, C) latents with factorized attention (residue axis L,
 frame axis T), per-layer adaLN-zero with 9 chunks, and the prepend-IPA tower
-over the key frame. Ported configuration: forward simulation
+over the key frame. Ported configurations: forward simulation
 (``sim_condition``, optionally ``prepend_ipa``, ``abs_pos_emb``,
-``abs_time_emb``). Module and parameter names follow the JAX tree, so a
-flax parameter tree converts by renaming and transposing
+``abs_time_emb``; upsampling is ``sim_condition`` with ``cond_interval``)
+and transition-path sampling (``tps_condition``: the IPA tower runs twice,
+once from each endpoint, over the relative transforms between them). Module
+and parameter names follow the JAX tree, so a flax parameter tree converts
+by renaming and transposing
 (``interop.jax_params_to_state_dict``).
 
 With ``cfg.fused_block`` and L <= 16 each trunk layer runs as three fused
@@ -39,7 +42,6 @@ from .layers import (
 
 # unported options -> the ROADMAP item that ports them
 _UNPORTED = {
-    "tps_condition": "TPS",
     "inpainting": "design and inpainting",
     "design": "design and inpainting",
     "dynamic_mpnn": "design and inpainting (mpnn modes)",
@@ -168,14 +170,19 @@ class LatentMDGenModel(nn.Module):
     def __init__(self, cfg, latent_dim: int):
         super().__init__()
         check_ported(cfg)
-        if not cfg.sim_condition:
-            raise NotImplementedError("only the forward-simulation task is ported")
+        if not (cfg.sim_condition or cfg.tps_condition):
+            raise NotImplementedError(
+                "only the forward-simulation, upsampling and TPS tasks are ported")
         self.cfg = cfg
         C, nl = cfg.embed_dim, cfg.num_layers
         self.latent_dim = latent_dim
         self.dt = torch_dtype(cfg)
 
         self.latent_to_emb = nn.Linear(latent_dim, C)
+        if cfg.tps_condition:
+            # the endpoint tower's inputs: one relative transform (tensor-7) each way
+            self.latent_to_emb_f = nn.Linear(7, C)
+            self.latent_to_emb_r = nn.Linear(7, C)
         self.cond_to_emb = nn.Linear(latent_dim, C)
         self.mask_to_emb = nn.Embedding(2, C)
         if cfg.prepend_ipa:
@@ -205,6 +212,9 @@ class LatentMDGenModel(nn.Module):
         embeddings, zero adaLN producers and output head, N(0, 0.02)
         timestep MLP."""
         xavier_(self.latent_to_emb, generator)
+        if self.cfg.tps_condition:
+            xavier_(self.latent_to_emb_f, generator)
+            xavier_(self.latent_to_emb_r, generator)
         xavier_(self.cond_to_emb, generator)
         embeddings = [self.mask_to_emb]
         if self.cfg.prepend_ipa:
@@ -222,17 +232,32 @@ class LatentMDGenModel(nn.Module):
         self.t_embedder.reset_parameters(generator)
         return self
 
-    def run_ipa(self, t, mask, start_frames, aatype):
-        """Key-frame tower (sim): t [B, C], mask [B, L] -> [B, L, C]."""
+    def run_ipa(self, t, mask, start_frames, end_frames, aatype):
+        """Key-frame tower: t [B, C], mask [B, L] -> [B, L, C]. sim: one
+        pass over ``start_frames``. tps: the same layers and modulation over
+        both endpoints, the reverse stream with the start frames and the
+        forward stream with the end frames, as the JAX model pairs them."""
         cfg = self.cfg
         B, L = mask.shape
-        x = torch.zeros((B, L, cfg.embed_dim), device=t.device)
+        aa = None
         if aatype is not None and not cfg.no_aa_emb:
-            x = x + self.aatype_to_emb(aatype.long())
+            aa = self.aatype_to_emb(aatype.long())
         mods = dense(F.silu(t), self.ipa_adaln, self.dt).chunk(cfg.num_layers, dim=-1)
+        if not cfg.tps_condition:
+            x = torch.zeros((B, L, cfg.embed_dim), device=t.device)
+            if aa is not None:
+                x = x + aa
+            for layer, mod in zip(self.ipa_layers, mods):
+                x = layer(x, mod, mask, start_frames)
+            return x
+        x_f = dense(start_frames.invert().compose(end_frames).to_tensor_7(), self.latent_to_emb_f)
+        x_r = dense(end_frames.invert().compose(start_frames).to_tensor_7(), self.latent_to_emb_r)
+        if aa is not None:
+            x_f, x_r = x_f + aa, x_r + aa
         for layer, mod in zip(self.ipa_layers, mods):
-            x = layer(x, mod, mask, start_frames)
-        return x
+            x_r = layer(x_r, mod, mask, start_frames)
+            x_f = layer(x_f, mod, mask, end_frames)
+        return x_r + x_f
 
     def forward(self, x, t, mask, start_frames=None, end_frames=None, x_cond=None,
                 x_cond_mask=None, aatype=None):
@@ -248,7 +273,8 @@ class LatentMDGenModel(nn.Module):
 
         t_emb = self.t_embedder(t * cfg.time_multiplier)[:, None]  # [B, 1, C]
         if cfg.prepend_ipa:
-            x = x + self.run_ipa(t_emb[:, 0], mask[:, 0], start_frames, aatype)[:, None]
+            x = x + self.run_ipa(t_emb[:, 0], mask[:, 0], start_frames, end_frames,
+                                 aatype)[:, None]
 
         trunk_mods = dense(F.silu(t_emb), self.trunk_adaln, self.dt)
         for layer, mod in zip(self.layers, trunk_mods.chunk(cfg.num_layers, dim=-1)):

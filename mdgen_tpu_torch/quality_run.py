@@ -1,24 +1,38 @@
-"""Quality loop of the port: dataset -> train -> sim_inference -> analysis.
+"""Quality loop of the port: dataset -> train -> inference -> analysis.
 
-The ``--task sim`` path of the repository's ``scripts/quality_run.py`` on the
-port: writes the synthetic rotamer MD of 8 tetrapeptides (seed 0: the
-dataset's seed defines the physical system), trains a 4AA model on it with
-``mdgen_tpu_torch.train``, samples ``--num_rollouts`` rollouts per peptide
-with ``mdgen_tpu_torch.sim_inference --xtc`` (the run's ``sampling_method``,
-dopri5 by default) and scores the torsion JSDs with
-``mdgen_tpu_torch.analyze_peptide_sim``. Each stage is called through its
-``main(argv)``, in this process, on ``--device`` (default ``cuda``).
+The ``sim``, ``tps`` and ``upsampling`` tasks of the repository's
+``scripts/quality_run.py`` on the port: writes the synthetic rotamer MD of 8
+tetrapeptides (seed 0: the dataset's seed defines the physical system),
+trains a 4AA model on it with ``mdgen_tpu_torch.train`` and scores it. Each
+stage is called through its ``main(argv)``, in this process, on
+``--device`` (default ``cuda``).
+
+  * ``--task sim``: ``--sim_condition``; ``--num_rollouts`` rollouts per
+    peptide with ``sim_inference --xtc`` (the run's ``sampling_method``,
+    dopri5 by default), torsion JSDs by ``analyze_peptide_sim``; prints
+    ``per_peptide_mean_torsion_jsd``, ``mean_torsion_jsd``, ``mean_all_jsd``.
+  * ``--task tps``: ``--tps_condition``; 2 batches of 8 paths per peptide
+    with ``tps_inference --tica_lag 100 --msm_lag 10 --xtc``, scored by
+    ``analyze_peptide_tps``; prints each peptide's ``gen_valid_rate`` and
+    ``gen_JSD``, their mean and median.
+  * ``--task upsampling``: writes ``{name}_i10.npy`` (every 10th MD frame),
+    trains ``--sim_condition --cond_interval 10``, fills in the frames with
+    ``upsampling_inference --suffix _i10 --xtc``, scores the torsion
+    autocorrelations with ``analyze_upsampling --cond_interval 10 --nlag
+    100`` and prints ``summarize_upsampling``'s JSON (``live_mean_acf_err``).
 
     python -m mdgen_tpu_torch.quality_run --epochs 15000 --chi_loss_weight 3 \\
         --train_extra=--ema --seed 0 --out workdir/quality_s0
+    python -m mdgen_tpu_torch.quality_run --task upsampling --epochs 8000 \\
+        --train_extra=--ema --seed 0 --out workdir/quality_ups_s0
 
 Prints a ``[quality]`` line (ms per train step, drift evaluations per
-solve), then the JSON of the original script: ``per_peptide_mean_torsion_jsd``,
-``mean_torsion_jsd``, ``mean_all_jsd``. The other tasks are not ported.
+solve), then the JSON summary. ``--task design`` is not ported.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shlex
@@ -34,7 +48,7 @@ def parse_args(argv=None):
     p.add_argument("--task", type=str, default="sim",
                    choices=["sim", "design", "tps", "upsampling"])
     p.add_argument("--run_name", type=str, default=None,
-                   help="run name under OUT/workdir (default: quality_r2)")
+                   help="run name under OUT/workdir (default: quality_r2[_TASK])")
     p.add_argument("--out", type=str, default="workdir/quality_torch")
     p.add_argument("--epochs", type=int, default=6000)
     p.add_argument("--num_frames", type=int, default=100)
@@ -88,16 +102,38 @@ def summarize(out: dict) -> dict:
     }
 
 
+TASK_FLAGS = {
+    "sim": ["--sim_condition"],
+    # the reference TPS recipe: endpoint conditioning
+    "tps": ["--tps_condition"],
+    # the reference upsampling recipe scaled to the synthetic data: every
+    # 10th frame given instead of every 100th
+    "upsampling": ["--sim_condition", "--cond_interval", "10"],
+}
+
+
+def summarize_tps(out: dict) -> dict:
+    """Each peptide's valid-path rate and visited-state JSD, their mean and
+    median (the TPS figures of the repository's benchmark notes)."""
+    per = {name: {"gen_valid_rate": d["gen_valid_rate"], "gen_JSD": d["gen_JSD"]}
+           for name, d in out.items()}
+    rates = [v["gen_valid_rate"] for v in per.values()]
+    jsds = [v["gen_JSD"] for v in per.values()]
+    return {"per_peptide": per,
+            "mean_gen_valid_rate": statistics.mean(rates) if rates else None,
+            "median_gen_JSD": statistics.median(jsds) if jsds else None}
+
+
 def main(argv=None, keep_trajectories: bool = False) -> dict:
     """Returns {"summary" (the printed JSON), "train" (train.main's record or
-    None), "ms_per_step", "samples" (sim_inference.main's records, with the
-    trajectories if ``keep_trajectories``), "analysis" ({name: metrics}),
-    "samp_dir", "data_dir", "run_dir"}."""
+    None), "ms_per_step", "samples" (the inference CLI's records; for the sim
+    task with the trajectories if ``keep_trajectories``), "analysis" ({name:
+    metrics}), "samp_dir", "data_dir", "run_dir"}."""
     args = parse_args(argv)
-    if args.task != "sim":
+    if args.task not in TASK_FLAGS:
         raise NotImplementedError(f"--task {args.task} is not ported (ROADMAP queue 1, "
-                                  "items 8-10)")
-    from . import analyze_peptide_sim, sim_inference, train
+                                  "item 10)")
+    from . import train
     from .data import write_synthetic_dataset
     from .runtime.checkpoint import latest_step
 
@@ -105,10 +141,10 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
     samp_dir = os.path.join(args.out, "samples")
     workdir = os.path.join(args.out, "workdir")
     os.makedirs(samp_dir, exist_ok=True)
-    run_name = args.run_name or "quality_r2"
+    run_name = args.run_name or f"quality_r2_{args.task}".replace("_sim", "")
     run_dir = os.path.join(workdir, run_name)
 
-    # 1. synthetic MD dataset (the reference side of the JSD)
+    # 1. synthetic MD dataset (the reference side of every metric)
     split = os.path.join(data_dir, "split.csv")
     if args.skip_data and os.path.exists(split):
         print("reusing the dataset in", data_dir, flush=True)
@@ -116,6 +152,13 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
         split = write_synthetic_dataset(data_dir, [(s, s) for s in PEPTIDES],
                                         num_frames=args.md_frames, seed=0,
                                         rotamers=not args.rigid_data)
+    if args.task == "upsampling":
+        import numpy as np
+
+        # the kept (low-framerate) trajectories the upsampler fills in
+        for s in PEPTIDES:
+            arr = np.load(os.path.join(data_dir, f"{s}.npy"))
+            np.save(os.path.join(data_dir, f"{s}_i10.npy"), arr[::10])
 
     # 2. train
     rec, ms_per_step = None, None
@@ -125,7 +168,7 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
             resume = ["--ckpt", run_dir]
             print("resuming from", run_dir, flush=True)
         argv_train = [
-            "--sim_condition", "--prepend_ipa", "--abs_pos_emb", "--abs_time_emb",
+            *TASK_FLAGS[args.task], "--prepend_ipa", "--abs_pos_emb", "--abs_time_emb",
             "--crop", "4", "--num_frames", str(args.num_frames),
             "--num_layers", str(args.num_layers), "--embed_dim", str(args.embed_dim),
             "--mha_heads", str(args.mha_heads), "--ipa_heads", str(args.ipa_heads),
@@ -144,34 +187,78 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
         gaps = [b - a for a, b in zip(rec["step_end"], rec["step_end"][1:])]
         ms_per_step = statistics.median(gaps) * 1e3 if gaps else None
 
-    # 3. sample rollouts (T frames x num_rollouts per peptide)
-    argv_sample = ["--sim_ckpt", run_dir, "--data_dir", data_dir, "--split", split,
-                   "--num_rollouts", str(args.num_rollouts), "--out_dir", samp_dir, "--xtc",
-                   "--seed", str(args.seed), "--device", args.device]
-    print("+ sim_inference", " ".join(argv_sample), flush=True)
-    samples = sim_inference.main(argv_sample, keep_trajectories=keep_trajectories)
-
-    # 4. analyse (scipy-exact JSDs)
-    argv_analyze = ["--mddir", data_dir, "--pdbdir", samp_dir, "--save", "--no_msm",
-                    "--no_decorr", "--tica_lag", "100", "--save_name", "out.pkl",
-                    "--split", split, *shlex.split(args.analyze_extra)]
-    print("+ analyze_peptide_sim", " ".join(argv_analyze), flush=True)
-    analysis = analyze_peptide_sim.main(argv_analyze)
+    # 3. sample and 4. analyse
+    sample_and_score = {"sim": functools.partial(_sim, keep=keep_trajectories), "tps": _tps,
+                        "upsampling": _upsampling}[args.task]
+    samples, analysis, summary = sample_and_score(args, run_dir, data_dir, samp_dir, split)
 
     solves = [s for r in samples for s in r["solves"]]
-    frames = sum(r["frames"] for r in samples)
     seconds = sum(r["seconds"] for r in samples)
-    steps = f"{len(rec['losses'])} train steps, median {ms_per_step:.2f} ms per step" \
+    steps = f"{len(rec['losses'])} train steps, median {ms_per_step:.2f} ms per train step" \
         if ms_per_step is not None else "training skipped"
-    print(f"[quality] {steps}; sampling {frames} frames in {seconds:.1f} s, "
-          f"{statistics.mean(s['evals'] for s in solves):.1f} drift evaluations per solve "
-          f"({sum(not s['reached_t1'] for s in solves)} of {len(solves)} solves short of t1)",
-          flush=True)
-    summary = summarize(analysis)
+    print(f"[quality] {args.task}: {steps}; sampling {_sampled(args.task, samples)} in "
+          f"{seconds:.1f} s, {statistics.mean(s['evals'] for s in solves):.1f} drift "
+          f"evaluations per solve ({sum(not s['reached_t1'] for s in solves)} of {len(solves)} "
+          "solves short of t1)", flush=True)
     print(json.dumps(summary))
     print("QUALITY RUN OK", flush=True)
     return {"summary": summary, "train": rec, "ms_per_step": ms_per_step, "samples": samples,
             "analysis": analysis, "samp_dir": samp_dir, "data_dir": data_dir, "run_dir": run_dir}
+
+
+def _sampled(task, samples) -> str:
+    if task == "tps":
+        return f"{sum(len(r['paths']) for r in samples)} paths"
+    return f"{sum(r['frames'] for r in samples)} frames"
+
+
+def _common(args, data_dir, samp_dir, split):
+    """The flags every inference CLI takes here."""
+    return ["--data_dir", data_dir, "--split", split, "--out_dir", samp_dir, "--xtc",
+            "--seed", str(args.seed), "--device", args.device]
+
+
+def _sim(args, run_dir, data_dir, samp_dir, split, keep=False):
+    from . import analyze_peptide_sim, sim_inference
+
+    argv = ["--sim_ckpt", run_dir, "--num_rollouts", str(args.num_rollouts),
+            *_common(args, data_dir, samp_dir, split)]
+    print("+ sim_inference", " ".join(argv), flush=True)
+    samples = sim_inference.main(argv, keep_trajectories=keep)
+    argv = ["--mddir", data_dir, "--pdbdir", samp_dir, "--save", "--no_msm", "--no_decorr",
+            "--tica_lag", "100", "--save_name", "out.pkl", "--split", split,
+            *shlex.split(args.analyze_extra)]
+    print("+ analyze_peptide_sim", " ".join(argv), flush=True)
+    analysis = analyze_peptide_sim.main(argv)
+    return samples, analysis, summarize(analysis)
+
+
+def _tps(args, run_dir, data_dir, samp_dir, split):
+    from . import analyze_peptide_tps, tps_inference
+
+    argv = ["--sim_ckpt", run_dir, "--num_batches", "2", "--batch_size", "8", "--tica_lag",
+            "100", "--msm_lag", "10", *_common(args, data_dir, samp_dir, split)]
+    print("+ tps_inference", " ".join(argv), flush=True)
+    samples = tps_inference.main(argv)
+    argv = ["--mddir", data_dir, "--pdbdir", samp_dir, "--save",
+            *shlex.split(args.analyze_extra)]
+    print("+ analyze_peptide_tps", " ".join(argv), flush=True)
+    analysis = analyze_peptide_tps.main(argv)
+    return samples, analysis, summarize_tps(analysis)
+
+
+def _upsampling(args, run_dir, data_dir, samp_dir, split):
+    from . import analyze_upsampling, summarize_upsampling, upsampling_inference
+
+    argv = ["--ckpt", run_dir, "--suffix", "_i10", *_common(args, data_dir, samp_dir, split)]
+    print("+ upsampling_inference", " ".join(argv), flush=True)
+    samples = upsampling_inference.main(argv)
+    argv = ["--mddir", data_dir, "--pdbdir", samp_dir, "--cond_interval", "10", "--nlag",
+            "100", "--save", *shlex.split(args.analyze_extra)]
+    print("+ analyze_upsampling", " ".join(argv), flush=True)
+    analysis = analyze_upsampling.main(argv)
+    summary = summarize_upsampling.summarize(os.path.join(samp_dir, "upsampling_out.pkl"))
+    return samples, analysis, summary
 
 
 if __name__ == "__main__":

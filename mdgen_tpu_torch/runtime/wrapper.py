@@ -1,5 +1,6 @@
-"""Port of ``mdgen_tpu/runtime/wrapper.py``: forward-simulation inference
-(:class:`MDGenRuntime`) and training (:class:`TrainRuntime`).
+"""Port of ``mdgen_tpu/runtime/wrapper.py``: inference for forward
+simulation, TPS and upsampling (:class:`MDGenRuntime`) and training
+(:class:`TrainRuntime`).
 
 PyTorch runs eagerly: each rollout tokenizes its start frame on the device,
 integrates the probability-flow ODE over the denoiser with the configured
@@ -91,10 +92,12 @@ class MDGenRuntime:
     def inference(self, batch: dict, generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None, stats: Optional[dict] = None):
         """noise -> ODE sample (``cfg.sampling_method``) -> (atom14 [B,T,L,14,3],
-        aatype [B,T,L]). ``noise`` [B,T,L,latent_dim] replaces the draw from
+        aatype [B,T,L]). A raw batch (atom14) is tokenized on its device; a
+        token dict (``tokenize_atom14``'s keys, e.g. upsampling windows)
+        passes through. ``noise`` [B,T,L,latent_dim] replaces the draw from
         ``generator``; ``stats`` receives the solver's counts."""
         cfg = self.cfg
-        tok = tokenize_atom14(batch)
+        tok = tokenize_atom14(batch) if "atom14" in batch else batch
         prep = prep_batch(cfg, tok)
         B, T, L = prep.model_kwargs["mask"].shape
         if noise is None:

@@ -100,7 +100,7 @@ def main(argv=None, keep_trajectories: bool = False):
             dur = time.perf_counter() - t0
             frames = len(chunk) * traj.shape[1]
             print(f"{','.join(chunk)}: {frames} frames in {dur:.2f}s "
-                  f"({frames / dur:.1f} frames/s); {_solve_line(cfg.sampling_method, solves)}")
+                  f"({frames / dur:.1f} frames/s); {solve_line(cfg.sampling_method, solves)}")
             paths = []
             for j, name in enumerate(chunk):
                 path = os.path.join(args.out_dir, f"{name}.pdb")
@@ -114,7 +114,7 @@ def main(argv=None, keep_trajectories: bool = False):
     return records
 
 
-def _solve_line(method: str, solves) -> str:
+def solve_line(method: str, solves) -> str:
     """Drift evaluations per solve and, for dopri5, its attempts and
     rejections; a solve that stopped short of t1 is named."""
     evals = [s["evals"] for s in solves]
@@ -125,7 +125,7 @@ def _solve_line(method: str, solves) -> str:
                  f"{sum(s['rejected'] for s in solves)} rejected")
     short = [i for i, s in enumerate(solves) if not s["reached_t1"]]
     if short:
-        line += f"; rollouts {short} spent max_steps before t1"
+        line += f"; solves {short} spent max_steps before t1"
     return line
 
 

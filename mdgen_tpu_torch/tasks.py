@@ -1,6 +1,7 @@
 """Task layer: tokenized batches -> model inputs, and latents -> atoms.
 
-Port of ``mdgen_tpu/tasks.py`` (the frames path). Latent layout per
+Port of ``mdgen_tpu/tasks.py`` (the frames path, and the upsampling
+window packing, numpy only). Latent layout per
 frame and residue: [offset tensor-7 (+7 reverse offsets for endpoint tasks)
 | 14 torsion sin/cos | 20 design simplex channels (design only)].
 """
@@ -114,6 +115,58 @@ def prep_batch(cfg, batch: dict) -> PreparedBatch:
         "x_cond_mask": cond_mask,
     }
     return PreparedBatch(latents, loss_mask, rigids, model_kwargs)
+
+
+def build_upsampling_windows(tok: dict, num_frames: int, cond_interval: int):
+    """Pack a low-framerate token trajectory into inpainting windows.
+
+    Each window holds ``num_frames // cond_interval`` kept frames at every
+    ``cond_interval``-th slot, zeros + identity rotations in between
+    (reference `upsampling_inference.py:47-66`).
+
+    tok: single-trajectory token dict {torsions [T0,L,7,2], torsion_mask,
+    trans, rots, seqres, mask}. Returns a list of window dicts (numpy).
+    """
+    import numpy as np
+
+    kept_per_window = num_frames // cond_interval
+    T0, L = tok["torsions"].shape[:2]
+    n_windows = T0 // kept_per_window
+    out = []
+    for w in range(n_windows):
+        sel = slice(w * kept_per_window, (w + 1) * kept_per_window)
+        torsions = np.zeros((num_frames, L, 7, 2), np.float32)
+        trans = np.zeros((num_frames, L, 3), np.float32)
+        rots = np.broadcast_to(
+            np.eye(3, dtype=np.float32), (num_frames, L, 3, 3)
+        ).copy()
+        torsions[::cond_interval] = tok["torsions"][sel]
+        trans[::cond_interval] = tok["trans"][sel]
+        rots[::cond_interval] = tok["rots"][sel]
+        out.append(
+            {
+                "torsions": torsions,
+                "torsion_mask": np.asarray(tok["torsion_mask"], np.float32),
+                "trans": trans,
+                "rots": rots,
+                "seqres": np.asarray(tok["seqres"]),
+                "mask": np.asarray(tok["mask"], np.float32),
+            }
+        )
+    return out
+
+
+def pad_window_groups(windows: list, batch_size: int):
+    """Split ``windows`` into full batches of ``batch_size``, padding the
+    trailing partial group by repeating its last element. Yields
+    ``(group, n_real)``; callers keep only the first ``n_real`` outputs of
+    the padded group, so no trajectory tail is dropped."""
+    for i in range(0, len(windows), batch_size):
+        group = windows[i : i + batch_size]
+        n_real = len(group)
+        if n_real < batch_size:
+            group = group + [group[-1]] * (batch_size - n_real)
+        yield group, n_real
 
 
 def decode_latents(cfg, samples: torch.Tensor, rigids: Rigid, seqres: torch.Tensor):

@@ -335,3 +335,94 @@ def test_fused_sublayers_refuse_autograd_on_the_card():
     with pytest.raises(RuntimeError, match="forward-only"):
         ops.fused_ffn_sublayer(a["x"], a["shift"], a["scale"], a["gate"], w1, a["b1"], a["w2"],
                                a["b2"], compute_dtype=torch.float32)
+
+
+def _task_model(**kw):
+    """The 5 x 384 x 16 model of a task configuration on the card, seeded,
+    with noise on the zero-init adaLN producers and head (as chip_smoke.py)."""
+    from mdgen_tpu_torch.config import MDGenConfig
+    from mdgen_tpu_torch.models import LatentMDGenModel
+
+    cfg = MDGenConfig(prepend_ipa=True, abs_pos_emb=True, abs_time_emb=True, crop=4, **kw)
+    g = torch.Generator().manual_seed(0)
+    model = LatentMDGenModel(cfg, cfg.latent_dim).reset_parameters(g)
+    with torch.no_grad():
+        for lin in (model.trunk_adaln, model.ipa_adaln, model.emb_to_latent.dense_0,
+                    model.emb_to_latent.dense_1):
+            lin.weight.add_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    return cfg, model.state_dict()
+
+
+def _fused_vs_dense(cfg, state_dict, tok):
+    """One forward of the fused and the dense model on the same inputs, f32;
+    returns (fused, dense, {fused: its forward's launch counts})."""
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.tasks import prep_batch
+
+    kwargs = prep_batch(cfg, tok).model_kwargs
+    B, T, L = kwargs["mask"].shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, T, L, cfg.latent_dim, device="cuda", generator=g)
+    t = torch.full((B,), 0.4, device="cuda")
+    outs = {}
+    for fused in (True, False):
+        model = LatentMDGenModel(cfg.replace(fused_block=fused), cfg.latent_dim)
+        model.load_state_dict(state_dict)
+        before = ops.launch_counts()
+        with torch.inference_mode():
+            outs[fused] = model.cuda().eval()(x, t, **kwargs)
+        after = ops.launch_counts()
+        outs[fused, "launches"] = {k: after[k] - before[k] for k in after}
+    return outs[True], outs[False], {f: outs[f, "launches"] for f in (True, False)}
+
+
+def test_tps_forward_fused_matches_dense_on_the_card():
+    """The TPS model (both IPA streams) at full width, T = 100: kernels 1-3
+    against the dense path, 1e-4 relative to max(|out|, 1)."""
+    _need_cuda()
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import tokenize_atom14
+
+    cfg, sd = _task_model(tps_condition=True, num_frames=100)
+    traj = torch.from_numpy(synthetic_trajectory("ACDE", 30, seed=0)).float()
+    atom14 = traj[3][None, None].repeat(1, 100, 1, 1, 1)
+    atom14[:, -1] = traj[27]
+    tok = tokenize_atom14({"atom14": atom14.cuda(), "mask": torch.ones(1, 4, device="cuda"),
+                           "seqres": torch.from_numpy(rc.str_sequence_to_aatype("ACDE")[None])
+                           .long().cuda()})
+    fused, dense, launches = _fused_vs_dense(cfg, sd, tok)
+    assert launches[True]["fused_l_sublayer"] == launches[True]["fused_ffn_sublayer"] == 5
+    assert launches[True]["fused_t_sublayer"] == 5 and not any(launches[False].values())
+    scale = max(dense.abs().max().item(), 1.0)
+    assert torch.isfinite(fused).all() and (fused - dense).abs().max().item() <= 1e-4 * scale
+
+
+def test_upsampling_window_fused_matches_dense_on_the_card():
+    """One upsampling window of the reference recipe (T = 1000, cond_interval
+    100: 10 kept frames, identity frames between them) at full width: the
+    fused path (kernel 2 at T = 1000) against the dense one, whose frame
+    attention takes flash kernel 4 (1001 keys); 1e-4 relative to
+    max(|out|, 1)."""
+    _need_cuda()
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import tokenize_atom14
+    from mdgen_tpu_torch.tasks import build_upsampling_windows
+
+    cfg, sd = _task_model(sim_condition=True, cond_interval=100, num_frames=1000)
+    kept = torch.from_numpy(synthetic_trajectory("ACDE", 10, seed=0)).float()[None]
+    tok = tokenize_atom14({"atom14": kept.cuda(), "mask": torch.ones(1, 4, device="cuda"),
+                           "seqres": torch.from_numpy(rc.str_sequence_to_aatype("ACDE")[None])
+                           .long().cuda()})
+    (window,) = build_upsampling_windows({k: v[0].cpu().numpy() for k, v in tok.items()},
+                                         1000, 100)
+    win = {k: torch.from_numpy(np.asarray(v)[None]).cuda() for k, v in window.items()}
+    win["seqres"] = win["seqres"].long()
+    fused, dense, launches = _fused_vs_dense(cfg, sd, win)
+    assert launches[True]["fused_t_sublayer"] == 5 and launches[True]["flash_fwd"] == 0
+    assert launches[False]["flash_fwd"] == 5 and launches[False]["fused_t_sublayer"] == 0
+    scale = max(dense.abs().max().item(), 1.0)
+    assert torch.isfinite(fused).all() and (fused - dense).abs().max().item() <= 1e-4 * scale

@@ -2,14 +2,19 @@
 nothing ``chip_smoke.py`` imports) opens or imports a file of the JAX
 package, and each copy the port keeps of a jax-free JAX module agrees with
 its original: the config, the residue constants, the batching loader, the
-metric logger, the graceful stop, the XTC codec and the analysis metrics and
-MSM toolkit; and the rotamer dataset writer, a port onto the port's
-geometry, writes the JAX package's files.
+metric logger, the graceful stop, the XTC codec, the analysis metrics and
+MSM toolkit and the upsampling summarizer; and the rotamer dataset writer, a
+port onto the port's geometry, writes the JAX package's files. The TPS and
+upsampling chains (train, inference, analysis) run on the CPU in a process
+that cannot import jax.
 """
 import argparse
 import ast
 import dataclasses
+import importlib.util
+import inspect
 import os
+import pickle
 import pkgutil
 import subprocess
 import sys
@@ -30,6 +35,7 @@ from mdgen_tpu.geometry import constants as jax_rc
 from mdgen_tpu.runtime.metrics import MetricLogger as JaxMetricLogger
 from mdgen_tpu.runtime.preempt import GracefulStop as JaxGracefulStop
 from mdgen_tpu_torch import config as torch_config
+from mdgen_tpu_torch import summarize_upsampling as torch_summarize
 from mdgen_tpu_torch import xtc as torch_xtc
 from mdgen_tpu_torch.analysis import metrics as torch_metrics
 from mdgen_tpu_torch.analysis import msm as torch_msm
@@ -104,6 +110,10 @@ QUALITY_CHAIN = ["mdgen_tpu_torch.xtc", "mdgen_tpu_torch.protein", "mdgen_tpu_to
                  "mdgen_tpu_torch.analysis.msm", "mdgen_tpu_torch.analysis.reference_msm",
                  "mdgen_tpu_torch.analyze_peptide_sim", "mdgen_tpu_torch.quality_run",
                  "mdgen_tpu_torch.data.synthetic", "mdgen_tpu_torch.transport.integrators"]
+# and the TPS and upsampling tasks
+TPS_UPSAMPLING = ["mdgen_tpu_torch.tps_inference", "mdgen_tpu_torch.upsampling_inference",
+                  "mdgen_tpu_torch.analyze_peptide_tps", "mdgen_tpu_torch.analyze_upsampling",
+                  "mdgen_tpu_torch.summarize_upsampling"]
 
 
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
@@ -111,7 +121,8 @@ def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
     if which == "package":
-        assert set(QUALITY_CHAIN) <= set(names), set(QUALITY_CHAIN) - set(names)
+        want = set(QUALITY_CHAIN + TPS_UPSAMPLING)
+        assert want <= set(names), want - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr
     assert f"imported {len(names)} modules" in r.stdout
@@ -350,3 +361,87 @@ def test_rotamer_dataset_writer_matches_jax(tmp_path, kw):
         assert (diff <= np.maximum(ulp.astype(np.float32), 2.0**-22)).all(), name
         differ += int((got != want).sum())
     assert differ <= 0.001 * 3 * got.size, differ  # a few in 50400 per peptide
+
+
+def _original_summarizer():
+    spec = importlib.util.spec_from_file_location(
+        "summarize_upsampling_original", os.path.join(REPO, "scripts", "summarize_upsampling.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_summarize_upsampling_copy_matches_original(tmp_path):
+    """The same source and the same JSON on a seeded pickle of three
+    peptides: live and sub-Nyquist torsions, a frozen one (nonfinite lags)
+    and curves of unequal length."""
+    original = _original_summarizer()
+    for fn in ("summarize", "main"):
+        assert inspect.getsource(getattr(torch_summarize, fn)) == \
+            inspect.getsource(getattr(original, fn)), fn
+    rng = np.random.default_rng(21)
+    results = {}
+    for name in ("ACDE", "WYNK", "GSVL"):
+        sections = {"backbone": {}, "sidechain": {}}
+        for i in range(6):
+            n = int(rng.integers(5, 40))
+            truth = np.cumprod(np.r_[1.0, rng.uniform(0.2, 0.99, n - 1)]).astype(np.float16)
+            gen = (truth + rng.normal(0, 0.05, n)).astype(np.float16)[: n - i % 3]
+            if i == 5 and name == "GSVL":
+                truth[1:] = np.nan
+            sections["backbone" if i < 3 else "sidechain"][f"res{i % 4}_tor{i}"] = {
+                "truth": truth, "gen": gen, "naive": truth[:2]}
+        results[name] = sections
+    pkl = str(tmp_path / "upsampling_out.pkl")
+    with open(pkl, "wb") as fh:
+        pickle.dump(results, fh)
+    for max_lag in (20, 3):
+        got, want = torch_summarize.summarize(pkl, max_lag), original.summarize(pkl, max_lag)
+        assert got == want
+    assert want["live_n"] > 0 and want["sub_nyquist_n"] > 0 and want["skipped_nonfinite"] == 1
+
+
+_TASK_NO_JAX = textwrap.dedent("""
+    import sys
+    for m in ("jax", "flax", "optax", "orbax", "pandas", "matplotlib"):
+        sys.modules[m] = None  # any import of these now raises ImportError
+    import math
+    from mdgen_tpu_torch import quality_run
+
+    task, frames = sys.argv[1], sys.argv[2]
+    res = quality_run.main(["--task", task, "--out", "q", "--epochs", "3", "--num_frames", frames,
+                            "--md_frames", "300", "--embed_dim", "32", "--num_layers", "2",
+                            "--mha_heads", "4", "--ipa_head_dim", "8", "--device", "cpu",
+                            "--train_extra=--sampling_method euler --inference_steps 3"])
+    s = res["summary"]
+    if task == "tps":
+        assert len(s["per_peptide"]) == 8, s
+        vals = [v for d in s["per_peptide"].values() for v in d.values()]
+        assert len(res["samples"]) == 16 and all(len(r["paths"]) == 8 for r in res["samples"])
+    else:
+        assert s["live_n"] + s["sub_nyquist_n"] > 0 and len(s["per_peptide"]) == 8, s
+        vals = [s["live_mean_acf_err"] or s["sub_nyquist_mean_acf_err"]]
+        assert all(r["frames"] == 300 for r in res["samples"]), [r["frames"] for r in res["samples"]]
+    assert all(math.isfinite(v) for v in vals), vals
+    bad = [m for m in sys.modules if m.split(".")[0] in
+           ("jax", "flax", "optax", "orbax", "pandas", "matplotlib") and sys.modules[m] is not None]
+    assert not bad, bad
+    print("TASK_NO_JAX_OK")
+""")
+
+
+@pytest.mark.parametrize("task,frames", [("tps", "8"), ("upsampling", "20")])
+def test_task_chain_runs_without_jax(task, frames, tmp_path):
+    """``quality_run --task tps|upsampling`` at a tiny width on the CPU:
+    ``train --tps_condition`` or ``--sim_condition --cond_interval 10``,
+    ``tps_inference`` / ``upsampling_inference --xtc``, ``analyze_peptide_tps``
+    / ``analyze_upsampling`` and the summarizer, with jax, flax, optax,
+    orbax, pandas and matplotlib unimportable."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _TASK_NO_JAX, task, frames], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TASK_NO_JAX_OK" in proc.stdout
+    pkl = {"tps": "tps_out.pkl", "upsampling": "upsampling_out.pkl"}[task]
+    assert (tmp_path / "q" / "samples" / pkl).exists()
