@@ -61,8 +61,27 @@ Phases, in order; any failure raises and the exit code is not 0:
      from the same noise in 32-true within DOPRI5_TOL; prints frames/s, ms
      per evaluation and (not held: random weights) how far the sampled kept
      frames lie from their inputs;
-  7c. `quality_run --task tps` and `--task upsampling` at the budget of 7:
-     the pickle's peptides and every metric finite, the printed JSON;
+  7c. design: `mdgen_tpu_torch.design_inference.main(... --fused_block)` with a
+     seeded full-width design checkpoint (the reference recipe: inpainting +
+     design, no aatype embedding, no torsions; latent 48) on a synthetic
+     rotamer tetrapeptide's MD (DESIGN_MD_FRAMES frames, its MSM at the TPS
+     lags): one batch of DESIGN_BATCH windows of 100 frames starting in the
+     highest-flux transition's start state (12,800 tokens per sublayer),
+     bf16-mixed, dopri5 with the Dirichlet flow; checks 32 PDBs of 100
+     frames, valid designed sequences, kernels 1-3 at 5 layers x the solve's
+     drift evaluations, then the same windows and noise fused vs dense in
+     32-true: atoms within DOPRI5_TOL, the simplex channels within
+     SIMPLEX_TOL, the designed sequences' agreement printed; prints
+     samples/s, ms per evaluation and evaluations per solve;
+  7d. mpnn: one full-width forward of each mpnn mode (`mpnn`: the first
+     frame; `dynamic_mpnn`: the first and last) on DESIGN_BATCH windows,
+     fused vs dense in 32-true: logits [32, 1, 4, 20] within TOL["f32"] x
+     max(|logits|, 1), kernel 2 at T = 1 and T = 2, 5 launches of each
+     fused kernel;
+  7e. `quality_run --task tps`, `--task upsampling` and `--task design` at
+     the budget of 7: the pickle's peptides and every metric finite (design:
+     each peptide's 32 designs and every recovery in [0, 1]), the printed
+     JSON;
   8. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
      a masked residue, f32 and bf16 operands, each twice on the same inputs
@@ -98,8 +117,8 @@ Phases, in order; any failure raises and the exit code is not 0:
       their type; each adds its worst `[edge]` error by dtype; kernel 2 its
       T = 1000 times and bound and its µs per launch on the upsampling path;
       the flash kernels their bf16 device, library and bound times and the
-      f32 bound on CUDA cores; every kernel its launches on the TPS and
-      upsampling paths), the nvidia-smi line,
+      f32 bound on CUDA cores; every kernel its launches on the TPS,
+      upsampling, design and mpnn paths), the nvidia-smi line,
       and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -180,6 +199,16 @@ UPS_FRAMES, UPS_INTERVAL, UPS_MD_FRAMES = 1000, 100, 3000
 # conditioning latents against the kept input: the input is stored in
 # float16 and the rebuild uses ideal geometry (7.3e-3 A on the CPU)
 KEPT_TOL = 2e-2
+# the design path (the reference recipe: inpainting + design, no aatype
+# embedding, no torsions): one batch of DESIGN_BATCH windows of 100 frames
+# (12,800 tokens per trunk sublayer) of a synthetic rotamer tetrapeptide's MD
+# of DESIGN_MD_FRAMES frames, starting in the highest-flux transition's start
+# state (its MSM at the TPS lags)
+DESIGN_BATCH, DESIGN_MD_FRAMES = 32, 2000
+# the 20 simplex channels of the fused (32-true) design solve against the
+# dense one, max |difference|: the channels lie in [0, 1] and the dopri5
+# solve carries f32 rounding as the atoms do (DOPRI5_TOL)
+SIMPLEX_TOL = 1e-2
 # the card's published peaks (H100 SXM, at 700 W): memory, and operations
 # by type (f32 outside the tensor cores; split TF32, three TF32 products per
 # f32 product, shown beside it)
@@ -720,9 +749,11 @@ def seeded_model(torch, cfg):
 
     g = torch.Generator().manual_seed(0)
     model = LatentMDGenModel(cfg, cfg.latent_dim).reset_parameters(g)
+    lins = [model.trunk_adaln, model.ipa_adaln]
+    if hasattr(model, "emb_to_latent"):  # the mpnn modes have no latent head
+        lins += [model.emb_to_latent.dense_0, model.emb_to_latent.dense_1]
     with torch.no_grad():
-        for lin in (model.trunk_adaln, model.ipa_adaln, model.emb_to_latent.dense_0,
-                    model.emb_to_latent.dense_1):
+        for lin in lins:
             lin.weight.add_(torch.randn(lin.weight.shape, generator=g) * 0.05)
     return model
 
@@ -1209,14 +1240,227 @@ def _upsampling(torch, smi, work):
                     "fused_vs_dense_A": err}, (cfg, state_dict, window)
 
 
+def design_config(**kw):
+    return task_config(inpainting=True, design=True, no_aa_emb=True, no_torsion=True,
+                       num_frames=NUM_FRAMES, **kw)
+
+
+def _design_md(work):
+    """The synthetic rotamer MD in ``work`` and its split."""
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_rotamer_trajectory
+
+    md = synthetic_rotamer_trajectory(SEQ, DESIGN_MD_FRAMES, seed=0)
+    np.save(os.path.join(work, f"{SEQ}.npy"), md)
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write(f"name,seqres\n{SEQ},{SEQ}\n")
+    return md, split
+
+
+def _design_batch(torch, md, starts):
+    import numpy as np
+
+    from mdgen_tpu_torch.geometry import constants as rc
+
+    n = len(starts)
+    return {"atom14": torch.from_numpy(np.stack([md[s:s + NUM_FRAMES] for s in starts])
+                                       .astype(np.float32)).cuda(),
+            "seqres": torch.from_numpy(rc.str_sequence_to_aatype(SEQ)).long().cuda().expand(n, L),
+            "mask": torch.ones(n, L, device="cuda")}
+
+
+def phase_design(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_design_") as work:
+        return _design(torch, smi, work)
+
+
+def _design(torch, smi, work):
+    """Design through `mdgen_tpu_torch.design_inference.main(... --fused_block)`:
+    the MSM of a synthetic rotamer tetrapeptide, one batch of DESIGN_BATCH
+    windows (T = 100, bf16-mixed, dopri5) of the seeded full-width design
+    model; then the same windows and noise fused and dense in 32-true:
+    atoms, simplex channels and designed sequences."""
+    import shutil
+
+    import numpy as np
+
+    from mdgen_tpu_torch import design_inference, ops
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    from mdgen_tpu_torch.transport import dirichlet
+
+    cfg = design_config()
+    dirichlet._cfactor_table.cache_clear()
+    t0 = time.perf_counter()
+    dirichlet.DirichletConditionalFlow(K=20, alpha_spacing=0.001, alpha_max=cfg.alpha_max)
+    table_s = time.perf_counter() - t0
+    log(f"[design] the c-factor table (SciPy betainc over 7001 x 1000 points, on the host): "
+        f"{table_s:.2f} s, once per process")
+    state_dict = seeded_model(torch, cfg).state_dict()
+    md, split = _design_md(work)
+    ckpt = os.path.join(work, "ckpt")
+    checkpoint.save_checkpoint(ckpt, cfg, state_dict)
+    argv = ["--sim_ckpt", ckpt, "--data_dir", work, "--split", split, "--num_batches", "1",
+            "--batch_size", str(DESIGN_BATCH), "--tica_lag", str(TPS_TICA_LAG), "--msm_lag",
+            str(TPS_MSM_LAG), "--fused_block", "--device", "cuda"]
+    warm, out = os.path.join(work, "warm"), os.path.join(work, "out")
+    t0 = time.perf_counter()
+    design_inference.main(argv + ["--out_dir", warm])  # warm-up; builds the c-factor table, the MSM
+    warm_s = time.perf_counter() - t0
+    os.makedirs(out)
+    shutil.copy(os.path.join(warm, f"{SEQ}_metadata.pkl"), out)
+    ops.reset_launch_counts()
+    rec = design_inference.main(argv + ["--out_dir", out])[0]
+    counts = ops.launch_counts()
+
+    st = rec["solves"][0]
+    want = 5 * st["evals"]
+    frames = [_count_models(p) for p in rec["paths"]]
+    with open(os.path.join(out, f"{SEQ}_metadata.json")) as fh:
+        meta = json.load(fh)
+    valid = all(len(m["aa_out"]) == L and set(m["aa_out"]) <= set(rc.restypes) for m in meta)
+    samples_s, ms_eval = DESIGN_BATCH / rec["seconds"], rec["seconds"] * 1e3 / st["evals"]
+    ok = (frames == [NUM_FRAMES] * DESIGN_BATCH and len(meta) == DESIGN_BATCH and valid
+          and st["reached_t1"] and all(counts[k] == want for k in FUSED_KERNELS)
+          and not any(counts[k] for k in FLASH_KERNELS))
+    log(f"[design] design_inference --fused_block (5x384x16, latent 48, bf16-mixed, dopri5): "
+        f"{DESIGN_BATCH} designs x {NUM_FRAMES} frames ({DESIGN_BATCH * NUM_FRAMES * L} tokens) "
+        f"from state {meta[0]['start_state']} to {meta[0]['end_state']} in {rec['seconds']:.3f} s "
+        f"= {samples_s:.2f} samples/s; {st['evals']} drift evaluations ({st['attempts']} "
+        f"attempts, {st['rejected']} rejected), {ms_eval:.2f} ms per evaluation; first call "
+        f"(c-factor table, MSM, allocator) {warm_s:.1f} s; PDB frames {set(frames)}; designed "
+        f"{sorted(set(m['aa_out'] for m in meta))[:4]}...; launches {counts}, want {want} of "
+        f"each fused kernel ({smi}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"design path: frames {frames}, solve {st}, launches {counts}")
+
+    # the same windows and noise, fused and dense, 32-true
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime, tokenize_atom14
+    from mdgen_tpu_torch.tasks import decode_latents, prep_batch
+    from mdgen_tpu_torch.transport.dirichlet import sample_dirichlet
+
+    batch = _design_batch(torch, md, [m["start_idx"] for m in meta])
+    g = torch.Generator(device="cuda").manual_seed(17)
+    noise = torch.cat([torch.randn(DESIGN_BATCH, NUM_FRAMES, L, cfg.latent_dim - 20, device="cuda",
+                                   generator=g),
+                       sample_dirichlet(torch.ones(DESIGN_BATCH, L, 20, device="cuda"), g)[:, None]
+                       .expand(DESIGN_BATCH, NUM_FRAMES, L, 20)], dim=-1)
+    runs = {}
+    for fused in (True, False):
+        c = cfg.replace(precision="32-true", fused_block=fused)
+        model = LatentMDGenModel(c, c.latent_dim)
+        model.load_state_dict(state_dict)
+        rt = MDGenRuntime(c, model.cuda())
+        prep = prep_batch(c, tokenize_atom14(batch))
+        solve = {}
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            samples = rt.sampler.sample_ode(rt.model_inf.forward_inference,
+                                            sampling_method=c.sampling_method,
+                                            stats=solve)(noise, **prep.model_kwargs)
+            atoms, aa = decode_latents(c, samples, prep.rigids, batch["seqres"])
+        torch.cuda.synchronize()
+        runs[fused] = (atoms, samples[..., -20:], aa, solve, ops.launch_counts())
+        del model, rt
+    (fa, fs, faa, fst, fc), (da, ds, daa, dst, dc) = runs[True], runs[False]
+    err = (fa - da).abs().max().item()
+    serr = (fs - ds).abs().max().item()
+    agree = (faa[:, 0] == daa[:, 0]).all(dim=-1).float().mean().item()
+    ok = (bool(torch.isfinite(fa).all() and torch.isfinite(fs).all()) and err <= DOPRI5_TOL
+          and serr <= SIMPLEX_TOL and fst["reached_t1"] and dst["reached_t1"]
+          and all(fc[k] == 5 * fst["evals"] for k in FUSED_KERNELS)
+          and not any(dc[k] for k in FUSED_KERNELS + FLASH_KERNELS))
+    log(f"[design] fused vs dense, 32-true dopri5, same windows and noise: atoms max_abs_err "
+        f"{err:.3e} A, tol {DOPRI5_TOL:g} A; simplex channels max_abs_err {serr:.3e}, tol "
+        f"{SIMPLEX_TOL:g}; designed sequences equal in {agree:.3f} of {DESIGN_BATCH} (not held); "
+        f"{fst['evals']} / {dst['evals']} drift evaluations; launches fused {fc} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"design: fused and dense solves disagree: {err} A, simplex {serr}, "
+                             f"{fst}, {dst}")
+    torch.cuda.empty_cache()
+    return counts, {"samples_per_s": samples_s, "ms_per_eval": ms_eval, "evals": st["evals"],
+                    "fused_vs_dense_A": err, "simplex_err": serr, "sequence_agreement": agree,
+                    "table_s": table_s}
+
+
+def phase_mpnn(torch, smi):
+    """One full-width forward of each mpnn mode on DESIGN_BATCH windows
+    (T = 100, of which the model keeps the first frame, or the first and
+    last), fused and dense in 32-true: the logits [B, 1, L, 20], and kernel 2
+    at T = 1 and 2, seen through its wrapper."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime, tokenize_atom14
+    from mdgen_tpu_torch.tasks import prep_batch
+
+    md = synthetic_trajectory(SEQ, NUM_FRAMES + DESIGN_BATCH, seed=0)
+    batch = _design_batch(torch, md, list(range(DESIGN_BATCH)))
+    seen_t, kernel_2 = [], ops.fused_t_sublayer
+
+    def frame_kernel(x, *args, **kw):
+        seen_t.append(x.shape[1])
+        return kernel_2(x, *args, **kw)
+
+    all_counts = {}
+    for mode, flags, frames in (("mpnn", dict(sim_condition=True, mpnn=True), 1),
+                                ("dynamic_mpnn", dict(inpainting=True, dynamic_mpnn=True), 2)):
+        cfg = task_config(design=True, num_frames=NUM_FRAMES, **flags)
+        state_dict = seeded_model(torch, cfg).state_dict()
+        outs, counts = {}, {}
+        for fused in (True, False):
+            c = cfg.replace(precision="32-true", fused_block=fused)
+            model = LatentMDGenModel(c, c.latent_dim)
+            model.load_state_dict(state_dict)
+            rt = MDGenRuntime(c, model.cuda())
+            prep = prep_batch(c, tokenize_atom14(batch))
+            x = torch.cat([prep.latents, prep.latents.new_zeros(*prep.latents.shape[:3], 20)], -1)
+            seen_t.clear()
+            ops.fused_t_sublayer = frame_kernel  # the model looks it up at each call
+            ops.reset_launch_counts()
+            try:
+                with torch.inference_mode():
+                    outs[fused] = rt.model_inf.forward_inference(
+                        x, x.new_ones(DESIGN_BATCH), **prep.model_kwargs)
+                torch.cuda.synchronize()
+            finally:
+                ops.fused_t_sublayer = kernel_2
+            counts[fused] = (ops.launch_counts(), sorted(set(seen_t)))
+            del model, rt
+        err = (outs[True] - outs[False]).abs().max().item()
+        scale = outs[False].abs().max().item()
+        (fc, ft), (dc, _) = counts[True], counts[False]
+        ok = (tuple(outs[True].shape) == (DESIGN_BATCH, 1, L, 20)
+              and bool(torch.isfinite(outs[True]).all()) and scale > 1e-2
+              and err <= TOL["f32"] * max(scale, 1.0) and ft == [frames]
+              and all(fc[k] == 5 for k in FUSED_KERNELS) and not any(dc.values()))
+        log(f"[mpnn] {mode} (5x384x16, latent {cfg.latent_dim}, {DESIGN_BATCH} windows of "
+            f"{NUM_FRAMES} frames, t = 1), one forward, 32-true: logits {tuple(outs[True].shape)}, "
+            f"fused vs dense max_abs_err {err:.3e} (|logits| max {scale:.3f}), tol "
+            f"{TOL['f32']:g} x max(|logits|,1); frame kernel at T = {ft}; launches fused {fc} "
+            f"({smi}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{mode}: fused and dense logits disagree: {err}, T {ft}, {fc}")
+        all_counts[mode] = fc
+    return all_counts
+
+
 def phase_quality_task(torch, smi, task):
     with tempfile.TemporaryDirectory(prefix=f"mdgen_quality_{task}_") as work:
         return _quality_task(torch, smi, task, work)
 
 
 def _quality_task(torch, smi, task, work):
-    """quality_run --task tps|upsampling at the small budget of the sim
-    quality phase; checks the pickle and that every metric is finite."""
+    """quality_run --task tps|upsampling|design at the small budget of the
+    sim quality phase; checks the pickle (design: each peptide's metadata)
+    and that every metric is finite (design: every recovery in [0, 1])."""
     import pickle
 
     import numpy as np
@@ -1227,6 +1471,8 @@ def _quality_task(torch, smi, task, work):
     res = quality_run.main(["--task", task, "--out", work, "--md_frames", str(QUALITY_MD_FRAMES),
                             "--epochs", str(QUALITY_EPOCHS), "--device", "cuda"])
     sec = time.perf_counter() - t0
+    if task == "design":
+        return _quality_design(res, sec, smi)
     pkl = os.path.join(res["samp_dir"], {"tps": "tps_out.pkl",
                                          "upsampling": "upsampling_out.pkl"}[task])
     with open(pkl, "rb") as fh:
@@ -1254,6 +1500,31 @@ def _quality_task(torch, smi, task, work):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"quality chain --task {task}: {sorted(out)}, summary {res['summary']}")
+
+
+def _quality_design(res, sec, smi):
+    from mdgen_tpu_torch import quality_run
+
+    s = res["summary"]
+    metas = {}
+    for name in quality_run.PEPTIDES:
+        with open(os.path.join(res["samp_dir"], f"{name}_metadata.json")) as fh:
+            metas[name] = json.load(fh)
+    recs = [s[k] for k in ("designed", "cond", "consensus", "mode_pair")] + [
+        v for r in s["per_peptide"].values() for v in r.values()]
+    solves = [x for r in res["samples"] for x in r["solves"]]
+    evals = [x["evals"] for x in solves]
+    ok = (sorted(s["per_peptide"]) == sorted(quality_run.PEPTIDES)
+          and all(len(m) == 32 for m in metas.values()) and all(0 <= v <= 1 for v in recs))
+    log(f"[quality-design] quality_run --task design on the card ({QUALITY_EPOCHS} steps of the "
+        f"128 x 3 model, {QUALITY_MD_FRAMES} MD frames, 2 x 16 designs a peptide): {sec:.1f} s; "
+        f"{res['ms_per_step']:.2f} ms per train step (median); {sum(evals) / len(evals):.1f} drift "
+        f"evaluations per solve (min {min(evals)}, max {max(evals)}, {len(solves)} solves, "
+        f"{sum(not x['reached_t1'] for x in solves)} short of t1); {len(recs)} recoveries in "
+        f"[0, 1]; printed {json.dumps({k: v for k, v in s.items() if k != 'per_peptide'})} "
+        f"({smi}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quality chain --task design: {s}")
 
 
 def _short(name):
@@ -1555,7 +1826,9 @@ def main():
     phase_quality(torch, smi)
     tps_counts, _ = phase_tps(torch, smi)
     ups_counts, _, upsampling = phase_upsampling(torch, smi)
-    for task in ("tps", "upsampling"):
+    design_counts, _ = phase_design(torch, smi)
+    mpnn_counts = phase_mpnn(torch, smi)
+    for task in ("tps", "upsampling", "design"):
         phase_quality_task(torch, smi, task)
     parity.update(phase_flash_parity(torch))
     phase_grad_parity(torch, state_dict)
@@ -1568,6 +1841,8 @@ def main():
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (train_counts if k in FLASH_KERNELS else counts)[k],
          "tps_launches": tps_counts[k], "upsampling_launches": ups_counts[k],
+         "design_launches": design_counts[k],
+         "mpnn_launches": mpnn_counts["mpnn"][k] + mpnn_counts["dynamic_mpnn"][k],
          **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
          **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}
         for k, (src, rep) in KERNELS.items()

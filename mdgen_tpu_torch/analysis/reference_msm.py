@@ -57,6 +57,10 @@ def build_reference_msm(
     }
 
 
+class JaxCacheError(ValueError):
+    """An MSM cache written by the JAX package, which the port does not load."""
+
+
 class _PortUnpickler(pickle.Unpickler):
     """Refuses a class of the JAX package: a cache written by
     ``mdgen_tpu``'s CLIs names ``mdgen_tpu.analysis.msm``, and loading it
@@ -68,7 +72,7 @@ class _PortUnpickler(pickle.Unpickler):
 
     def find_class(self, module, name):
         if module == "mdgen_tpu" or module.startswith("mdgen_tpu."):
-            raise ValueError(
+            raise JaxCacheError(
                 f"{self.path} was written by the JAX package (it pickles {module}.{name}); "
                 "the port does not load it: delete it, or use another --out_dir, to rebuild "
                 "the MSM with mdgen_tpu_torch")
@@ -77,7 +81,8 @@ class _PortUnpickler(pickle.Unpickler):
 
 def load_msm_cache(path: str) -> dict:
     """The metadata pickle that :func:`load_or_build_msm` wrote; raises
-    ValueError for one written by the JAX package."""
+    :class:`JaxCacheError` (a ValueError) for one written by the JAX
+    package."""
     with open(path, "rb") as fh:
         return _PortUnpickler(fh, path).load()
 

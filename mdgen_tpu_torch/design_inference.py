@@ -1,0 +1,176 @@
+"""Inpainting and sequence design along high-flux transitions of the
+reference MD.
+
+Port of the repository's ``design_inference.py`` on PyTorch:
+
+  python -m mdgen_tpu_torch.design_inference --sim_ckpt CKPT --data_dir DATA \\
+      --split splits/4AA_test.csv --num_batches 10 --batch_size 32 --out_dir OUT --fused_block
+
+For each peptide the reference MD (``{data_dir}/{name}{suffix}.npy``) gets an
+MSM (``analysis.reference_msm``), cached in ``OUT/{name}_metadata.pkl``; a
+cache written by the JAX CLI is refused, never loaded. The windows start in
+the start state of the highest-flux transition and are in its end state
+``--num_frames`` frames later; with ``--random_start_idx`` they start
+anywhere (and an MSM that cannot be built only leaves the states at -1).
+The checkpoint's ``frame_interval`` strides the MD and its labels. Start
+indices are drawn with ``np.random.default_rng(--seed)`` in the JAX CLI's
+order, so with the same MSM the metadata names the same windows. The
+checkpoint's ``sampling_method`` integrates each batch; the designed
+positions' sequence comes from the Dirichlet flow (the mpnn modes: one
+forward at t = 1). Each sample goes to ``OUT/{name}_{idx}.pdb`` with its
+designed sequence, and ``OUT/{name}_metadata.json`` lists them with the JAX
+CLI's fields. The split CSV is read with ``csv``. The run needs a CUDA
+device unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--sim_ckpt", type=str, required=True,
+                   help="port checkpoint directory (config.json + model.pt) of a --design run")
+    p.add_argument("--data_dir", type=str, required=True,
+                   help="directory of atom14 .npy trajectories")
+    p.add_argument("--suffix", type=str, default="")
+    p.add_argument("--pdb_id", nargs="*", default=[])
+    p.add_argument("--num_frames", type=int, default=100)
+    p.add_argument("--num_batches", type=int, default=10)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--random_start_idx", action="store_true")
+    p.add_argument("--out_dir", type=str, default=".")
+    p.add_argument("--split", type=str, default="splits/4AA_test.csv")
+    p.add_argument("--chunk_idx", type=int, default=0)
+    p.add_argument("--n_chunks", type=int, default=1)
+    p.add_argument("--seed", type=int, default=137)
+    p.add_argument("--tica_lag", type=int, default=1000)
+    p.add_argument("--msm_lag", type=int, default=1000)
+    p.add_argument("--fused_block", action="store_true",
+                   help="run each trunk layer as three fused CUDA sublayer kernels")
+    p.add_argument("--dirichlet_flow_temp", type=float, default=None,
+                   help="override the checkpoint's Dirichlet-flow sampling temperature")
+    p.add_argument("--dp_size", type=int, default=0, help="not ported: raises if set")
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Returns one record per sampled batch: {name, batch, paths (the PDBs),
+    start_idx, aa_out (the designed sequences), seconds, solves (the
+    solver's counts)}."""
+    args = parse_args(argv)
+    if args.dp_size:
+        raise NotImplementedError("--dp_size is not ported (ROADMAP queue 1, item 13)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    from .analysis.reference_msm import JaxCacheError, highest_flux_states, load_or_build_msm
+    from .data import read_split
+    from .geometry import constants as rc
+    from .protein import atom14_to_pdb
+    from .runtime import MDGenRuntime, checkpoint
+    from .sim_inference import solve_line
+
+    cfg = checkpoint.load_config(args.sim_ckpt)
+    if args.fused_block:
+        cfg = cfg.replace(fused_block=True)
+    if args.dirichlet_flow_temp is not None:
+        cfg = cfg.replace(dirichlet_flow_temp=args.dirichlet_flow_temp)
+    if not cfg.design:
+        raise ValueError(f"{args.sim_ckpt} was not trained with --design")
+    model, step = checkpoint.load_model(args.sim_ckpt, cfg, device)
+    print(f"restored {args.sim_ckpt} at step {step}")
+    rt = MDGenRuntime(cfg, model)
+    rng = np.random.default_rng(args.seed)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    split = read_split(args.split)
+    names = np.array_split(np.array(list(split)), args.n_chunks)[args.chunk_idx]
+    records = []
+    for name in names:
+        name = str(name)
+        if args.pdb_id and name not in args.pdb_id:
+            continue
+        seq = split[name]
+        aatype = rc.str_sequence_to_aatype(seq)
+        L = len(aatype)
+        arr = np.lib.format.open_memmap(
+            os.path.join(args.data_dir, f"{name}{args.suffix}.npy"), "r")
+        try:
+            meta = load_or_build_msm(f"{args.out_dir}/{name}_metadata.pkl", arr, aatype,
+                                     tica_lag=args.tica_lag, msm_lag=args.msm_lag,
+                                     seed=args.seed)
+            start_state, end_state = highest_flux_states(meta["cmsm"])
+            ref_discrete = meta["ref_discrete"]
+        except JaxCacheError:
+            raise
+        except Exception as e:
+            if not args.random_start_idx:
+                raise
+            # with --random_start_idx the MSM only labels the metadata
+            print(f"MSM unavailable for {name} ({e}); using random windows")
+            start_state = end_state = -1
+            ref_discrete = np.zeros(len(arr), dtype=int)
+        if cfg.frame_interval:
+            arr = arr[:: cfg.frame_interval]
+            ref_discrete = ref_discrete[:: cfg.frame_interval]
+
+        T, B = args.num_frames, args.batch_size
+        # windows in the start state whose frame T later is in the end state
+        trans_idx = np.where((ref_discrete == start_state)[:-T]
+                             * (ref_discrete == end_state)[T:])[0]
+        if len(trans_idx) == 0 and not args.random_start_idx:
+            print(f"no transition window for {name}, skipping")
+            continue
+
+        seqres = torch.from_numpy(np.broadcast_to(aatype, (B, L)).copy()).long().to(device)
+        mask = torch.ones((B, L), dtype=torch.float32, device=device)
+        metadata = []
+        for i in range(args.num_batches):
+            if args.random_start_idx:
+                si = rng.integers(0, len(arr) - T, B)
+            else:
+                si = rng.choice(trans_idx, B)
+            atom14 = np.stack([np.asarray(arr[s: s + T], np.float32) for s in si])
+            batch = {"atom14": torch.from_numpy(atom14).to(device), "seqres": seqres,
+                     "mask": mask}
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve = {}
+            atom14s, aa_out = rt.inference(batch, generator, stats=solve)
+            atom14s, aa_out = atom14s.cpu().numpy(), aa_out.cpu().numpy()  # synchronizes
+            dur = time.perf_counter() - t0
+            print(f"{name} batch {i}: {B} designs x {atom14s.shape[1]} frames in {dur:.2f}s "
+                  f"({B / dur:.2f} samples/s); "
+                  + (solve_line(cfg.sampling_method, [solve]) if solve else
+                     "one forward at t = 1 (mpnn)"))
+            paths, designed = [], []
+            for j in range(B):
+                path = os.path.join(args.out_dir, f"{name}_{i * B + j}.pdb")
+                atom14_to_pdb(atom14s[j], aa_out[j, 0], path)
+                paths.append(path)
+                designed.append(rc.aatype_to_str_sequence(aa_out[j, 0]))
+                metadata.append({"name": name, "start_idx": int(si[j]),
+                                 "end_idx": int(si[j] + T), "start_state": int(start_state),
+                                 "end_state": int(end_state), "aa_out": designed[-1],
+                                 "seqres": seq, "path": path})
+            records.append({"name": name, "batch": i, "paths": paths, "start_idx": si,
+                            "aa_out": designed, "seconds": dur,
+                            "solves": [solve] if solve else []})
+        with open(f"{args.out_dir}/{name}_metadata.json", "w") as fh:
+            json.dump(metadata, fh)
+    return records
+
+
+if __name__ == "__main__":
+    main()

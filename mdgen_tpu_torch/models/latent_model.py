@@ -4,9 +4,13 @@ A DiT over (B, T, L, C) latents with factorized attention (residue axis L,
 frame axis T), per-layer adaLN-zero with 9 chunks, and the prepend-IPA tower
 over the key frame. Ported configurations: forward simulation
 (``sim_condition``, optionally ``prepend_ipa``, ``abs_pos_emb``,
-``abs_time_emb``; upsampling is ``sim_condition`` with ``cond_interval``)
-and transition-path sampling (``tps_condition``: the IPA tower runs twice,
-once from each endpoint, over the relative transforms between them). Module
+``abs_time_emb``; upsampling is ``sim_condition`` with ``cond_interval``),
+transition-path sampling and inpainting (``tps_condition`` /
+``inpainting``: the IPA tower runs twice, once from each endpoint, over the
+relative transforms between them), and sequence design (``design``: 20
+simplex channels, a head of logits pooled over T and, at inference, the
+Dirichlet conditional flow; the ``mpnn`` and ``dynamic_mpnn`` modes predict
+the sequence from one or two key frames). Module
 and parameter names follow the JAX tree, so a flax parameter tree converts
 by renaming and transposing
 (``interop.jax_params_to_state_dict``).
@@ -26,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import torch_dtype
+from ..transport.dirichlet import DirichletConditionalFlow, simplex_proj
+from ..transport.transport import t_to_alpha
 from .attention import RoPEAttention
 from .ipa import InvariantPointAttention
 from .layers import (
@@ -42,10 +48,6 @@ from .layers import (
 
 # unported options -> the ROADMAP item that ports them
 _UNPORTED = {
-    "inpainting": "design and inpainting",
-    "design": "design and inpainting",
-    "dynamic_mpnn": "design and inpainting (mpnn modes)",
-    "mpnn": "design and inpainting (mpnn modes)",
     "hyena": "--hyena",
     "interleave_ipa": "remaining model options (interleave_ipa)",
     "no_frames": "remaining model options (no_frames)",
@@ -170,21 +172,30 @@ class LatentMDGenModel(nn.Module):
     def __init__(self, cfg, latent_dim: int):
         super().__init__()
         check_ported(cfg)
-        if not (cfg.sim_condition or cfg.tps_condition):
+        if not (cfg.sim_condition or cfg.tps_condition or cfg.inpainting or cfg.mpnn
+                or cfg.dynamic_mpnn):
             raise NotImplementedError(
-                "only the forward-simulation, upsampling and TPS tasks are ported")
+                "the model needs a task mode: sim_condition, tps_condition, inpainting, mpnn "
+                "or dynamic_mpnn")
+        if cfg.design and not cfg.prepend_ipa:
+            raise ValueError("design needs prepend_ipa (the simplex enters through the IPA tower)")
         self.cfg = cfg
         C, nl = cfg.embed_dim, cfg.num_layers
         self.latent_dim = latent_dim
         self.dt = torch_dtype(cfg)
+        self.two_towers = cfg.tps_condition or cfg.inpainting or cfg.dynamic_mpnn
+        self.mpnn_mode = cfg.mpnn or cfg.dynamic_mpnn
 
         self.latent_to_emb = nn.Linear(latent_dim, C)
-        if cfg.tps_condition:
+        if self.two_towers:
             # the endpoint tower's inputs: one relative transform (tensor-7) each way
             self.latent_to_emb_f = nn.Linear(7, C)
             self.latent_to_emb_r = nn.Linear(7, C)
-        self.cond_to_emb = nn.Linear(latent_dim, C)
+        # the conditioning latents carry no simplex channels
+        self.cond_to_emb = nn.Linear(latent_dim - 20 if cfg.design else latent_dim, C)
         self.mask_to_emb = nn.Embedding(2, C)
+        if cfg.design:
+            self.x_d_to_emb = nn.Linear(20, C)
         if cfg.prepend_ipa:
             if not cfg.no_aa_emb:
                 self.aatype_to_emb = nn.Embedding(21, C)
@@ -194,7 +205,16 @@ class LatentMDGenModel(nn.Module):
         self.layers = nn.ModuleList(LatentMDGenLayer(cfg) for _ in range(nl))
         # trunk-wide fused adaLN producer (9 chunks x layers)
         self.trunk_adaln = nn.Linear(C, 9 * C * nl)
-        self.emb_to_latent = FinalLayer(C, latent_dim)
+        if not self.mpnn_mode:
+            self.emb_to_latent = FinalLayer(C, latent_dim)
+        if cfg.design:
+            # the design head: an MLP per frame, pooled over T, then logits
+            self.fc1 = nn.Linear(C, C)
+            self.fc2 = nn.Linear(C, C)
+            self.fc3 = nn.Linear(C, C)
+            self.emb_to_logits = nn.Linear(C, 20)
+            self.condflow = DirichletConditionalFlow(K=20, alpha_spacing=0.001,
+                                                     alpha_max=cfg.alpha_max)
         self.t_embedder = TimestepEmbedder(C)
         if cfg.abs_pos_emb:
             self.register_buffer(
@@ -212,10 +232,13 @@ class LatentMDGenModel(nn.Module):
         embeddings, zero adaLN producers and output head, N(0, 0.02)
         timestep MLP."""
         xavier_(self.latent_to_emb, generator)
-        if self.cfg.tps_condition:
+        if self.two_towers:
             xavier_(self.latent_to_emb_f, generator)
             xavier_(self.latent_to_emb_r, generator)
         xavier_(self.cond_to_emb, generator)
+        if self.cfg.design:
+            for lin in (self.x_d_to_emb, self.fc1, self.fc2, self.fc3, self.emb_to_logits):
+                xavier_(lin, generator)
         embeddings = [self.mask_to_emb]
         if self.cfg.prepend_ipa:
             if not self.cfg.no_aa_emb:
@@ -228,32 +251,40 @@ class LatentMDGenModel(nn.Module):
         for layer in self.layers:
             layer.reset_parameters(generator)
         zeros_(self.trunk_adaln)
-        self.emb_to_latent.reset_parameters(generator)
+        if not self.mpnn_mode:
+            self.emb_to_latent.reset_parameters(generator)
         self.t_embedder.reset_parameters(generator)
         return self
 
-    def run_ipa(self, t, mask, start_frames, end_frames, aatype):
-        """Key-frame tower: t [B, C], mask [B, L] -> [B, L, C]. sim: one
-        pass over ``start_frames``. tps: the same layers and modulation over
-        both endpoints, the reverse stream with the start frames and the
-        forward stream with the end frames, as the JAX model pairs them."""
+    def run_ipa(self, t, mask, start_frames, end_frames, aatype, x_d=None):
+        """Key-frame tower: t [B, C], mask [B, L] -> [B, L, C]. sim and
+        mpnn: one pass over ``start_frames``. tps, inpainting and
+        dynamic_mpnn: the same layers and modulation over both endpoints,
+        the reverse stream with the start frames and the forward stream with
+        the end frames, as the JAX model pairs them. Under design each
+        stream starts with ``x_d_to_emb(x_d)`` added."""
         cfg = self.cfg
         B, L = mask.shape
-        aa = None
+        aa = xd = None
         if aatype is not None and not cfg.no_aa_emb:
             aa = self.aatype_to_emb(aatype.long())
+        if cfg.design:
+            xd = dense(x_d, self.x_d_to_emb)
+
+        def embed(x):  # the JAX model's order of additions
+            x = x if aa is None else x + aa
+            return x if xd is None else x + xd
+
         mods = dense(F.silu(t), self.ipa_adaln, self.dt).chunk(cfg.num_layers, dim=-1)
-        if not cfg.tps_condition:
-            x = torch.zeros((B, L, cfg.embed_dim), device=t.device)
-            if aa is not None:
-                x = x + aa
+        if cfg.sim_condition or cfg.mpnn:
+            x = embed(torch.zeros((B, L, cfg.embed_dim), device=t.device))
             for layer, mod in zip(self.ipa_layers, mods):
                 x = layer(x, mod, mask, start_frames)
             return x
-        x_f = dense(start_frames.invert().compose(end_frames).to_tensor_7(), self.latent_to_emb_f)
-        x_r = dense(end_frames.invert().compose(start_frames).to_tensor_7(), self.latent_to_emb_r)
-        if aa is not None:
-            x_f, x_r = x_f + aa, x_r + aa
+        x_f = embed(dense(start_frames.invert().compose(end_frames).to_tensor_7(),
+                          self.latent_to_emb_f))
+        x_r = embed(dense(end_frames.invert().compose(start_frames).to_tensor_7(),
+                          self.latent_to_emb_r))
         for layer, mod in zip(self.ipa_layers, mods):
             x_r = layer(x_r, mod, mask, start_frames)
             x_f = layer(x_f, mod, mask, end_frames)
@@ -261,8 +292,17 @@ class LatentMDGenModel(nn.Module):
 
     def forward(self, x, t, mask, start_frames=None, end_frames=None, x_cond=None,
                 x_cond_mask=None, aatype=None):
-        """x [B, T, L, latent_dim] f32, t [B] -> velocity [B, T, L, latent_dim]."""
+        """x [B, T, L, latent_dim] f32, t [B] -> velocity [B, T, L, latent_dim]
+        (under design the last 20 channels carry the logits added on); the
+        mpnn modes run on the first frame (``mpnn``) or the first and last
+        (``dynamic_mpnn``) and return the logits [B, 1, L, 20]."""
         cfg = self.cfg
+        if self.mpnn_mode:
+            sel = [0, x.shape[1] - 1] if cfg.dynamic_mpnn else [0]
+            x, x_cond = x[:, sel], x_cond[:, sel]
+            x_cond_mask, mask = x_cond_mask[:, sel], mask[:, sel]
+        x_d = x[..., -20:].mean(dim=1) if cfg.design else None
+
         x = dense(x, self.latent_to_emb)
         if cfg.abs_pos_emb:
             x = x + self.pos_embed
@@ -274,11 +314,40 @@ class LatentMDGenModel(nn.Module):
         t_emb = self.t_embedder(t * cfg.time_multiplier)[:, None]  # [B, 1, C]
         if cfg.prepend_ipa:
             x = x + self.run_ipa(t_emb[:, 0], mask[:, 0], start_frames, end_frames,
-                                 aatype)[:, None]
+                                 aatype, x_d)[:, None]
 
         trunk_mods = dense(F.silu(t_emb), self.trunk_adaln, self.dt)
         for layer, mod in zip(self.layers, trunk_mods.chunk(cfg.num_layers, dim=-1)):
             x = layer(x, mod, mask, start_frames)
-        return self.emb_to_latent(x, t_emb)
+        latent = None if self.mpnn_mode else self.emb_to_latent(x, t_emb)
+        if not cfg.design:
+            return latent
+        x_l = dense(gelu(dense(x, self.fc1)), self.fc2).mean(dim=1)  # pool over T
+        logits = dense(gelu(dense(x_l, self.fc3)), self.emb_to_logits)  # [B, L, 20]
+        if self.mpnn_mode:
+            return logits[:, None]
+        return torch.cat([latent[..., :-20], latent[..., -20:] + logits[:, None]], dim=-1)
 
-    forward_inference = forward
+    def forward_inference(self, x, t, mask, start_frames=None, end_frames=None, x_cond=None,
+                          x_cond_mask=None, aatype=None):
+        """The sampler's drift. Under design (not the mpnn modes) the 20
+        logit channels become the Dirichlet conditional-flow field, in f32
+        on the model's device: softmax at ``dirichlet_flow_temp``, projected
+        onto the simplex; alpha from ``t[0]`` (every row of a batch shares
+        its time), at most ``alpha_max - spacing``; flow = (p c - x sum(p c))
+        d(alpha)/dt with c the conditional-flow factor."""
+        cfg = self.cfg
+        latent = self(x, t, mask, start_frames, end_frames, x_cond, x_cond_mask, aatype)
+        if not cfg.design or self.mpnn_mode:
+            return latent
+        x_discrete = x[..., -20:].float()
+        logits = latent[..., -20:].float()
+        flow_probs = simplex_proj(torch.softmax(logits / cfg.dirichlet_flow_temp, dim=-1))
+        alpha, dalpha_dt = t_to_alpha(t[0].float(), cfg.alpha_max)
+        alpha = alpha.clamp_max(cfg.alpha_max - self.condflow.alpha_spacing)
+        c_factor = self.condflow.c_factor(x_discrete, alpha)
+        if cfg.allow_nan_cfactor:
+            c_factor = torch.nan_to_num(c_factor)
+        pc = flow_probs * c_factor
+        flow = (pc - x_discrete * pc.sum(dim=-1, keepdim=True)) * dalpha_dt
+        return torch.cat([latent[..., :-20], flow], dim=-1)

@@ -20,6 +20,12 @@ stage is called through its ``main(argv)``, in this process, on
     ``upsampling_inference --suffix _i10 --xtc``, scores the torsion
     autocorrelations with ``analyze_upsampling --cond_interval 10 --nlag
     100`` and prints ``summarize_upsampling``'s JSON (``live_mean_acf_err``).
+  * ``--task design``: the reference design recipe (``--inpainting --design
+    --no_aa_emb --no_torsion``); 2 batches of 16 designs per peptide with
+    ``design_inference --tica_lag 100 --msm_lag 10 --random_start_idx``,
+    scored by ``analyze_peptide_design``; prints the designed, conditioning,
+    consensus and mode-pair recoveries (each peptide's and their means) and
+    the last validation's argmax recoveries.
 
     python -m mdgen_tpu_torch.quality_run --epochs 15000 --chi_loss_weight 3 \\
         --train_extra=--ema --seed 0 --out workdir/quality_s0
@@ -27,7 +33,7 @@ stage is called through its ``main(argv)``, in this process, on
         --train_extra=--ema --seed 0 --out workdir/quality_ups_s0
 
 Prints a ``[quality]`` line (ms per train step, drift evaluations per
-solve), then the JSON summary. ``--task design`` is not ported.
+solve), then the JSON summary.
 """
 from __future__ import annotations
 
@@ -109,6 +115,9 @@ TASK_FLAGS = {
     # the reference upsampling recipe scaled to the synthetic data: every
     # 10th frame given instead of every 100th
     "upsampling": ["--sim_condition", "--cond_interval", "10"],
+    # the reference design recipe: inpainting + design, no aatype embedding,
+    # no torsions
+    "design": ["--inpainting", "--design", "--no_aa_emb", "--no_torsion"],
 }
 
 
@@ -130,9 +139,6 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
     task with the trajectories if ``keep_trajectories``), "analysis" ({name:
     metrics}), "samp_dir", "data_dir", "run_dir"}."""
     args = parse_args(argv)
-    if args.task not in TASK_FLAGS:
-        raise NotImplementedError(f"--task {args.task} is not ported (ROADMAP queue 1, "
-                                  "item 10)")
     from . import train
     from .data import write_synthetic_dataset
     from .runtime.checkpoint import latest_step
@@ -189,8 +195,11 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
 
     # 3. sample and 4. analyse
     sample_and_score = {"sim": functools.partial(_sim, keep=keep_trajectories), "tps": _tps,
-                        "upsampling": _upsampling}[args.task]
+                        "upsampling": _upsampling, "design": _design}[args.task]
     samples, analysis, summary = sample_and_score(args, run_dir, data_dir, samp_dir, split)
+    if args.task == "design" and rec and rec["val"]:
+        summary["val_recovery"] = {k[4:]: v for k, v in rec["val"][-1].items()
+                                   if k.endswith("aa_recovery")}
 
     solves = [s for r in samples for s in r["solves"]]
     seconds = sum(r["seconds"] for r in samples)
@@ -207,15 +216,16 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
 
 
 def _sampled(task, samples) -> str:
-    if task == "tps":
-        return f"{sum(len(r['paths']) for r in samples)} paths"
+    if task in ("tps", "design"):
+        what = "paths" if task == "tps" else "designs"
+        return f"{sum(len(r['paths']) for r in samples)} {what}"
     return f"{sum(r['frames'] for r in samples)} frames"
 
 
-def _common(args, data_dir, samp_dir, split):
+def _common(args, data_dir, samp_dir, split, xtc=True):
     """The flags every inference CLI takes here."""
-    return ["--data_dir", data_dir, "--split", split, "--out_dir", samp_dir, "--xtc",
-            "--seed", str(args.seed), "--device", args.device]
+    return ["--data_dir", data_dir, "--split", split, "--out_dir", samp_dir,
+            *(["--xtc"] if xtc else []), "--seed", str(args.seed), "--device", args.device]
 
 
 def _sim(args, run_dir, data_dir, samp_dir, split, keep=False):
@@ -258,6 +268,23 @@ def _upsampling(args, run_dir, data_dir, samp_dir, split):
     print("+ analyze_upsampling", " ".join(argv), flush=True)
     analysis = analyze_upsampling.main(argv)
     summary = summarize_upsampling.summarize(os.path.join(samp_dir, "upsampling_out.pkl"))
+    return samples, analysis, summary
+
+
+def _design(args, run_dir, data_dir, samp_dir, split):
+    from . import analyze_peptide_design, design_inference
+
+    argv = ["--sim_ckpt", run_dir, "--num_frames", str(args.num_frames), "--num_batches", "2",
+            "--batch_size", "16", "--tica_lag", "100", "--msm_lag", "10", "--random_start_idx",
+            *_common(args, data_dir, samp_dir, split, xtc=False)]
+    print("+ design_inference", " ".join(argv), flush=True)
+    samples = design_inference.main(argv)
+    argv = ["--pdbdir", samp_dir, *shlex.split(args.analyze_extra)]
+    print("+ analyze_peptide_design", " ".join(argv), flush=True)
+    analysis = analyze_peptide_design.main(argv)
+    summary = {k: round(v, 4) for k, v in analysis.items() if k != "per_peptide"}
+    summary["per_peptide"] = {name: {k: round(v, 4) for k, v in r.items()}
+                              for name, r in analysis["per_peptide"].items()}
     return samples, analysis, summary
 
 

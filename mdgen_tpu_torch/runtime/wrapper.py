@@ -1,6 +1,6 @@
 """Port of ``mdgen_tpu/runtime/wrapper.py``: inference for forward
-simulation, TPS and upsampling (:class:`MDGenRuntime`) and training
-(:class:`TrainRuntime`).
+simulation, TPS, upsampling, inpainting and sequence design
+(:class:`MDGenRuntime`) and training (:class:`TrainRuntime`).
 
 PyTorch runs eagerly: each rollout tokenizes its start frame on the device,
 integrates the probability-flow ODE over the denoiser with the configured
@@ -19,15 +19,24 @@ from typing import Optional
 
 import torch
 
-from ..geometry import atom14_to_atom37, atom14_to_frames, atom37_to_torsions
+from ..geometry import (
+    atom14_to_atom37,
+    atom14_to_frames,
+    atom37_to_torsions,
+    frames_torsions_to_atom14,
+)
 from ..models import LatentMDGenModel
 from ..tasks import decode_latents, prep_batch
 from ..transport import Sampler, Transport, TransportConfig
+from ..transport.dirichlet import sample_dirichlet
 from .optim import Optimizer, global_norm
 
 
 def transport_config(cfg) -> TransportConfig:
-    return TransportConfig(path_type=cfg.path_type, prediction=cfg.prediction)
+    return TransportConfig(path_type=cfg.path_type, prediction=cfg.prediction,
+                           design=cfg.design, dynamic_mpnn=cfg.dynamic_mpnn, mpnn=cfg.mpnn,
+                           alpha_max=cfg.alpha_max,
+                           discrete_loss_weight=cfg.discrete_loss_weight)
 
 
 def tokenize_atom14(batch: dict) -> dict:
@@ -95,16 +104,37 @@ class MDGenRuntime:
         aatype [B,T,L]). A raw batch (atom14) is tokenized on its device; a
         token dict (``tokenize_atom14``'s keys, e.g. upsampling windows)
         passes through. ``noise`` [B,T,L,latent_dim] replaces the draw from
-        ``generator``; ``stats`` receives the solver's counts."""
+        ``generator``; ``stats`` receives the solver's counts.
+
+        Design: the start is N(0, I) over the continuous channels and
+        Dirichlet(1) over [B, L, 20], broadcast over T (a given ``noise``
+        carries both), and ``aatype`` is the designed sequence. The mpnn
+        modes take one forward at t = 1 with zero simplex channels: aatype
+        [B, 1, L] is its argmax, the atoms are those of the true tokens."""
         cfg = self.cfg
         tok = tokenize_atom14(batch) if "atom14" in batch else batch
         prep = prep_batch(cfg, tok)
         B, T, L = prep.model_kwargs["mask"].shape
+        if cfg.dynamic_mpnn or cfg.mpnn:
+            x1 = prep.latents
+            xt = torch.cat([x1, x1.new_zeros((B, T, L, 20))], dim=-1)
+            logits = self.model_inf.forward_inference(xt, x1.new_ones((B,)), **prep.model_kwargs)
+            aatype = tok["seqres"][:, None].expand(B, T, L)
+            atom14 = frames_torsions_to_atom14(prep.rigids, tok["torsions"], aatype)
+            return atom14, torch.argmax(logits, dim=-1)
         if noise is None:
-            noise = torch.randn((B, T, L, cfg.latent_dim), generator=generator,
-                                device=self.device)
+            if cfg.design:
+                noise = torch.cat([
+                    torch.randn((B, T, L, cfg.latent_dim - 20), generator=generator,
+                                device=self.device),
+                    sample_dirichlet(torch.ones((B, L, 20), device=self.device),
+                                     generator)[:, None].expand(B, T, L, 20),
+                ], dim=-1)
+            else:
+                noise = torch.randn((B, T, L, cfg.latent_dim), generator=generator,
+                                    device=self.device)
         sample_fn = self.sampler.sample_ode(
-            self.model_inf, sampling_method=cfg.sampling_method,
+            self.model_inf.forward_inference, sampling_method=cfg.sampling_method,
             num_steps=cfg.inference_steps, stats=stats,
         )
         samples = sample_fn(noise.float(), **prep.model_kwargs)
@@ -201,22 +231,36 @@ class TrainRuntime:
         ema = copy.deepcopy(model).requires_grad_(False) if self.cfg.ema else None
         return TrainState(0, model, self.tx.init(list(model.parameters())), ema)
 
-    def loss_fn(self, model, batch: dict, generator=None, t=None, x0=None):
+    def loss_fn(self, model, batch: dict, generator=None, t=None, x0=None, x_d=None):
         """Mean flow-matching loss and its metrics. A raw batch (atom14) is
         tokenized on its device; a token dict (``tokenize_atom14``'s output)
-        passes through, as in the JAX runtime."""
+        passes through, as in the JAX runtime. Under ``design`` ``x_d``
+        [B, L, 20] replaces the simplex draw, and the metrics add the
+        argmax recovery of the designed (1:-1) and conditioning residues
+        and the two loss terms."""
+        cfg = self.cfg
         tok = tokenize_atom14(batch) if "atom14" in batch else batch
-        prep = prep_batch(self.cfg, tok)
+        prep = prep_batch(cfg, tok)
         out = self.transport.training_losses(
             model, prep.latents, prep.loss_mask, prep.model_kwargs,
             generator=generator, t=t, x0=x0,
+            aatype1=tok["seqres"] if cfg.design else None, x_d=x_d,
         )
         loss = out["loss"].mean()
-        return loss, {"loss": loss.detach(), "time": out["t"].mean()}
+        metrics = {"loss": loss.detach(), "time": out["t"].mean()}
+        if cfg.design:
+            aa_out = torch.argmax(out["logits"].detach(), dim=-1)
+            rec = (aa_out == tok["seqres"][:, None]).float()
+            metrics["category_pred_design_aa_recovery"] = rec[:, :, 1:-1].mean()
+            metrics["category_pred_cond_aa_recovery"] = torch.cat(
+                [rec[:, :, :1], rec[:, :, -1:]], dim=2).mean()
+            metrics["loss_continuous"] = out["loss_continuous"].detach().mean()
+            metrics["loss_discrete"] = out["loss_discrete"].detach().mean()
+        return loss, metrics
 
-    def _grads(self, model, batch, generator=None, t=None, x0=None):
+    def _grads(self, model, batch, generator=None, t=None, x0=None, x_d=None):
         params = list(model.parameters())
-        loss, metrics = self.loss_fn(model, batch, generator, t, x0)
+        loss, metrics = self.loss_fn(model, batch, generator, t, x0, x_d)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return params, grads, metrics

@@ -13,9 +13,13 @@ parameters without gradient. The run lives in ``WORKDIR/RUN_NAME``
 (``config.json``, ``step_N/model.pt``, ``log.out`` and metric CSVs). It
 needs a CUDA device unless ``--device cpu`` is given; ``--seed`` drives the
 initialization, the window draws, the shuffles and the loss's noise.
+Design runs log the argmax recoveries and both loss terms; the
+designability probe (``--inference_batches N``, every
+``--designability_freq`` validated epochs) samples the first N validation
+batches with the evaluation weights, logs ``design_aa_recovery`` and
+``cond_aa_recovery`` to the val CSV and writes ``RUN/epoch{E}_{name}.pdb``.
 One process, one device: the multi-host flags, ``--dp_size > 1`` and
-``--wandb`` are refused, as is the designability probe
-(``--inference_batches``).
+``--wandb`` are refused.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -77,11 +82,6 @@ def _refuse_unported(args, cfg) -> None:
         raise NotImplementedError("--dp_size > 1 is not ported (ROADMAP queue 1, item 15)")
     if args.wandb:
         raise NotImplementedError("--wandb is not ported: metrics go to log.out and CSVs")
-    if args.inference_batches:
-        raise NotImplementedError(
-            "--inference_batches (the designability probe) is not ported; sample with "
-            "python -m mdgen_tpu_torch.sim_inference --sim_ckpt RUN"
-        )
 
 
 def _floats(metrics: dict) -> dict:
@@ -90,7 +90,7 @@ def _floats(metrics: dict) -> dict:
 
 def main(argv=None) -> dict:
     """Returns {"model_dir", "step", "losses", "step_end": host clock after
-    each train step, synchronized}."""
+    each train step, synchronized, "val": the means of each validation}."""
     args = parse_args(argv)
     from .config import config_from_args
 
@@ -135,17 +135,25 @@ def main(argv=None) -> dict:
         start_epoch = step // len(train_loader)
         log.info(f"restored checkpoint at step {step} (resuming at epoch {start_epoch})")
 
+    val_means = []
+
     def run_validation(epoch):
         model = rt.eval_params(state)
-        for batch in val_loader:
-            batch.pop("name")
-            metrics = rt.val_step(model, batch_to_device(batch, device), generator)
+        for batch_idx, batch in enumerate(val_loader):
+            names = batch.pop("name")
+            batch = batch_to_device(batch, device)
+            metrics = rt.val_step(model, batch, generator)
             logger.log_dict(_floats(metrics), "val")
-        logger.flush("val", epoch=epoch, step=state.step, save=True)
+            if batch_idx < args.inference_batches and (
+                    (epoch + 1) % args.designability_freq == 0 or args.validate):
+                _designability_probe(cfg, model, batch, generator, logger,
+                                     os.path.join(model_dir, f"epoch{epoch}_{names[0]}.pdb"))
+        val_means.append(logger.flush("val", epoch=epoch, step=state.step, save=True))
 
     if args.validate:
         run_validation(0)
-        return {"model_dir": model_dir, "step": state.step, "losses": [], "step_end": []}
+        return {"model_dir": model_dir, "step": state.step, "losses": [], "step_end": [],
+                "val": val_means}
 
     stopper = GracefulStop(os.path.join(model_dir, "STOP"))
     if stopper.clear_sentinel(model_dir):
@@ -209,7 +217,29 @@ def main(argv=None) -> dict:
         stopper.close()
         if profiler is not None:
             profiler.stop()
-    return {"model_dir": model_dir, "step": state.step, "losses": losses, "step_end": step_end}
+    return {"model_dir": model_dir, "step": state.step, "losses": losses, "step_end": step_end,
+            "val": val_means}
+
+
+def _designability_probe(cfg, model, batch, generator, logger, pdb_path):
+    """Sample one validation batch with the evaluation weights: log the
+    designed (1:-1) and conditioning residues' recovery, the sequences, and
+    write the first sample's trajectory to ``pdb_path``."""
+    from .geometry.constants import aatype_to_str_sequence
+    from .protein import atom14_to_pdb
+    from .runtime import MDGenRuntime
+
+    atom14, aa_out = MDGenRuntime(cfg.replace(fused_block=False), model).inference(
+        batch, generator)
+    seq = batch["seqres"].cpu().numpy()
+    aa_out = aa_out.cpu().numpy()
+    rec = aa_out == seq[:, None, :]
+    logger.log("design_aa_recovery", float(rec[:, :, 1:-1].mean()), "val")
+    logger.log("cond_aa_recovery",
+               float(np.concatenate([rec[:, :, :1], rec[:, :, -1:]], 2).mean()), "val")
+    logger.logger.info("seq_pred=" + ",".join(aatype_to_str_sequence(a) for a in aa_out[:, 0])
+                       + " seq_true=" + ",".join(aatype_to_str_sequence(a) for a in seq))
+    atom14_to_pdb(atom14[0].cpu().numpy(), seq[0], pdb_path)
 
 
 def _start_profiler(device):

@@ -1,15 +1,23 @@
 """Flow-matching transport (port of ``mdgen_tpu/transport/transport.py``):
-the training loss, the sampling interval, the probability-flow drift and
-ODE sampling."""
+the training loss (with the Dirichlet flow of the 20 sequence-design
+channels, ``dirichlet.py``), the sampling interval, the probability-flow
+drift and ODE sampling."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import integrators
+from .dirichlet import sample_dirichlet
 from .paths import expand_t, make_plan
+
+
+def t_to_alpha(t, alpha_max: float):
+    """Flow time -> Dirichlet concentration, and d(alpha)/dt."""
+    return (1 - t) + t * alpha_max, (alpha_max - 1)
 
 
 def mean_flat(x, mask):
@@ -25,6 +33,13 @@ class TransportConfig:
     loss_weight: Optional[str] = None  # None | velocity | likelihood
     train_eps: Optional[float] = None
     sample_eps: Optional[float] = None
+    # design: the 20 simplex channels (Dirichlet flow; the mpnn modes predict
+    # the sequence at t = 1 from zero simplex channels)
+    design: bool = False
+    dynamic_mpnn: bool = False
+    mpnn: bool = False
+    alpha_max: float = 8.0
+    discrete_loss_weight: float = 0.5
 
     def resolved_eps(self):
         """Default eps per path/prediction combination."""
@@ -66,11 +81,18 @@ class Transport:
                         model_kwargs: Optional[dict] = None,
                         generator: Optional[torch.Generator] = None,
                         t: Optional[torch.Tensor] = None,
-                        x0: Optional[torch.Tensor] = None) -> dict:
+                        x0: Optional[torch.Tensor] = None,
+                        aatype1: Optional[torch.Tensor] = None,
+                        x_d: Optional[torch.Tensor] = None) -> dict:
         """Flow-matching loss. ``model_fn(xt, t, **model_kwargs)`` is the
         denoiser; ``x1`` [B, T, L, D] the data, ``mask`` the per-element
-        loss mask. t ~ U[t0, t1) and x0 ~ N(0, I) are drawn from
-        ``generator`` unless given. Returns {"t", "pred", "loss" [B]}."""
+        loss mask. t ~ U[t0, t1), x0 ~ N(0, I) and, under ``design``, the
+        simplex point x_d [B, L, 20] ~ Dirichlet(1 + onehot(aatype1) (alpha_t
+        - 1)) are drawn from ``generator`` (in that order) unless given.
+        Returns {"t", "pred", "loss" [B]}; under ``design`` also
+        "loss_continuous", "loss_discrete" and "logits"."""
+        cfg = self.cfg
+        mpnn = cfg.dynamic_mpnn or cfg.mpnn
         B = x1.shape[0]
         if t is None:
             t0, t1 = self.check_interval()
@@ -78,11 +100,43 @@ class Transport:
         if x0 is None:
             x0 = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
         xt, ut = self.plan.interpolate(t, x0, x1)
+        if cfg.design:
+            if cfg.prediction != "velocity":
+                raise NotImplementedError("design trains the velocity prediction only")
+            B, T, L = x1.shape[:3]
+            if mpnn:
+                t = torch.ones_like(t)
+                x_d = torch.zeros((B, L, 20), dtype=x1.dtype, device=x1.device)
+            elif x_d is None:
+                alphas, _ = t_to_alpha(t, cfg.alpha_max)
+                one_hot = F.one_hot(aatype1.long(), 20).to(x1.dtype)
+                x_d = sample_dirichlet(1 + one_hot * (alphas[:, None, None] - 1), generator)
+            xt = torch.cat([xt, x_d[:, None].expand(B, T, L, 20).to(xt.dtype)], dim=-1)
         pred = model_fn(xt, t, **(model_kwargs or {}))
+        logits = None
+        if cfg.design and not mpnn:
+            pred, logits = pred[..., :-20], pred[..., -20:]
         terms = {"t": t, "pred": pred}
+        if not mpnn:
+            terms["loss"] = self._continuous_loss(pred, xt, t, x0, ut, mask)
+        if cfg.design:
+            if mpnn:
+                logits = pred  # [B, 1, L, 20]
+                terms["loss_continuous"] = torch.full((B,), float("nan"), device=x1.device)
+                loss_d = _cross_entropy(logits[:, 0], aatype1)
+                terms["loss"] = loss_d
+            else:
+                terms["loss_continuous"] = terms["loss"]
+                loss_d = _cross_entropy(logits, aatype1[:, None])
+                w = cfg.discrete_loss_weight
+                terms["loss"] = loss_d * w + (1 - w) * terms["loss"]
+            terms["loss_discrete"] = loss_d
+            terms["logits"] = logits
+        return terms
+
+    def _continuous_loss(self, pred, xt, t, x0, ut, mask):
         if self.cfg.prediction == "velocity":
-            terms["loss"] = mean_flat((pred - ut) ** 2, mask)
-            return terms
+            return mean_flat((pred - ut) ** 2, mask)
         _, drift_var = self.plan.drift(xt, t)
         sigma_t, _ = self.plan.sigma(expand_t(t, xt))
         if self.cfg.loss_weight == "velocity":
@@ -92,10 +146,8 @@ class Transport:
         else:
             weight = 1.0
         if self.cfg.prediction == "noise":
-            terms["loss"] = mean_flat(weight * (pred - x0) ** 2, mask)
-        else:
-            terms["loss"] = mean_flat(weight * (pred * sigma_t + x0) ** 2, mask)
-        return terms
+            return mean_flat(weight * (pred - x0) ** 2, mask)
+        return mean_flat(weight * (pred * sigma_t + x0) ** 2, mask)
 
     def drift_fn(self, model_fn: Callable) -> Callable:
         """Probability-flow ODE drift under the configured parametrization."""
@@ -115,6 +167,13 @@ class Transport:
             return -drift_mean + drift_var * (model_fn(x, t, **kw) / -sigma_t)
 
         return {"velocity": velocity_ode, "score": score_ode, "noise": noise_ode}[pred]
+
+
+def _cross_entropy(logits, labels):
+    """Token-mean cross entropy over 20 classes; ``labels`` broadcast
+    against the logits' leading axes."""
+    labels = labels.long().expand(logits.shape[:-1])
+    return F.cross_entropy(logits.reshape(-1, 20).float(), labels.reshape(-1))
 
 
 class Sampler:

@@ -346,9 +346,11 @@ def _task_model(**kw):
     cfg = MDGenConfig(prepend_ipa=True, abs_pos_emb=True, abs_time_emb=True, crop=4, **kw)
     g = torch.Generator().manual_seed(0)
     model = LatentMDGenModel(cfg, cfg.latent_dim).reset_parameters(g)
+    lins = [model.trunk_adaln, model.ipa_adaln]
+    if hasattr(model, "emb_to_latent"):  # the mpnn modes have no latent head
+        lins += [model.emb_to_latent.dense_0, model.emb_to_latent.dense_1]
     with torch.no_grad():
-        for lin in (model.trunk_adaln, model.ipa_adaln, model.emb_to_latent.dense_0,
-                    model.emb_to_latent.dense_1):
+        for lin in lins:
             lin.weight.add_(torch.randn(lin.weight.shape, generator=g) * 0.05)
     return cfg, model.state_dict()
 
@@ -424,5 +426,38 @@ def test_upsampling_window_fused_matches_dense_on_the_card():
     fused, dense, launches = _fused_vs_dense(cfg, sd, win)
     assert launches[True]["fused_t_sublayer"] == 5 and launches[True]["flash_fwd"] == 0
     assert launches[False]["flash_fwd"] == 5 and launches[False]["fused_t_sublayer"] == 0
+    scale = max(dense.abs().max().item(), 1.0)
+    assert torch.isfinite(fused).all() and (fused - dense).abs().max().item() <= 1e-4 * scale
+
+
+DESIGN_MODES = {"design": dict(inpainting=True, no_aa_emb=True, no_torsion=True),
+                "mpnn": dict(sim_condition=True, mpnn=True),
+                "dynamic_mpnn": dict(inpainting=True, dynamic_mpnn=True)}
+
+
+@pytest.mark.parametrize("mode", list(DESIGN_MODES))
+def test_design_forward_fused_matches_dense_on_the_card(mode):
+    """The design recipe and the two mpnn modes at full width on two windows
+    of T = 100 frames (the mpnn modes keep the first frame, or the first and
+    last: kernel 2 at T = 1 and 2): kernels 1-3 against the dense path, 1e-4
+    relative to max(|out|, 1)."""
+    _need_cuda()
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import tokenize_atom14
+
+    cfg, sd = _task_model(design=True, num_frames=100, **DESIGN_MODES[mode])
+    traj = synthetic_trajectory("ACDE", 102, seed=0)
+    tok = tokenize_atom14({"atom14": torch.from_numpy(np.stack([traj[:100], traj[2:]])).float()
+                           .cuda(), "mask": torch.ones(2, 4, device="cuda"),
+                           "seqres": torch.from_numpy(rc.str_sequence_to_aatype("ACDE")[None])
+                           .long().cuda().expand(2, 4)})
+    fused, dense, launches = _fused_vs_dense(cfg, sd, tok)
+    assert fused.shape == ((2, 100, 4, 48) if mode == "design" else (2, 1, 4, 20))
+    assert all(launches[True][k] == 5 for k in
+               ("fused_l_sublayer", "fused_t_sublayer", "fused_ffn_sublayer"))
+    assert not any(launches[False].values())
     scale = max(dense.abs().max().item(), 1.0)
     assert torch.isfinite(fused).all() and (fused - dense).abs().max().item() <= 1e-4 * scale

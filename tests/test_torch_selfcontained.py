@@ -4,9 +4,9 @@ package, and each copy the port keeps of a jax-free JAX module agrees with
 its original: the config, the residue constants, the batching loader, the
 metric logger, the graceful stop, the XTC codec, the analysis metrics and
 MSM toolkit and the upsampling summarizer; and the rotamer dataset writer, a
-port onto the port's geometry, writes the JAX package's files. The TPS and
-upsampling chains (train, inference, analysis) run on the CPU in a process
-that cannot import jax.
+port onto the port's geometry, writes the JAX package's files. The TPS,
+upsampling and design chains (train, inference, analysis) run on the CPU in
+a process that cannot import jax.
 """
 import argparse
 import ast
@@ -114,6 +114,9 @@ QUALITY_CHAIN = ["mdgen_tpu_torch.xtc", "mdgen_tpu_torch.protein", "mdgen_tpu_to
 TPS_UPSAMPLING = ["mdgen_tpu_torch.tps_inference", "mdgen_tpu_torch.upsampling_inference",
                   "mdgen_tpu_torch.analyze_peptide_tps", "mdgen_tpu_torch.analyze_upsampling",
                   "mdgen_tpu_torch.summarize_upsampling"]
+# and inpainting and design
+DESIGN = ["mdgen_tpu_torch.design_inference", "mdgen_tpu_torch.analyze_peptide_design",
+          "mdgen_tpu_torch.transport.dirichlet"]
 
 
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
@@ -121,7 +124,7 @@ def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
     if which == "package":
-        want = set(QUALITY_CHAIN + TPS_UPSAMPLING)
+        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN)
         assert want <= set(names), want - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -412,12 +415,21 @@ _TASK_NO_JAX = textwrap.dedent("""
     res = quality_run.main(["--task", task, "--out", "q", "--epochs", "3", "--num_frames", frames,
                             "--md_frames", "300", "--embed_dim", "32", "--num_layers", "2",
                             "--mha_heads", "4", "--ipa_head_dim", "8", "--device", "cpu",
-                            "--train_extra=--sampling_method euler --inference_steps 3"])
+                            "--train_extra=--sampling_method euler --inference_steps 3"
+                            + (" --inference_batches 1 --val_epoch_freq 3" if task == "design"
+                               else "")])
     s = res["summary"]
     if task == "tps":
         assert len(s["per_peptide"]) == 8, s
         vals = [v for d in s["per_peptide"].values() for v in d.values()]
         assert len(res["samples"]) == 16 and all(len(r["paths"]) == 8 for r in res["samples"])
+    elif task == "design":
+        assert len(s["per_peptide"]) == 8, s
+        vals = [s[k] for k in ("designed", "cond", "consensus", "mode_pair")]
+        vals += list(s["val_recovery"].values())  # the designability probe's
+        assert all(0 <= v <= 1 for v in vals), vals
+        assert len(s["val_recovery"]) == 4, s["val_recovery"]
+        assert len(res["samples"]) == 16 and all(len(r["paths"]) == 16 for r in res["samples"])
     else:
         assert s["live_n"] + s["sub_nyquist_n"] > 0 and len(s["per_peptide"]) == 8, s
         vals = [s["live_mean_acf_err"] or s["sub_nyquist_mean_acf_err"]]
@@ -430,18 +442,21 @@ _TASK_NO_JAX = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("task,frames", [("tps", "8"), ("upsampling", "20")])
+@pytest.mark.parametrize("task,frames", [("tps", "8"), ("upsampling", "20"), ("design", "8")])
 def test_task_chain_runs_without_jax(task, frames, tmp_path):
-    """``quality_run --task tps|upsampling`` at a tiny width on the CPU:
-    ``train --tps_condition`` or ``--sim_condition --cond_interval 10``,
-    ``tps_inference`` / ``upsampling_inference --xtc``, ``analyze_peptide_tps``
-    / ``analyze_upsampling`` and the summarizer, with jax, flax, optax,
-    orbax, pandas and matplotlib unimportable."""
+    """``quality_run --task tps|upsampling|design`` at a tiny width on the
+    CPU: ``train --tps_condition``, ``--sim_condition --cond_interval 10`` or
+    ``--inpainting --design`` (with the designability probe),
+    ``tps_inference`` / ``upsampling_inference --xtc`` / ``design_inference``,
+    ``analyze_peptide_tps`` / ``analyze_upsampling`` and the summarizer /
+    ``analyze_peptide_design``, with jax, flax, optax, orbax, pandas and
+    matplotlib unimportable."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", _TASK_NO_JAX, task, frames], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "TASK_NO_JAX_OK" in proc.stdout
-    pkl = {"tps": "tps_out.pkl", "upsampling": "upsampling_out.pkl"}[task]
-    assert (tmp_path / "q" / "samples" / pkl).exists()
+    out = {"tps": "tps_out.pkl", "upsampling": "upsampling_out.pkl",
+           "design": "ACDE_metadata.json"}[task]
+    assert (tmp_path / "q" / "samples" / out).exists()

@@ -293,8 +293,8 @@ def test_tps_cli_needs_cuda_unless_cpu_is_asked_for(tps_run):
         tps_inference.main(["--sim_ckpt", ".", "--data_dir", ".", "--dp_size", "2"])
 
 
-@pytest.mark.parametrize("option", ["inpainting", "design", "mpnn", "dynamic_mpnn"])
+@pytest.mark.parametrize("option", ["hyena", "interleave_ipa", "no_frames"])
 def test_unported_task_options_still_raise(option):
-    cfg = TorchConfig(**{**TINY, "tps_condition": False, option: True})
+    cfg = TorchConfig(**{**TINY, option: True})
     with pytest.raises(NotImplementedError, match=option):
         LatentMDGenModel(cfg, cfg.latent_dim)
