@@ -82,6 +82,22 @@ Phases, in order; any failure raises and the exit code is not 0:
      the budget of 7: the pickle's peptides and every metric finite (design:
      each peptide's 32 designs and every recovery in [0, 1]), the printed
      JSON;
+  7f. the last model options and samplers, at full width on seeded weights:
+     `[hyena]`: one --hyena --fused_block rollout at the bench shape
+     (frames/s; kernels 1 and 3 at 5 x 99 launches, kernel 2 at none: the
+     frame sublayer is the Hyena operator), then fused vs dense in 32-true
+     (one forward within TOL["f32"] x max(|out|, 1), a 4-step rollout from
+     the same start and noise within 1e-3 A); `[sde]`: Sampler.sample_sde,
+     Euler-Maruyama and stochastic Heun (SDE_STEPS grid points, SBDM from
+     t0 = 1e-3, Mean last step) on the bench sim model, fused vs dense from
+     the same start and per-step noise in 32-true (atoms within
+     SDE_TOL, kernels 1-3 at 5 launches a model evaluation);
+     `[likelihood]`: sample_ode_likelihood (euler) on the dense route, log p
+     finite and repeatable, the JVP divergence against the VJP one within
+     LIK_TOL, and forward-mode AD refused by the fused model and by each of
+     the 7 kernel wrappers given a dual CUDA tensor; `[options: ...]`:
+     interleave_ipa and no_frames fused vs dense as `[hyena]`;
+     `[quality-hyena]`: the quality chain of 7 with --hyena;
   8. flash kernel parity: kernels 4-7 against their plain twins at the
      training recipe's frame attention (N=512, Tq=1000, Tk=1001, d=24) with
      a masked residue, f32 and bf16 operands, each twice on the same inputs
@@ -104,6 +120,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      checkpoint; prints ms per train step over steps 5-20;
   11. sampling from that run: `sim_inference --fused_block` restores the run
      directory and rolls out once at T=1000 with 2 Euler steps;
+  11a. the ATLAS recipe (`[atlas]`): `mdgen_tpu_torch.train --atlas` at crop
+     256, T = 250, B = 1, bf16-mixed, grad_checkpointing, dropout 0.1 on
+     7lao_A's 271-residue sequence (synthetic replicas; ms a step, peak
+     device memory; all dense, no kernel); one Euler solve of an ATLAS item
+     with the trained weights; the residue-axis attention at 6sms_A's 724
+     residues (T = 250) through kernel 4 against dense; REMAT_STEPS steps of
+     the 4AA recipe (T = 1000) with grad_checkpointing against the same
+     steps without (losses, grad norms, gradients; kernel 5 launched again
+     in each recompute);
   12. profiles, last because a torch.profiler session slows the host work
       of the rest of the process: each launch's device µs of the fused
       kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
@@ -118,8 +143,9 @@ Phases, in order; any failure raises and the exit code is not 0:
       T = 1000 times and bound and its µs per launch on the upsampling path;
       the flash kernels their bf16 device, library and bound times and the
       f32 bound on CUDA cores; every kernel its launches on the TPS,
-      upsampling, design and mpnn paths), the nvidia-smi line,
-      and the result line.
+      upsampling, design and mpnn paths, and on the Hyena, SDE, likelihood,
+      options, ATLAS training, ATLAS residue-attention and checkpointed 4AA
+      runs), the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -749,7 +775,7 @@ def seeded_model(torch, cfg):
 
     g = torch.Generator().manual_seed(0)
     model = LatentMDGenModel(cfg, cfg.latent_dim).reset_parameters(g)
-    lins = [model.trunk_adaln, model.ipa_adaln]
+    lins = [model.trunk_adaln] + ([model.ipa_adaln] if cfg.prepend_ipa else [])
     if hasattr(model, "emb_to_latent"):  # the mpnn modes have no latent head
         lins += [model.emb_to_latent.dense_0, model.emb_to_latent.dense_1]
     with torch.no_grad():
@@ -935,13 +961,14 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     return st
 
 
-def phase_quality(torch, smi):
+def phase_quality(torch, smi, tag="quality", train_extra=""):
     with tempfile.TemporaryDirectory(prefix="mdgen_quality_") as work:
-        return _quality(torch, smi, work)
+        return _quality(torch, smi, work, tag, train_extra)
 
 
-def _quality(torch, smi, work):
-    """quality_run at a small budget on the card; checks its outputs."""
+def _quality(torch, smi, work, tag, train_extra):
+    """quality_run at a small budget on the card (``train_extra``: more
+    flags of its train invocation); checks its outputs."""
     import pickle
 
     import numpy as np
@@ -954,7 +981,8 @@ def _quality(torch, smi, work):
     t0 = time.perf_counter()
     res = quality_run.main(["--out", work, "--md_frames", str(QUALITY_MD_FRAMES), "--epochs",
                             str(QUALITY_EPOCHS), "--num_rollouts", str(QUALITY_ROLLOUTS),
-                            "--device", "cuda"], keep_trajectories=True)
+                            "--device", "cuda", f"--train_extra={train_extra}"],
+                           keep_trajectories=True)
     sec = time.perf_counter() - t0
     pkl = os.path.join(res["samp_dir"], "out.pkl")
     with open(pkl, "rb") as fh:
@@ -986,7 +1014,7 @@ def _quality(torch, smi, work):
                                        "mean_all_jsd"}
           and all(np.isfinite(v) for v in (s["mean_torsion_jsd"], s["mean_all_jsd"])))
     evals = [x["evals"] for x in solves]
-    log(f"[quality] quality_run on the card ({QUALITY_EPOCHS} steps of the 128 x 3 model, "
+    log(f"[{tag}] quality_run {train_extra} on the card ({QUALITY_EPOCHS} steps of the 128 x 3 model, "
         f"{QUALITY_MD_FRAMES} MD frames, {QUALITY_ROLLOUTS} dopri5 rollouts x 8 peptides, --xtc): "
         f"{sec:.1f} s; {res['ms_per_step']:.2f} ms per train step (median); "
         f"{sum(evals) / len(evals):.1f} drift evaluations per solve (min {min(evals)}, max "
@@ -995,7 +1023,7 @@ def _quality(torch, smi, work):
         f"{len(jsds)} JSDs finite in [0, 1]; printed {json.dumps(s)} ({smi}) -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"quality chain: XTC err {worst} A, summary {s}")
+        raise AssertionError(f"{tag} chain: XTC err {worst} A, summary {s}")
 
 
 def task_config(**kw):
@@ -1807,6 +1835,536 @@ def _training(torch, smi, work):
     return counts, ms
 
 
+# -- the last model options, the SDE and likelihood samplers, the ATLAS recipe --
+
+# the SDE phase: Euler-Maruyama / stochastic Heun on a 100-point grid, SBDM
+# diffusion from t0 = 1e-3 (it is infinite at t = 0), the Mean last step;
+# fused vs dense atoms held to phase 4's 1e-3 A: f32 rounding carried
+# through a fixed-grid solve (4.2e-6 A on the H100, PERF.md), the noise the
+# same on both sides
+SDE_STEPS, SDE_TOL = 100, 1e-3
+# the likelihood phase: euler over LIK_STEPS grid points; the JVP divergence
+# against the VJP (autograd) one at one point, relative: the same products
+# summed in another order
+LIK_STEPS, LIK_TOL = 4, 1e-4
+# the ATLAS recipe (scripts/tpu_perf.py:200-202): crop 256, T = 250, B = 1,
+# grad_checkpointing, bf16-mixed; with dropout 0.1; the sequences of 7lao_A
+# (271 residues: cropped) and 6sms_A (724: the residue axis past 512 keys)
+# from splits/atlas_test.csv, with synthetic coordinates
+ATLAS_CROP, ATLAS_FRAMES, ATLAS_STEPS, ATLAS_DROPOUT = 256, 250, 6, 0.1
+ATLAS_TRAIN, ATLAS_LONG = "7lao_A", "6sms_A"
+# three 4AA recipe steps (T = 1000, B = 8) with and without grad_checkpointing
+REMAT_STEPS = 3
+
+
+def _start(torch):
+    """The main path's start frame, sequence and residue mask on the card."""
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+
+    start = torch.from_numpy(synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32))[None]
+    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long()
+    return start.cuda(), seqres.cuda(), torch.ones(B, L, device="cuda")
+
+
+def _runtime(torch, cfg, state_dict):
+    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.runtime import MDGenRuntime
+
+    model = LatentMDGenModel(cfg, cfg.latent_dim)
+    model.load_state_dict(state_dict)
+    return MDGenRuntime(cfg, model.cuda())
+
+
+def _f32_fused_vs_dense(torch, cfg, state_dict):
+    """32-true, fused and dense from the same inputs: one forward at t = 0.4
+    and a rollout of 4 Euler steps (T = 100) from the same start and noise.
+    Returns (forward max abs err, |out| max, rollout max |atoms| err in A,
+    the fused rollout's launch counts, the dense one's, finite)."""
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.runtime import tokenize
+    from mdgen_tpu_torch.tasks import prep_batch
+
+    start, seqres, mask = _start(torch)
+    g = torch.Generator(device="cuda")
+    outs, atoms, counts = {}, {}, {}
+    for fused in (True, False):
+        c = cfg.replace(precision="32-true", fused_block=fused, sampling_method="euler",
+                        inference_steps=4)
+        rt = _runtime(torch, c, state_dict)
+        prep = prep_batch(c, tokenize(c, {"atom14": start[:, None].expand(B, T, L, 14, 3),
+                                          "seqres": seqres, "mask": mask}))
+        x = torch.randn(B, T, L, c.latent_dim, device="cuda", generator=g.manual_seed(1))
+        with torch.inference_mode():
+            outs[fused] = rt.model_inf(x, torch.full((B,), 0.4, device="cuda"),
+                                       **prep.model_kwargs).float()
+        noise = torch.randn(1, B, T, L, c.latent_dim, device="cuda", generator=g.manual_seed(2))
+        ops.reset_launch_counts()
+        atoms[fused] = rt.rollout(start, seqres, mask, 1, noise=noise)
+        torch.cuda.synchronize()
+        counts[fused] = ops.launch_counts()
+        del rt
+    return ((outs[True] - outs[False]).abs().max().item(), outs[False].abs().max().item(),
+            (atoms[True] - atoms[False]).abs().max().item(), counts[True], counts[False],
+            bool(torch.isfinite(atoms[True]).all() and torch.isfinite(outs[True]).all()))
+
+
+def _check_option(tag, cfg, state_dict, torch, frame_kernel=True):
+    """_f32_fused_vs_dense held: the forward within TOL["f32"] x max(|out|, 1),
+    the rollout within 1e-3 A (phase 4's bound), one launch a layer and an
+    evaluation of kernels 1 and 3 (and of kernel 2 when ``frame_kernel``),
+    none dense."""
+    err, scale, roll, fc, dc, finite = _f32_fused_vs_dense(torch, cfg, state_dict)
+    n = 3 * cfg.num_layers  # 3 evaluations
+    want = {"fused_l_sublayer": n, "fused_t_sublayer": n if frame_kernel else 0,
+            "fused_ffn_sublayer": n}
+    ok = (finite and scale > 1e-2 and err <= TOL["f32"] * max(scale, 1.0) and roll <= 1e-3
+          and all(fc[k] == v for k, v in want.items()) and not any(dc.values())
+          and not any(fc[k] for k in FLASH_KERNELS))
+    log(f"[{tag}] fused vs dense, 32-true: forward max_abs_err {err:.3e} (|out| max "
+        f"{scale:.3f}), tol {TOL['f32']:g} x max(|out|,1); rollout of 4 Euler steps from the same "
+        f"start and noise: max_abs_err {roll:.3e} A, tol 1e-3 A; launches fused {fc} (want "
+        f"{want}), dense {dc} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: fused and dense disagree: {err}, {roll} A, {fc}, {dc}")
+    return fc
+
+
+def phase_hyena(torch, smi):
+    """--hyena --fused_block: one 4AA rollout at the bench shape (B = 1,
+    T = 100, 100 Euler steps, bf16-mixed) of a seeded full-width Hyena model:
+    frames/s, and kernels 1 and 3 five times an evaluation while the frame
+    sublayer is the Hyena operator (kernel 2 never); then fused vs dense in
+    32-true (_check_option). Returns the rollout's launch counts."""
+    from mdgen_tpu_torch import ops
+
+    cfg = bench_config(hyena=True, fused_block=True)
+    state_dict = seeded_model(torch, cfg).state_dict()
+    start, seqres, mask = _start(torch)
+    noise = torch.randn(1, B, T, L, 21, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(11))
+    rt = _runtime(torch, cfg, state_dict)
+    rt.rollout(start, seqres, mask, 1, noise=noise)  # warm-up: cuFFT plans, allocator
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    atoms = rt.rollout(start, seqres, mask, 1, noise=noise)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = cfg.num_layers * (EULER_STEPS - 1)
+    ok = (bool(torch.isfinite(atoms).all()) and counts["fused_l_sublayer"] == want
+          and counts["fused_ffn_sublayer"] == want and counts["fused_t_sublayer"] == 0
+          and not any(counts[k] for k in FLASH_KERNELS))
+    log(f"[hyena] --hyena --fused_block rollout (5x384x16, T={NUM_FRAMES}, {EULER_STEPS} Euler "
+        f"steps, bf16-mixed): {sec * 1e3:.1f} ms = {NUM_FRAMES / sec:.1f} frames/s, "
+        f"{sec * 1e3 / (EULER_STEPS - 1):.2f} ms an evaluation ({smi}); launches {counts} (want "
+        f"{want} of kernels 1 and 3, none of kernel 2) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"hyena rollout: launches {counts}")
+    del rt
+    _check_option("hyena", cfg, state_dict, torch, frame_kernel=False)
+    return counts
+
+
+def phase_sde(torch, smi, state_dict):
+    """Sampler.sample_sde, Euler-Maruyama and stochastic Heun (SDE_STEPS grid
+    points, SBDM from t0 = 1e-3, Mean last step), on the bench sim model at
+    T = 100 in 32-true, fused and dense from the same start latents and
+    per-step noise: decoded atoms within SDE_TOL, 5 launches of each fused
+    kernel per model evaluation (one a drift, one for the last step), none
+    dense; ms per solve. Returns the fused solves' launch counts, summed."""
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.runtime import tokenize
+    from mdgen_tpu_torch.tasks import decode_latents, prep_batch
+    from mdgen_tpu_torch.transport import Sampler, Transport, TransportConfig
+
+    start, seqres, mask = _start(torch)
+    sampler = Sampler(Transport(TransportConfig(sample_eps=1e-3)))
+    g = torch.Generator(device="cuda")
+    x0 = torch.randn(B, T, L, 21, device="cuda", generator=g.manual_seed(12))
+    noise = torch.randn(SDE_STEPS - 1, B, T, L, 21, device="cuda", generator=g.manual_seed(13))
+    total = dict.fromkeys(KERNELS, 0)
+    for method in ("Euler", "Heun"):
+        runs = {}
+        for fused in (True, False):
+            cfg = bench_config(precision="32-true", fused_block=fused)
+            rt = _runtime(torch, cfg, state_dict)
+            prep = prep_batch(cfg, tokenize(cfg, {"atom14": start[:, None].expand(B, T, L, 14, 3),
+                                                  "seqres": seqres, "mask": mask}))
+            stats = {}
+            fn = sampler.sample_sde(rt.model_inf.forward_inference, sampling_method=method,
+                                    num_steps=SDE_STEPS, stats=stats)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                xs = fn(x0, noise=noise, **prep.model_kwargs)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            atoms, _ = decode_latents(cfg, xs, prep.rigids, seqres)
+            runs[fused] = (atoms, xs, stats, counts, sec)
+            del rt
+        (atoms, xs, stats, counts, sec), (atoms_d, xs_d, _, counts_d, sec_d) = runs[True], runs[False]
+        err = (atoms - atoms_d).abs().max().item()
+        lat = ((xs - xs_d).abs().max() / xs_d.abs().max().clamp_min(1.0)).item()
+        evals = stats["evals"] + 1
+        ok = (bool(torch.isfinite(atoms).all()) and err <= SDE_TOL
+              and all(counts[k] == cfg.num_layers * evals for k in FUSED_KERNELS)
+              and not any(counts_d.values()))
+        log(f"[sde] sample_sde {method} (SBDM, {SDE_STEPS} grid points, Mean last step; the "
+            f"bench sim model, T={NUM_FRAMES}, 32-true): {evals} model evaluations; fused "
+            f"{sec * 1e3:.1f} ms, dense {sec_d * 1e3:.1f} ms a solve ({smi}); fused vs dense, same "
+            f"start and noise: atoms max_abs_err {err:.3e} A, tol {SDE_TOL:g} A; latents "
+            f"{lat:.3e} of max(|x|, 1); launches fused {counts} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"sde {method}: {err} A, launches {counts}, dense {counts_d}")
+        for k in KERNELS:
+            total[k] += counts[k]
+    return total
+
+
+def phase_likelihood(torch, smi, state_dict):
+    """sample_ode_likelihood (euler, LIK_STEPS grid points) of the bench sim
+    model in 32-true on the dense route (fused_block off; 101 frame keys take
+    dense attention): log p of a tokenized window's latents, finite, no
+    kernel launched, and the same twice for one eps; the JVP divergence
+    eps.(J eps) at one point against the VJP one (autograd), LIK_TOL
+    relative. Then forward-mode AD through the kernels: the fused model under
+    the same likelihood raises, as does each kernel wrapper given a dual CUDA
+    tensor. Returns the dense run's launch counts."""
+    from torch.autograd import forward_ad
+
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.runtime import tokenize
+    from mdgen_tpu_torch.tasks import prep_batch
+    from mdgen_tpu_torch.transport import Sampler, Transport, TransportConfig
+
+    start, seqres, mask = _start(torch)
+    cfg = bench_config(precision="32-true")
+    rt = _runtime(torch, cfg, state_dict)
+    prep = prep_batch(cfg, tokenize(cfg, {"atom14": start[:, None].expand(B, T, L, 14, 3),
+                                          "seqres": seqres, "mask": mask}))
+    kw = prep.model_kwargs
+    x = prep.latents
+    eps = torch.randint(0, 2, x.shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(14)).float() * 2 - 1
+    sampler = Sampler(Transport(TransportConfig()))
+    stats = {}
+    lik = sampler.sample_ode_likelihood(rt.model_inf.forward_inference, sampling_method="euler",
+                                        num_steps=LIK_STEPS, stats=stats)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logp, z = lik(x, eps=eps, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logp2, _ = lik(x, eps=eps, **kw)
+    torch.cuda.synchronize()
+    sec2 = time.perf_counter() - t0
+    # the divergence at one point: forward mode (JVP) against reverse (VJP)
+    tv = torch.full((B,), 0.5, device="cuda")
+    f = lambda xx: rt.model_inf.forward_inference(xx, tv, **kw)  # noqa: E731
+    with torch.no_grad():
+        _, jvp = torch.func.jvp(f, (x,), (eps,))
+    xg = x.detach().clone().requires_grad_(True)
+    (vjp,) = torch.autograd.grad((f(xg) * eps).sum(), xg)
+    div_f, div_r = (jvp * eps).sum().item(), (vjp * eps).sum().item()
+    div_rel = abs(div_f - div_r) / max(abs(div_r), 1e-12)
+    refused = []
+    fused = _runtime(torch, cfg.replace(fused_block=True), state_dict)
+    try:
+        with torch.no_grad():
+            sampler.sample_ode_likelihood(fused.model_inf.forward_inference,
+                                          sampling_method="euler", num_steps=2)(x, eps=eps, **kw)
+    except RuntimeError as e:
+        refused.append("no forward-mode derivative" in str(e))
+    h = torch.randn(1, 2, 3, 8, device="cuda")
+    m = torch.zeros(1, 1, 8, device="cuda")
+    q, bias = torch.randn(2, 5, 8, device="cuda"), torch.zeros(2, 5, device="cuda")
+    w, ow = torch.randn(24, 8, device="cuda"), torch.randn(8, 8, device="cuda")
+    z8 = torch.zeros(8, device="cuda")
+    with forward_ad.dual_level():
+        dh = forward_ad.make_dual(h, torch.ones_like(h))
+        dq = forward_ad.make_dual(q, torch.ones_like(q))
+        calls = [
+            lambda: ops.fused_l_sublayer(dh, m, m, m, torch.ones(1, 3, device="cuda"), w,
+                                         torch.zeros(24, device="cuda"), z8, z8, ow, z8,
+                                         num_heads=2, compute_dtype=torch.float32),
+            lambda: ops.fused_t_sublayer(dh, m, m, m, torch.ones(1, 3, device="cuda"), w,
+                                         torch.zeros(24, device="cuda"), z8, z8, ow, z8,
+                                         num_heads=2, compute_dtype=torch.float32),
+            lambda: ops.fused_ffn_sublayer(dh, m, m, m, torch.randn(32, 8, device="cuda"),
+                                           torch.zeros(32, device="cuda"),
+                                           torch.randn(8, 32, device="cuda"), z8,
+                                           compute_dtype=torch.float32),
+            lambda: ops.flash_fwd(dq, q, q, bias),
+            lambda: ops.flash_fwd_lse(dq, q, q, bias),
+            lambda: ops.flash_bwd_dq(dq, q, q, bias, q, bias, bias),
+            lambda: ops.flash_bwd_dkv(dq, q, q, bias, q, bias, bias),
+        ]
+        for call in calls:
+            try:
+                call()
+                refused.append(False)
+            except RuntimeError as e:
+                refused.append("no forward-mode derivative" in str(e))
+    torch.cuda.synchronize()
+    ok = (bool(torch.isfinite(logp).all()) and torch.equal(logp, logp2)
+          and not any(counts.values()) and stats["evals"] == LIK_STEPS - 1
+          and div_rel <= LIK_TOL and all(refused) and len(refused) == 8)
+    log(f"[likelihood] sample_ode_likelihood euler ({LIK_STEPS} grid points; the bench sim "
+        f"model, T={NUM_FRAMES}, 32-true, dense route): log p {logp.tolist()} (|z| max "
+        f"{z.abs().max().item():.3f}), {sec * 1e3:.1f} ms the first solve, {sec2 * 1e3:.1f} ms "
+        f"the second ({stats['evals']} JVP evaluations each; {smi}); launches {counts}; "
+        f"divergence at t = 0.5: JVP {div_f:.6e}, VJP {div_r:.6e}, "
+        f"rel {div_rel:.2e}, tol {LIK_TOL:g}; the fused model and the 7 kernel wrappers given a "
+        f"tangent on the card: {sum(refused)} of {len(refused)} refused -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"likelihood: {logp}, {counts}, div rel {div_rel}, refused {refused}")
+    return counts
+
+
+def phase_atlas(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_atlas_") as work:
+        return _atlas(torch, smi, work)
+
+
+def _atlas_seqs():
+    import csv
+
+    with open(os.path.join(HERE, "splits", "atlas_test.csv"), newline="") as fh:
+        return {r["name"]: r["seqres"] for r in csv.DictReader(fh)}
+
+
+def _atlas(torch, smi, work):
+    """The ATLAS recipe: (1) `mdgen_tpu_torch.train` at crop 256, T = 250,
+    B = 1, bf16-mixed, grad_checkpointing and dropout 0.1 on the 271-residue
+    sequence of 7lao_A (three synthetic replicas): ATLAS_STEPS finite steps,
+    ms a step, peak device memory, no kernel (257 and 251 keys: dense; and
+    dropout forces dense); (2) one Euler solve (2 evaluations) of an ATLAS
+    item (crop + 1 wide: the runtime drops the context column) with the
+    trained weights; (3) the residue-axis attention at 6sms_A's 724
+    residues, T = 250, through kernel 4 against dense (a masked residue);
+    (4) REMAT_STEPS 4AA recipe steps (T = 1000, B = 8) with
+    grad_checkpointing against the same steps without. Returns {"train":
+    counts, "residue": counts, "remat": counts}."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops, train
+    from mdgen_tpu_torch.config import MDGenConfig
+    from mdgen_tpu_torch.data import MDGenDataset, synthetic_trajectory
+    from mdgen_tpu_torch.runtime import MDGenRuntime, batch_to_device, checkpoint
+
+    seqs = _atlas_seqs()
+    seq = seqs[ATLAS_TRAIN]
+    for r in (1, 2, 3):
+        np.save(os.path.join(work, f"{ATLAS_TRAIN}_R{r}.npy"),
+                synthetic_trajectory(seq, ATLAS_FRAMES + 10, seed=r))
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write(f"name,seqres\n{ATLAS_TRAIN},{seq}\n")
+    argv = ["--sim_condition", "--prepend_ipa", "--abs_pos_emb", "--abs_time_emb", "--atlas",
+            "--crop", str(ATLAS_CROP), "--num_frames", str(ATLAS_FRAMES), "--batch_size", "1",
+            "--precision", "bf16-mixed", "--grad_checkpointing", "--dropout", str(ATLAS_DROPOUT),
+            "--sampling_method", "euler", "--inference_steps", "3", "--epochs", str(ATLAS_STEPS),
+            "--no_validate", "--ckpt_freq", str(10 * ATLAS_STEPS), "--train_split", split,
+            "--val_split", split, "--data_dir", work, "--workdir", work, "--run_name", "atlas",
+            "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    marks = [time.perf_counter()]
+    rec = train.main(argv)
+    counts = ops.launch_counts()
+    marks.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(rec["losses"])
+    ms = (rec["step_end"][-1] - rec["step_end"][1]) / (steps - 2) * 1e3
+    n_params = sum(v.numel() for v in torch.load(
+        os.path.join(rec["model_dir"], f"step_{ATLAS_STEPS}", "model.pt"),
+        weights_only=True)["model"].values())
+    ok = (steps == ATLAS_STEPS and np.isfinite(rec["losses"]).all() and not any(counts.values()))
+    log(f"[atlas] python -m mdgen_tpu_torch.train --atlas (5x384x16, {n_params:,} parameters; "
+        f"{ATLAS_TRAIN}, {len(seq)} residues cropped to {ATLAS_CROP}, T={ATLAS_FRAMES}, B=1, "
+        f"bf16-mixed, grad_checkpointing, dropout {ATLAS_DROPOUT}): {steps} steps, loss "
+        f"{rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f}; {ms:.1f} ms a step over steps "
+        f"2-{steps}; peak device memory {peak:.2f} GiB ({smi}); launches {counts} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"atlas training: {rec['losses']}, {counts}")
+
+    cfg = checkpoint.load_config(rec["model_dir"])
+    model, _ = checkpoint.load_model(rec["model_dir"], cfg, "cuda")
+    rt = MDGenRuntime(cfg, model)
+    item = MDGenDataset(cfg, split, work, seed=0)[0]
+    batch = batch_to_device({k: item[k][None] for k in ("atom14", "seqres", "mask")}, "cuda")
+    stats = {}
+    rt.inference(batch, generator=torch.Generator(device="cuda").manual_seed(0))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    atoms, _ = rt.inference(batch, generator=torch.Generator(device="cuda").manual_seed(0),
+                            stats=stats)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ok = (tuple(atoms.shape) == (1, ATLAS_FRAMES, ATLAS_CROP, 14, 3)
+          and bool(torch.isfinite(atoms).all()))
+    log(f"[atlas] Euler solve of an ATLAS item ({item['atom14'].shape[1]} columns: the context "
+        f"column dropped), {stats['evals']} evaluations, bf16-mixed: {sec * 1e3:.1f} ms, "
+        f"{sec * 1e3 / stats['evals']:.1f} ms an evaluation ({smi}); atoms "
+        f"{tuple(atoms.shape)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"atlas sampling: {tuple(atoms.shape)}")
+    del model, rt, atoms
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out = {"train": counts, "residue": _atlas_residue_attention(torch, smi, len(seqs[ATLAS_LONG]))}
+    marks.append(time.perf_counter())
+    out["remat"] = _remat_4aa(torch, smi)
+    marks.append(time.perf_counter())
+    parts = [b - a for a, b in zip(marks, marks[1:])]
+    log(f"[atlas] seconds: train.main {parts[0]:.1f} (its steps and checkpoint), sampling "
+        f"{parts[1]:.1f}, residue attention {parts[2]:.1f}, checkpointed 4AA {parts[3]:.1f}")
+    return out
+
+
+def _atlas_residue_attention(torch, smi, n_res):
+    """RoPEAttention (384, 16 heads, impl auto) over the residue axis of
+    [1, ATLAS_FRAMES, n_res, 384] activations with the last residue masked:
+    n_res + 1 > 512 keys take kernel 4 on [ATLAS_FRAMES * 16, n_res, 24]
+    rows; against impl dense on the same module, 32-true."""
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.models.attention import RoPEAttention
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    attn = RoPEAttention(C, H, impl="auto")
+    attn.reset_parameters(torch.Generator().manual_seed(15))
+    attn.cuda()
+    x = torch.randn(1, ATLAS_FRAMES, n_res, C, device="cuda", generator=g)
+    mask = torch.ones(1, ATLAS_FRAMES, n_res, device="cuda")
+    mask[:, :, -1] = 0.0
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = attn(x, mask, axis=2)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ms = _time_ms(torch, lambda: attn(x, mask, axis=2), iters=5)
+        attn.impl = "dense"
+        ref = attn(x, mask, axis=2)
+        ms_d = _time_ms(torch, lambda: attn(x, mask, axis=2), iters=3)
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    ok = (counts["flash_fwd"] == 1 and err <= FLASH_TOL["f32"]["abs"] * max(scale, 1.0)
+          and bool(torch.isfinite(out).all()))
+    log(f"[atlas] residue-axis attention at {ATLAS_LONG}'s {n_res} residues (T={ATLAS_FRAMES}, "
+        f"a masked residue, 32-true): flash (kernel 4, {ATLAS_FRAMES * H} rows of {n_res} x "
+        f"{n_res + 1} keys) {ms:.2f} ms vs dense {ms_d:.2f} ms a call ({smi}); max_abs_err "
+        f"{err:.3e} (|out| max {scale:.3f}), tol {FLASH_TOL['f32']['abs']:g} x max(|out|,1); "
+        f"launches {counts} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"atlas residue attention: {err}, {counts}")
+    del out, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _remat_4aa(torch, smi):
+    """REMAT_STEPS train steps of the 4AA recipe (5x384x16, B = 8, T = 1000,
+    32-true, flash on the frame axis) from seeded weights with and without
+    grad_checkpointing, the same batch, t and x0 each step: losses 1e-5 and
+    grad norms 1e-4 relative, the final parameters' largest difference
+    printed; then one more gradient each, every parameter's within 1e-3 of
+    its norm (phase 9's bounds: the flash kernels' sums in another order).
+    Kernel 5 runs again in each layer's recompute: 10 launches a step
+    against 5; kernels 6 and 7 five a step in both. Returns the checkpointed
+    run's launch counts."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import TrainRuntime, batch_to_device
+
+    raw = {"atom14": np.stack([synthetic_trajectory(s, TRAIN_FRAMES, seed=i)
+                               for i, s in enumerate(TRAIN_SEQS)]).astype(np.float32),
+           "seqres": np.stack([rc.str_sequence_to_aatype(s) for s in TRAIN_SEQS]),
+           "mask": np.ones((B_TRAIN, L), np.float32)}
+    batch = batch_to_device(raw, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    draws = [(torch.rand(B_TRAIN, device="cuda", generator=g),
+              torch.randn(B_TRAIN, TRAIN_FRAMES, L, 21, device="cuda", generator=g))
+             for _ in range(REMAT_STEPS + 1)]
+    state_dict = seeded_model(torch, train_config()).state_dict()
+    runs = {}
+    for remat in (False, True):
+        rt = TrainRuntime(train_config(grad_checkpointing=remat), "cuda")
+        state = rt.init(state_dict=state_dict)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        metrics = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t, x0 in draws[:REMAT_STEPS]:
+            state, m = rt.train_step(state, batch, t=t, x0=x0)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, grads, _ = rt._grads(state.model, batch, t=draws[-1][0], x0=draws[-1][1])
+        params = [p.detach().clone() for p in state.model.parameters()]
+        runs[remat] = (metrics, counts, peak, sec, grads, params)
+        del rt, state
+    (m0, c0, p0, s0, g0, w0), (m1, c1, p1, s1, g1, w1) = runs[False], runs[True]
+    loss_rel = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(m0, m1))
+    norm_rel = max(abs(a[1] - b[1]) / a[1] for a, b in zip(m0, m1))
+    grad_rel = max(((a - b).norm() / (a.norm() if a.norm() > 0 else 1.0)).item()
+                   for a, b in zip(g0, g1))
+    dw = max((a - b).abs().max().item() for a, b in zip(w0, w1))
+    n = REMAT_STEPS * train_config().num_layers  # one frame attention a layer and a step
+    want0 = {"flash_fwd_lse": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    want1 = {"flash_fwd_lse": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    ok = (loss_rel <= 1e-5 and norm_rel <= 1e-4 and grad_rel <= 1e-3
+          and all(c0[k] == v for k, v in want0.items())
+          and all(c1[k] == v for k, v in want1.items())
+          and not any(c0[k] + c1[k] for k in FUSED_KERNELS) and c0["flash_fwd"] == c1["flash_fwd"] == 0)
+    log(f"[atlas] 4AA recipe (B={B_TRAIN}, T={TRAIN_FRAMES}, 32-true) {REMAT_STEPS} steps with "
+        f"grad_checkpointing vs without, the same draws: losses {[round(a[0], 6) for a in m1]} vs "
+        f"{[round(a[0], 6) for a in m0]} (rel {loss_rel:.2e}, tol 1e-5); grad norms rel "
+        f"{norm_rel:.2e} (tol 1e-4); a 4th gradient, worst parameter rel {grad_rel:.2e} (tol "
+        f"1e-3); final parameters max |diff| {dw:.3e}; {s1 * 1e3 / REMAT_STEPS:.1f} vs "
+        f"{s0 * 1e3 / REMAT_STEPS:.1f} "
+        f"ms a step, peak device memory {p1:.2f} vs {p0:.2f} GiB ({smi}); launches {c1} vs {c0} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grad_checkpointing: {loss_rel}, {norm_rel}, {grad_rel}, {c1}, {c0}")
+    torch.cuda.empty_cache()
+    return c1
+
+
+def phase_options(torch, smi):
+    """interleave_ipa (an IPA in each trunk layer) and no_frames (the raw
+    atom37 latent, no IPA tower) at full width, seeded: fused vs dense in
+    32-true (_check_option). Returns the fused rollouts' counts, summed."""
+    total = dict.fromkeys(KERNELS, 0)
+    for tag, kw in (("interleave_ipa", dict(interleave_ipa=True)),
+                    ("no_frames", dict(no_frames=True, prepend_ipa=False))):
+        cfg = bench_config(**kw)
+        counts = _check_option(f"options: {tag}", cfg, seeded_model(torch, cfg).state_dict(),
+                               torch)
+        for k in KERNELS:
+            total[k] += counts[k]
+    return total
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mdgen_tpu_torch")):
         raise RuntimeError("run chip_smoke.py from a checkout of the repository")
@@ -1830,9 +2388,20 @@ def main():
     mpnn_counts = phase_mpnn(torch, smi)
     for task in ("tps", "upsampling", "design"):
         phase_quality_task(torch, smi, task)
+    t_new = time.perf_counter()
+    hyena_counts = phase_hyena(torch, smi)
+    sde_counts = phase_sde(torch, smi, state_dict)
+    lik_counts = phase_likelihood(torch, smi, state_dict)
+    option_counts = phase_options(torch, smi)
+    phase_quality(torch, smi, tag="quality-hyena", train_extra="--hyena")
+    new_s = time.perf_counter() - t_new
     parity.update(phase_flash_parity(torch))
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)
+    t_new = time.perf_counter()
+    atlas_counts = phase_atlas(torch, smi)
+    atlas_s = time.perf_counter() - t_new
+    log(f"[phases] [hyena] to [quality-hyena] {new_s:.1f} s, [atlas] {atlas_s:.1f} s")
     frame_us = phase_profiles(torch, state_dict, rollout_s, smi, upsampling)
     parity["fused_t_sublayer"]["upsampling_t1000_us_per_launch"] = frame_us
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -1843,6 +2412,11 @@ def main():
          "tps_launches": tps_counts[k], "upsampling_launches": ups_counts[k],
          "design_launches": design_counts[k],
          "mpnn_launches": mpnn_counts["mpnn"][k] + mpnn_counts["dynamic_mpnn"][k],
+         "hyena_launches": hyena_counts[k], "sde_launches": sde_counts[k],
+         "likelihood_launches": lik_counts[k], "options_launches": option_counts[k],
+         "atlas_train_launches": atlas_counts["train"][k],
+         "atlas_residue_launches": atlas_counts["residue"][k],
+         "remat_launches": atlas_counts["remat"][k],
          **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
          **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}
         for k, (src, rep) in KERNELS.items()

@@ -5,7 +5,15 @@ CSVs with ``name,seqres`` columns, read with the ``csv`` module. Items are
 raw atom14 windows of ``num_frames`` frames (float32), the sequence and the
 residue mask; tokenization runs on the device in the train step
 (``runtime.wrapper.tokenize_atom14``). The overfit, ``frame_interval`` and
-``copy_frames`` flags are kept; ATLAS crops are not ported yet.
+``copy_frames`` flags are kept.
+
+ATLAS (``cfg.atlas``): each item reads a random replica ``{name}_R1..3``
+and is cropped at random to ``crop`` residues, or padded to it (mask 0),
+with ONE more residue column in front, the left context: the residue before
+the crop, or a zero, mask-0 column at the chain's start. The tokenizer reads
+the first residue's phi and omega from it and drops it. The draws come in
+the JAX dataset's order (replica, frame start, crop start), so the same
+generator state gives the same items.
 """
 from __future__ import annotations
 
@@ -16,6 +24,16 @@ from typing import Optional
 import numpy as np
 
 from ..geometry import constants as rc
+
+
+def _prepend_ctx_pad(cfg, atom14, seqres_idx, mask):
+    """Prepend an all-zero, mask-0 left-context column (chain start)."""
+    atom14 = np.concatenate(
+        [np.zeros((cfg.num_frames, 1, 14, 3), atom14.dtype), atom14], axis=1
+    )
+    seqres_idx = np.concatenate([np.zeros(1, seqres_idx.dtype), seqres_idx])
+    mask = np.concatenate([np.zeros(1, np.float32), mask])
+    return atom14, seqres_idx, mask
 
 
 def read_split(path: str) -> dict:
@@ -29,11 +47,6 @@ class MDGenDataset:
                  seed: Optional[int] = None):
         """``seed`` seeds the window draws (None: fresh entropy, as the JAX
         package does)."""
-        if cfg.atlas:
-            raise NotImplementedError(
-                "ATLAS crops and tokenization are not ported to mdgen_tpu_torch yet "
-                "(ROADMAP queue 1, item 3)"
-            )
         self.cfg = cfg
         self.split = read_split(split)
         self.names = list(self.split)
@@ -54,6 +67,8 @@ class MDGenDataset:
             seqres = self.split[name]
         else:
             name = seqres = cfg.overfit_peptide
+        if cfg.atlas:
+            name = f"{name}_R{self.rng.integers(1, 4)}"
 
         arr = np.lib.format.open_memmap(
             os.path.join(self.data_dir, f"{name}{cfg.suffix}.npy"), "r"
@@ -67,10 +82,35 @@ class MDGenDataset:
         atom14 = np.array(arr[frame_start : frame_start + cfg.num_frames], dtype=np.float32)
         if cfg.copy_frames:
             atom14[1:] = atom14[0]
+        seqres_idx = rc.str_sequence_to_aatype(seqres)
+        mask = np.ones(atom14.shape[1], dtype=np.float32)
+        if cfg.atlas:
+            atom14, seqres_idx, mask = self._atlas_crop(atom14, seqres_idx, mask)
         return {
             "name": name,
             "frame_start": int(frame_start),
             "atom14": atom14,
-            "seqres": rc.str_sequence_to_aatype(seqres),
-            "mask": np.ones(atom14.shape[1], dtype=np.float32),
+            "seqres": seqres_idx,
+            "mask": mask,
         }
+
+    def _atlas_crop(self, atom14, seqres_idx, mask):
+        """Crop at random or pad to ``crop`` residues, plus the left-context
+        column: [crop + 1] wide."""
+        cfg = self.cfg
+        L = atom14.shape[1]
+        if L > cfg.crop:
+            start = self.rng.integers(0, L - cfg.crop + 1)
+            lo = max(start - 1, 0)
+            atom14 = atom14[:, lo:start + cfg.crop]
+            seqres_idx = seqres_idx[lo:start + cfg.crop]
+            mask = mask[lo:start + cfg.crop].copy()
+            if start == 0:
+                return _prepend_ctx_pad(cfg, atom14, seqres_idx, mask)
+            return atom14, seqres_idx, mask
+        pad = cfg.crop - L
+        atom14 = np.concatenate([atom14, np.zeros((cfg.num_frames, pad, 14, 3), atom14.dtype)],
+                                axis=1)
+        seqres_idx = np.concatenate([seqres_idx, np.zeros(pad, seqres_idx.dtype)])
+        mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+        return _prepend_ctx_pad(cfg, atom14, seqres_idx, mask)

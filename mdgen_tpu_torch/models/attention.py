@@ -12,7 +12,9 @@ logits), "chunked" (blockwise online softmax, ``ops.chunked_attention``),
 "flash" (``ops.flash_attention``: the hand-written CUDA kernels on the GPU,
 differentiable through their backward kernels) and "auto" (dense up to 512
 keys, else flash). "flash" below 513 keys is dense too. The frame axis of
-the 4AA training recipe (T=1000 frames, 1001 keys) takes flash.
+the 4AA training recipe (T=1000 frames, 1001 keys) takes flash. Dropout on
+the probabilities (training with ``cfg.dropout > 0``: a ``layers.Dropout``
+passed in) forces the dense route, as in JAX.
 """
 from __future__ import annotations
 
@@ -83,9 +85,10 @@ class RoPEAttention(nn.Module):
         for p in (self.bias_k, self.bias_v):
             nn.init.normal_(p, std=std, generator=generator)
 
-    def forward(self, x: torch.Tensor, mask=None, axis: int = -2):
+    def forward(self, x: torch.Tensor, mask=None, axis: int = -2, drop=None):
         """x: [B, S, C] or [B, T, L, C]; mask matches x's leading shape with
-        1 = valid key. Returns x's shape in the compute dtype."""
+        1 = valid key; ``drop``: a ``layers.Dropout`` for the probabilities
+        (training only). Returns x's shape in the compute dtype."""
         squeeze = False
         if x.ndim == 3:
             x = x[:, None]
@@ -124,18 +127,18 @@ class RoPEAttention(nn.Module):
             q = q * cos[tuple(sl)] + rotate_half(q) * sin[tuple(sl)]
             k = k * cos + rotate_half(k) * sin
 
-        impl = resolve_impl(self.impl, S + 1)
+        impl = "dense" if drop is not None else resolve_impl(self.impl, S + 1)
         if impl == "dense":
-            out = self._dense_attention(q, k, v, mask, axis)
+            out = self._dense_attention(q, k, v, mask, axis, drop)
         else:
             out = self._folded_attention(q, k, v, mask, axis, impl)
         out = dense(out.reshape(B, T, L, C), self.out_proj, self.dtype)
         return out[:, 0] if squeeze else out
 
     @staticmethod
-    def _dense_attention(q, k, v, mask, axis):
+    def _dense_attention(q, k, v, mask, axis, drop=None):
         """Einsum logits; the probabilities are cast to the compute dtype
-        before P.V. Returns [B, T, L, H, hd]."""
+        (then dropped out by ``drop``) before P.V. Returns [B, T, L, H, hd]."""
         if axis == 2:
             logits = torch.einsum("btqhd,btkhd->bthqk", q, k)
             key_mask = mask[:, :, None, None, :] if mask is not None else None
@@ -146,6 +149,8 @@ class RoPEAttention(nn.Module):
         if key_mask is not None:
             logits = torch.where(key_mask > 0, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        if drop is not None:
+            probs = drop(probs)
         if axis == 2:
             return torch.einsum("bthqk,btkhd->btqhd", probs, v)
         return torch.einsum("blhqk,bklhd->bqlhd", probs, v)

@@ -6,7 +6,9 @@ Layout traps kept from the JAX module:
     runs in f32 (point distances are numerically sensitive);
   * softplus head weights are scaled by sqrt(1/(3*Pq*9/2));
   * the frame-mask term is 1e5*(m2 - 1);
-  * ``linear_out`` reads [o, o_pt x, o_pt y, o_pt z, |o_pt|].
+  * ``linear_out`` reads [o, o_pt x, o_pt y, o_pt z, |o_pt|];
+  * dropout (training only, a ``layers.Dropout``) acts on the attention
+    weights after the softmax and the cast to the input's dtype.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ class InvariantPointAttention(nn.Module):
         nn.init.constant_(self.head_weights, _POINT_WEIGHT_INIT)
         zeros_(self.linear_out)
 
-    def forward(self, s: torch.Tensor, frames: Rigid, frame_mask=None):
-        """s [..., L, C]; frames broadcastable to [..., L]; frame_mask [..., L]."""
+    def forward(self, s: torch.Tensor, frames: Rigid, frame_mask=None, drop=None):
+        """s [..., L, C]; frames broadcastable to [..., L]; frame_mask [..., L];
+        ``drop`` a ``layers.Dropout`` or None."""
         H, ch = self.no_heads, self.c_hidden
         Pq, Pv = self.no_qk_points, self.no_v_points
         lead = s.shape[:-1]
@@ -78,6 +81,8 @@ class InvariantPointAttention(nn.Module):
             m2 = frame_mask[..., :, None] * frame_mask[..., None, :]
             a = a + (self.inf * (m2 - 1.0))[..., None, :, :]
         a = torch.softmax(a.float(), dim=-1).to(s.dtype)
+        if drop is not None:
+            a = drop(a)
 
         o = torch.einsum("...hqk,...khc->...qhc", *_promote(a, v)).reshape(*lead, H * ch)
         o_pt = torch.einsum("...hqk,...khpc->...qhpc", *_promote(a, v_pts))

@@ -2,39 +2,54 @@
 
 A DiT over (B, T, L, C) latents with factorized attention (residue axis L,
 frame axis T), per-layer adaLN-zero with 9 chunks, and the prepend-IPA tower
-over the key frame. Ported configurations: forward simulation
-(``sim_condition``, optionally ``prepend_ipa``, ``abs_pos_emb``,
-``abs_time_emb``; upsampling is ``sim_condition`` with ``cond_interval``),
-transition-path sampling and inpainting (``tps_condition`` /
-``inpainting``: the IPA tower runs twice, once from each endpoint, over the
-relative transforms between them), and sequence design (``design``: 20
-simplex channels, a head of logits pooled over T and, at inference, the
-Dirichlet conditional flow; the ``mpnn`` and ``dynamic_mpnn`` modes predict
-the sequence from one or two key frames). Module
-and parameter names follow the JAX tree, so a flax parameter tree converts
-by renaming and transposing
+over the key frame. Every configuration of the JAX model is ported: forward
+simulation (``sim_condition``, optionally ``prepend_ipa``, ``abs_pos_emb``,
+``abs_time_emb``; upsampling is ``sim_condition`` with ``cond_interval``;
+ATLAS proteins are the same model at crop 256), transition-path sampling and
+inpainting (``tps_condition`` / ``inpainting``: the IPA tower runs twice,
+once from each endpoint, over the relative transforms between them),
+sequence design (``design``: 20 simplex channels, a head of logits pooled
+over T and, at inference, the Dirichlet conditional flow; the ``mpnn`` and
+``dynamic_mpnn`` modes predict the sequence from one or two key frames), the
+Hyena frame mixer (``hyena``, ``hyena.py``, in place of the frame
+attention), an IPA in every trunk layer (``interleave_ipa``, over the key
+frames broadcast along T) and the raw-atom37 ablation (``no_frames``: the
+111-channel latent, no frames). Module and parameter names follow the JAX
+tree, so a flax parameter tree converts by renaming and transposing
 (``interop.jax_params_to_state_dict``).
 
 With ``cfg.fused_block`` and L <= 16 each trunk layer runs as three fused
 serving sublayers (``ops/``): hand-written CUDA kernels on the GPU, their
 plain twins on the CPU; they are forward-only, and the training model is
-built with ``fused_block=False``. The IPA tower's residue attention stays
-unfused, as in the JAX package. The unfused frame attention takes
-``cfg.attn_impl``: at the training recipe's T=1000 "auto" picks the flash
-kernels (``ops/flash_attention.py``), forward and backward.
+built with ``fused_block=False``. Under ``hyena`` the frame sublayer is the
+Hyena operator, unfused. The IPA tower's residue attention stays unfused, as
+in the JAX package. The unfused frame attention takes ``cfg.attn_impl``: at
+the training recipe's T=1000 "auto" picks the flash kernels
+(``ops/flash_attention.py``), forward and backward; the residue attention
+takes "auto" too (flash above 512 residues, when sampling a long protein).
+
+Training options: ``dropout`` (on the attention probabilities of every
+attention and IPA, dense route; active only when the caller passes
+``dropout_seed``, as the train step does) and ``grad_checkpointing`` (each
+trunk layer under non-reentrant ``torch.utils.checkpoint``; the layer draws
+its dropout masks from a generator it seeds itself, so the recompute draws
+the same ones).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import torch_dtype
 from ..transport.dirichlet import DirichletConditionalFlow, simplex_proj
 from ..transport.transport import t_to_alpha
 from .attention import RoPEAttention
+from .hyena import HyenaOperator
 from .ipa import InvariantPointAttention
 from .layers import (
+    Dropout,
     FinalLayer,
     TimestepEmbedder,
     dense,
@@ -46,20 +61,15 @@ from .layers import (
     zeros_,
 )
 
-# unported options -> the ROADMAP item that ports them
-_UNPORTED = {
-    "hyena": "--hyena",
-    "interleave_ipa": "remaining model options (interleave_ipa)",
-    "no_frames": "remaining model options (no_frames)",
-}
+def affine_layer_norm(norm: nn.LayerNorm, x):
+    """flax ``nn.LayerNorm`` (scale and bias) in f32, its parameters widened."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps)
 
 
-def check_ported(cfg) -> None:
-    for flag, item in _UNPORTED.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"cfg.{flag} is not ported to mdgen_tpu_torch yet (ROADMAP: {item})"
-            )
+def _ipa(cfg, dt):
+    return InvariantPointAttention(cfg.embed_dim, cfg.ipa_head_dim, cfg.ipa_heads, cfg.ipa_qk,
+                                   cfg.ipa_v, dtype=dt)
 
 
 class IPALayer(nn.Module):
@@ -69,9 +79,7 @@ class IPALayer(nn.Module):
         super().__init__()
         C = cfg.embed_dim
         self.dt = torch_dtype(cfg)
-        self.ipa = InvariantPointAttention(
-            C, cfg.ipa_head_dim, cfg.ipa_heads, cfg.ipa_qk, cfg.ipa_v, dtype=self.dt
-        )
+        self.ipa = _ipa(cfg, self.dt)
         # flax LayerNorm default eps (1e-6), not torch's 1e-5
         self.ipa_norm = nn.LayerNorm(C, eps=1e-6)
         self.mha_l = RoPEAttention(C, cfg.mha_heads, use_rope=not cfg.no_rope, dtype=self.dt)
@@ -86,13 +94,12 @@ class IPALayer(nn.Module):
         xavier_(self.fc1, generator)
         xavier_(self.fc2, generator)
 
-    def forward(self, x, mod, mask, frames):
-        """``mod``: this layer's 6-chunk slice of the tower-wide adaLN."""
+    def forward(self, x, mod, mask, frames, drop=None):
+        """``mod``: this layer's 6-chunk slice of the tower-wide adaLN;
+        ``drop``: a ``Dropout`` (training) or None."""
         sh_l, sc_l, g_l, sh_m, sc_m, g_m = mod.chunk(6, dim=-1)
-        n = self.ipa_norm
-        s = F.layer_norm(x.float(), n.normalized_shape, n.weight.float(), n.bias.float(), n.eps)
-        x = x + self.ipa(s, frames, frame_mask=mask)
-        h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(self.dt), mask)
+        x = x + self.ipa(affine_layer_norm(self.ipa_norm, x), frames, frame_mask=mask, drop=drop)
+        h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(self.dt), mask, drop=drop)
         x = x + g_l[:, None] * h
         h = modulate(layer_norm(x), sh_m, sc_m).to(self.dt)
         h = dense(gelu(dense(h, self.fc1, self.dt)), self.fc2, self.dt)
@@ -109,12 +116,22 @@ class LatentMDGenLayer(nn.Module):
         self.dt = torch_dtype(cfg)
         rope = not cfg.no_rope
         self.mha_l = RoPEAttention(C, cfg.mha_heads, use_rope=rope, dtype=self.dt)
-        self.mha_t = RoPEAttention(C, cfg.mha_heads, use_rope=rope, dtype=self.dt,
-                                   impl=cfg.attn_impl)
+        if cfg.hyena:
+            self.mha_t = HyenaOperator(C, l_max=cfg.num_frames, order=2, filter_order=64)
+        else:
+            self.mha_t = RoPEAttention(C, cfg.mha_heads, use_rope=rope, dtype=self.dt,
+                                       impl=cfg.attn_impl)
+        if cfg.interleave_ipa:
+            self.ipa = _ipa(cfg, self.dt)
+            self.ipa_norm = nn.LayerNorm(C, eps=1e-6)
         self.fc1 = nn.Linear(C, 4 * C)
         self.fc2 = nn.Linear(4 * C, C)
 
     def reset_parameters(self, generator=None):
+        if self.cfg.interleave_ipa:
+            self.ipa.reset_parameters(generator)
+            nn.init.ones_(self.ipa_norm.weight)
+            nn.init.zeros_(self.ipa_norm.bias)
         self.mha_l.reset_parameters(generator)
         self.mha_t.reset_parameters(generator)
         xavier_(self.fc1, generator)
@@ -129,23 +146,30 @@ class LatentMDGenLayer(nn.Module):
             compute_dtype=self.dt,
         )
 
-    def forward(self, x, mod, mask, frames=None):
+    def forward(self, x, mod, mask, frames=None, dropout_seed=None):
         """``mod``: this layer's 9-chunk slice of the trunk-wide adaLN,
-        [B, 1, 9C]; mask [B, T, L] (frame-constant)."""
+        [B, 1, 9C]; mask [B, T, L] (frame-constant); frames [B, L] (the key
+        frames, for ``interleave_ipa``); ``dropout_seed`` (training) seeds
+        this call's dropout masks."""
+        cfg = self.cfg
         B, T, L, C = x.shape
         dt = self.dt
         sh_l, sc_l, g_l, sh_t, sc_t, g_t, sh_m, sc_m, g_m = mod.chunk(9, dim=-1)
-        # the same gates as the JAX model: no dropout at inference, L <= 16,
-        # and T <= 1024 for the frame kernel (hyena is not ported)
-        use_fused = self.cfg.fused_block and L <= 16
-        use_fused_t = use_fused and T <= 1024
+        drop = None if dropout_seed is None else Dropout(cfg.dropout, dropout_seed, x.device)
+        if cfg.interleave_ipa:
+            x = x + self.ipa(affine_layer_norm(self.ipa_norm, x), frames.expand_dims(1),
+                             frame_mask=mask, drop=drop)
+        # the JAX model's gates: no dropout, L <= 16; for the frame kernel
+        # also T <= 1024 and no Hyena
+        use_fused = cfg.fused_block and L <= 16 and drop is None
+        use_fused_t = use_fused and not cfg.hyena and T <= 1024
         if use_fused:
             from ..ops import fused_l_sublayer
 
             x = self._fused_attn(fused_l_sublayer, self.mha_l, x, sh_l, sc_l, g_l, mask)
         else:
             # the reference reuses one no-affine LN for both attention sublayers
-            h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(dt), mask, axis=2)
+            h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(dt), mask, axis=2, drop=drop)
             x = x + g_l[:, None] * h
 
         if use_fused_t:
@@ -153,7 +177,12 @@ class LatentMDGenLayer(nn.Module):
 
             x = self._fused_attn(fused_t_sublayer, self.mha_t, x, sh_t, sc_t, g_t, mask)
         else:
-            h = self.mha_t(modulate(layer_norm(x), sh_t, sc_t).to(dt), mask, axis=1)
+            h = modulate(layer_norm(x), sh_t, sc_t).to(dt)
+            if cfg.hyena:
+                h = self.mha_t(h.transpose(1, 2).reshape(B * L, T, C))
+                h = h.reshape(B, L, T, C).transpose(1, 2)
+            else:
+                h = self.mha_t(h, mask, axis=1, drop=drop)
             x = x + g_t[:, None] * h
 
         if use_fused:
@@ -171,7 +200,6 @@ class LatentMDGenLayer(nn.Module):
 class LatentMDGenModel(nn.Module):
     def __init__(self, cfg, latent_dim: int):
         super().__init__()
-        check_ported(cfg)
         if not (cfg.sim_condition or cfg.tps_condition or cfg.inpainting or cfg.mpnn
                 or cfg.dynamic_mpnn):
             raise NotImplementedError(
@@ -256,13 +284,14 @@ class LatentMDGenModel(nn.Module):
         self.t_embedder.reset_parameters(generator)
         return self
 
-    def run_ipa(self, t, mask, start_frames, end_frames, aatype, x_d=None):
+    def run_ipa(self, t, mask, start_frames, end_frames, aatype, x_d, drops):
         """Key-frame tower: t [B, C], mask [B, L] -> [B, L, C]. sim and
         mpnn: one pass over ``start_frames``. tps, inpainting and
         dynamic_mpnn: the same layers and modulation over both endpoints,
         the reverse stream with the start frames and the forward stream with
         the end frames, as the JAX model pairs them. Under design each
-        stream starts with ``x_d_to_emb(x_d)`` added."""
+        stream starts with ``x_d_to_emb(x_d)`` added. ``drops``: each
+        layer's ``Dropout`` (training) or None."""
         cfg = self.cfg
         B, L = mask.shape
         aa = xd = None
@@ -278,25 +307,33 @@ class LatentMDGenModel(nn.Module):
         mods = dense(F.silu(t), self.ipa_adaln, self.dt).chunk(cfg.num_layers, dim=-1)
         if cfg.sim_condition or cfg.mpnn:
             x = embed(torch.zeros((B, L, cfg.embed_dim), device=t.device))
-            for layer, mod in zip(self.ipa_layers, mods):
-                x = layer(x, mod, mask, start_frames)
+            for layer, mod, drop in zip(self.ipa_layers, mods, drops):
+                x = layer(x, mod, mask, start_frames, drop)
             return x
         x_f = embed(dense(start_frames.invert().compose(end_frames).to_tensor_7(),
                           self.latent_to_emb_f))
         x_r = embed(dense(end_frames.invert().compose(start_frames).to_tensor_7(),
                           self.latent_to_emb_r))
-        for layer, mod in zip(self.ipa_layers, mods):
-            x_r = layer(x_r, mod, mask, start_frames)
-            x_f = layer(x_f, mod, mask, end_frames)
+        for layer, mod, drop in zip(self.ipa_layers, mods, drops):
+            x_r = layer(x_r, mod, mask, start_frames, drop)
+            x_f = layer(x_f, mod, mask, end_frames, drop)
         return x_r + x_f
 
     def forward(self, x, t, mask, start_frames=None, end_frames=None, x_cond=None,
-                x_cond_mask=None, aatype=None):
+                x_cond_mask=None, aatype=None, dropout_seed=None):
         """x [B, T, L, latent_dim] f32, t [B] -> velocity [B, T, L, latent_dim]
         (under design the last 20 channels carry the logits added on); the
         mpnn modes run on the first frame (``mpnn``) or the first and last
-        (``dynamic_mpnn``) and return the logits [B, 1, L, 20]."""
+        (``dynamic_mpnn``) and return the logits [B, 1, L, 20].
+        ``dropout_seed`` (an int; training with ``cfg.dropout > 0``) turns
+        dropout on: each IPA tower layer and each trunk layer draws its masks
+        from a seed of its own, drawn from this one on the host."""
         cfg = self.cfg
+        nl = cfg.num_layers
+        seeds = [None] * (2 * nl)
+        if dropout_seed is not None and cfg.dropout > 0:
+            seeds = torch.randint(0, 2**62, (2 * nl,),
+                                  generator=torch.Generator().manual_seed(dropout_seed)).tolist()
         if self.mpnn_mode:
             sel = [0, x.shape[1] - 1] if cfg.dynamic_mpnn else [0]
             x, x_cond = x[:, sel], x_cond[:, sel]
@@ -313,12 +350,19 @@ class LatentMDGenModel(nn.Module):
 
         t_emb = self.t_embedder(t * cfg.time_multiplier)[:, None]  # [B, 1, C]
         if cfg.prepend_ipa:
+            drops = [None if s is None else Dropout(cfg.dropout, s, x.device) for s in seeds[:nl]]
             x = x + self.run_ipa(t_emb[:, 0], mask[:, 0], start_frames, end_frames,
-                                 aatype, x_d)[:, None]
+                                 aatype, x_d, drops)[:, None]
 
         trunk_mods = dense(F.silu(t_emb), self.trunk_adaln, self.dt)
-        for layer, mod in zip(self.layers, trunk_mods.chunk(cfg.num_layers, dim=-1)):
-            x = layer(x, mod, mask, start_frames)
+        remat = cfg.grad_checkpointing and torch.is_grad_enabled()
+        for layer, mod, seed in zip(self.layers, trunk_mods.chunk(nl, dim=-1), seeds[nl:]):
+            if remat:
+                # the layer seeds its own masks (no global generator to restore)
+                x = checkpoint(layer, x, mod, mask, start_frames, seed, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, mod, mask, start_frames, seed)
         latent = None if self.mpnn_mode else self.emb_to_latent(x, t_emb)
         if not cfg.design:
             return latent

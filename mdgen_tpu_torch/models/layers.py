@@ -51,6 +51,26 @@ def timestep_embedding(t, dim, max_period=10000.0):
     return emb
 
 
+class Dropout:
+    """Train-time dropout on attention probabilities, the JAX placement:
+    ``p * keep_mask / keep`` with keep = 1 - rate, the mask Bernoulli(keep).
+    The masks come, in call order, from a generator seeded with ``seed`` on
+    ``device``. A trunk layer builds its own from its seed inside its
+    (possibly checkpointed) forward, so the recompute draws the same masks:
+    ``torch.utils.checkpoint`` restores only the global generators."""
+
+    def __init__(self, rate: float, seed: int, device):
+        self.keep = 1.0 - rate
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def mask(self, shape, device) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
+            self.keep, generator=self.generator)
+
+    def __call__(self, p: torch.Tensor) -> torch.Tensor:
+        return p * self.mask(p.shape, p.device).to(p.dtype) / self.keep
+
+
 def xavier_(lin: nn.Linear, generator=None):
     nn.init.xavier_uniform_(lin.weight, generator=generator)
     nn.init.zeros_(lin.bias)

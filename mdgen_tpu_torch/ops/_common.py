@@ -5,6 +5,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.autograd import forward_ad
 
 from ..models.attention import rotary_tables
 
@@ -56,12 +57,33 @@ def on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
+def refuse_tangent(name: str, *tensors) -> None:
+    """No kernel has a forward-mode derivative: a kernel reads its inputs'
+    storage and would drop a tangent (``torch.func.jvp`` runs without grad
+    mode, so ``refuse_grad`` does not see it). So every wrapper refuses a
+    tensor under a ``torch.func`` transform or carrying a ``forward_ad``
+    tangent, on any device, as the CUDA path would. Two cheap checks first:
+    no dual level and no transform active."""
+    if forward_ad._current_level < 0 and torch._C._functorch.peek_interpreter_stack() is None:
+        return
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and (
+                torch._C._functorch.is_functorch_wrapped_tensor(t)
+                or forward_ad.unpack_dual(t).tangent is not None):
+            raise RuntimeError(
+                f"{name} has no forward-mode derivative and refuses a tensor under a "
+                "torch.func transform or with a forward-mode tangent; run the model on the "
+                "dense route (fused_block off, attention over at most 512 keys)"
+            )
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """The fused sublayers are forward-only, as their JAX kernels are: their
     CUDA outputs are fresh tensors that no backward reaches. So they refuse
     to run where autograd would record them, on any device, instead of
     silently cutting the graph (the training model runs with
-    ``fused_block=False``)."""
+    ``fused_block=False``), and refuse forward-mode AD (``refuse_tangent``)."""
+    refuse_tangent(name, *tensors)
     if torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     ):

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import exact_f32, stream_ptr
+from ._common import exact_f32, refuse_tangent, stream_ptr
 
 NEG_INF = torch.finfo(torch.float32).min
 MAX_HEAD_DIM = 64
@@ -182,6 +182,7 @@ def _fwd(fn, q, k, v, bias, with_lse: bool):
 
 def flash_fwd(q, k, v, bias):
     """o = softmax(q k^T + bias) v in q.dtype (kernel 4)."""
+    refuse_tangent("flash_fwd", q, k, v, bias)
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, bias)[0]
     return _fwd(flash_fwd, q, k, v, bias, with_lse=False)[0]
@@ -189,6 +190,7 @@ def flash_fwd(q, k, v, bias):
 
 def flash_fwd_lse(q, k, v, bias):
     """(o in q.dtype, lse [N, Tq] f32) (kernel 5)."""
+    refuse_tangent("flash_fwd_lse", q, k, v, bias)
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, bias)
     return _fwd(flash_fwd_lse, q, k, v, bias, with_lse=True)
@@ -196,6 +198,7 @@ def flash_fwd_lse(q, k, v, bias):
 
 def flash_bwd_dq(q, k, v, bias, do, lse, delta):
     """dq in q.dtype (kernel 6); ``delta`` from :func:`attention_delta`."""
+    refuse_tangent("flash_bwd_dq", q, k, v, bias, do, lse, delta)
     if _on_cpu(q):
         return flash_bwd_dq_plain(q, k, v, bias, do, lse, delta)
     N, Tq, Tk, d = _check(q, k, v, bias, do, lse, delta)
@@ -212,6 +215,7 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta):
 
 def flash_bwd_dkv(q, k, v, bias, do, lse, delta):
     """(dk, dv in k's dtype, dbias [N, Tk] f32) (kernel 7)."""
+    refuse_tangent("flash_bwd_dkv", q, k, v, bias, do, lse, delta)
     if _on_cpu(q):
         return flash_bwd_dkv_plain(q, k, v, bias, do, lse, delta)
     N, Tq, Tk, d = _check(q, k, v, bias, do, lse, delta)
@@ -253,7 +257,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, bias):
-    """o = softmax(q k^T + bias) v; differentiable in q, k, v and bias."""
+    """o = softmax(q k^T + bias) v; differentiable in q, k, v and bias (by
+    autograd; forward-mode AD is refused)."""
+    refuse_tangent("flash_attention", q, k, v, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         return FlashAttention.apply(q, k, v, bias)
     return flash_fwd(q, k, v, bias)

@@ -4,5 +4,7 @@ from .wrapper import (  # noqa: F401
     TrainRuntime,
     TrainState,
     batch_to_device,
+    tokenize,
     tokenize_atom14,
+    tokenize_no_frames,
 )

@@ -1,6 +1,9 @@
 """Port of ``mdgen_tpu/runtime/wrapper.py``: inference for forward
 simulation, TPS, upsampling, inpainting and sequence design
-(:class:`MDGenRuntime`) and training (:class:`TrainRuntime`).
+(:class:`MDGenRuntime`) and training (:class:`TrainRuntime`), in every
+configuration of the JAX runtime: ATLAS crops (tokenized with their
+left-context column), the ``no_frames`` ablation (raw atom37 latents),
+dropout and gradient checkpointing.
 
 PyTorch runs eagerly: each rollout tokenizes its start frame on the device,
 integrates the probability-flow ODE over the denoiser with the configured
@@ -22,9 +25,11 @@ import torch
 from ..geometry import (
     atom14_to_atom37,
     atom14_to_frames,
+    atom37_to_atom14,
     atom37_to_torsions,
     frames_torsions_to_atom14,
 )
+from ..geometry import constants as rc
 from ..models import LatentMDGenModel
 from ..tasks import decode_latents, prep_batch
 from ..transport import Sampler, Transport, TransportConfig
@@ -39,12 +44,18 @@ def transport_config(cfg) -> TransportConfig:
                            discrete_loss_weight=cfg.discrete_loss_weight)
 
 
-def tokenize_atom14(batch: dict) -> dict:
+def tokenize_atom14(batch: dict, drop_left_context: bool = False) -> dict:
     """Raw atom14 windows -> (frames, torsions) tokens, on the batch's device.
 
     batch: {atom14 [B,T,L,14,3], seqres [B,L], mask [B,L]} -> {torsions,
     torsion_mask, trans, rots, seqres, mask}; padded residues get identity
     frames and a zero torsion mask.
+
+    ``drop_left_context``: column 0 is the ATLAS item's left-context residue
+    (``data.dataset``): its atoms give the first cropped residue its phi and
+    omega, then every output drops it. The atom mask is the residue type's
+    times the residue mask, so a mask-0 context column (the chain's start)
+    leaves that phi and omega masked.
     """
     atom14 = batch["atom14"].float()
     seqres, mask = batch["seqres"], batch["mask"]
@@ -53,7 +64,15 @@ def tokenize_atom14(batch: dict) -> dict:
 
     frames = atom14_to_frames(atom14)
     atom37 = atom14_to_atom37(atom14, aatype_btl)
-    torsions, torsion_mask = atom37_to_torsions(atom37, aatype_btl)
+    atom37_mask = None
+    if drop_left_context:
+        a37 = torch.as_tensor(rc.RESTYPE_ATOM37_MASK, dtype=torch.float32, device=atom14.device)
+        atom37_mask = a37[aatype_btl.long()] * mask[:, None, :, None]
+    torsions, torsion_mask = atom37_to_torsions(atom37, aatype_btl, all_atom_mask=atom37_mask)
+    if drop_left_context:
+        torsions, torsion_mask = torsions[:, :, 1:], torsion_mask[:, :, 1:]
+        frames = frames[:, :, 1:]
+        seqres, mask = seqres[:, 1:], mask[:, 1:]
 
     pad = (mask < 0.5)[:, None, :]
     eye = torch.eye(3, dtype=atom14.dtype, device=atom14.device).expand(frames.rots.shape)
@@ -67,6 +86,31 @@ def tokenize_atom14(batch: dict) -> dict:
         "seqres": seqres,
         "mask": mask,
     }
+
+
+def tokenize_no_frames(batch: dict) -> dict:
+    """Raw atom14 -> the ``no_frames`` ablation's batch: {atom37
+    [B,T,L,37,3], seqres [B,L], mask [B,L,37]}, the mask the residue type's
+    atom37 mask."""
+    atom14 = batch["atom14"].float()
+    seqres = batch["seqres"]
+    B, T, L = atom14.shape[:3]
+    atom37 = atom14_to_atom37(atom14, seqres[:, None].expand(B, T, L))
+    a37 = torch.as_tensor(rc.RESTYPE_ATOM37_MASK, dtype=torch.float32, device=atom14.device)
+    return {"atom37": atom37, "seqres": seqres, "mask": a37[seqres.long()]}
+
+
+def tokenize(cfg, batch: dict) -> dict:
+    """The runtime's tokenizer: a raw batch (atom14) is tokenized on its
+    device, a token dict passes through. ``no_frames`` takes atom37; an
+    ATLAS batch whose width is ``crop + 1`` carries the left-context column
+    (detected by shape, as the JAX runtime does) and drops it."""
+    if "atom14" not in batch:
+        return batch
+    if cfg.no_frames:
+        return tokenize_no_frames(batch)
+    drop_ctx = cfg.atlas and batch["atom14"].shape[2] == cfg.crop + 1
+    return tokenize_atom14(batch, drop_left_context=drop_ctx)
 
 
 def inference_param_cast(cfg, model: LatentMDGenModel) -> LatentMDGenModel:
@@ -86,8 +130,6 @@ def inference_param_cast(cfg, model: LatentMDGenModel) -> LatentMDGenModel:
 
 class MDGenRuntime:
     def __init__(self, cfg, model: LatentMDGenModel):
-        if cfg.no_frames or cfg.atlas:
-            raise NotImplementedError("no_frames / atlas tokenization is not ported yet")
         self.cfg = cfg
         self.model = model
         self.model_inf = inference_param_cast(cfg, model).eval()
@@ -101,10 +143,12 @@ class MDGenRuntime:
     def inference(self, batch: dict, generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None, stats: Optional[dict] = None):
         """noise -> ODE sample (``cfg.sampling_method``) -> (atom14 [B,T,L,14,3],
-        aatype [B,T,L]). A raw batch (atom14) is tokenized on its device; a
-        token dict (``tokenize_atom14``'s keys, e.g. upsampling windows)
-        passes through. ``noise`` [B,T,L,latent_dim] replaces the draw from
-        ``generator``; ``stats`` receives the solver's counts.
+        aatype [B,T,L]). A raw batch (atom14) is tokenized on its device
+        (``tokenize``); a token dict (``tokenize_atom14``'s keys, e.g.
+        upsampling windows) passes through. Under ``no_frames`` the samples
+        are atom37 coordinates, decoded to atom14. ``noise``
+        [B,T,L,latent_dim] replaces the draw from ``generator``; ``stats``
+        receives the solver's counts.
 
         Design: the start is N(0, I) over the continuous channels and
         Dirichlet(1) over [B, L, 20], broadcast over T (a given ``noise``
@@ -112,7 +156,7 @@ class MDGenRuntime:
         modes take one forward at t = 1 with zero simplex channels: aatype
         [B, 1, L] is its argmax, the atoms are those of the true tokens."""
         cfg = self.cfg
-        tok = tokenize_atom14(batch) if "atom14" in batch else batch
+        tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
         B, T, L = prep.model_kwargs["mask"].shape
         if cfg.dynamic_mpnn or cfg.mpnn:
@@ -138,6 +182,9 @@ class MDGenRuntime:
             num_steps=cfg.inference_steps, stats=stats,
         )
         samples = sample_fn(noise.float(), **prep.model_kwargs)
+        if cfg.no_frames:
+            aatype = tok["seqres"][:, None].expand(B, T, L)
+            return atom37_to_atom14(samples.reshape(B, T, L, 37, 3), aatype), aatype
         return decode_latents(cfg, samples, prep.rigids, tok["seqres"])
 
     @torch.inference_mode()
@@ -171,23 +218,6 @@ class MDGenRuntime:
 # -- training ------------------------------------------------------------------
 
 
-def check_trainable(cfg) -> None:
-    """Options that change training and are not ported raise here instead of
-    being ignored (serving accepts them: dropout does nothing at inference)."""
-    if cfg.dropout > 0:
-        raise NotImplementedError(
-            f"cfg.dropout={cfg.dropout}: training with dropout is not ported to "
-            "mdgen_tpu_torch yet (ROADMAP queue 1, item 14)"
-        )
-    if cfg.grad_checkpointing:
-        raise NotImplementedError(
-            "cfg.grad_checkpointing is not ported to mdgen_tpu_torch yet "
-            "(ROADMAP queue 1, item 14)"
-        )
-    if cfg.no_frames or cfg.atlas:
-        raise NotImplementedError("no_frames / atlas tokenization is not ported yet")
-
-
 def batch_to_device(batch: dict, device) -> dict:
     """A loader batch (numpy) -> {atom14 f32, seqres long, mask f32} tensors."""
     return {
@@ -210,7 +240,6 @@ class TrainRuntime:
     ``val_step``, ``eval_params`` and ``grad_report``."""
 
     def __init__(self, cfg, device="cpu"):
-        check_trainable(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         # the fused sublayers are forward-only: never in the training model
@@ -231,18 +260,29 @@ class TrainRuntime:
         ema = copy.deepcopy(model).requires_grad_(False) if self.cfg.ema else None
         return TrainState(0, model, self.tx.init(list(model.parameters())), ema)
 
-    def loss_fn(self, model, batch: dict, generator=None, t=None, x0=None, x_d=None):
+    def loss_fn(self, model, batch: dict, generator=None, t=None, x0=None, x_d=None,
+                train=True, dropout_seed=None):
         """Mean flow-matching loss and its metrics. A raw batch (atom14) is
         tokenized on its device; a token dict (``tokenize_atom14``'s output)
         passes through, as in the JAX runtime. Under ``design`` ``x_d``
         [B, L, 20] replaces the simplex draw, and the metrics add the
         argmax recovery of the designed (1:-1) and conditioning residues
-        and the two loss terms."""
+        and the two loss terms. With ``cfg.dropout > 0`` a train step's
+        model runs with dropout: its seed is ``dropout_seed``, else drawn
+        from ``generator`` before t and x0 (validation: ``train=False``,
+        no dropout)."""
         cfg = self.cfg
-        tok = tokenize_atom14(batch) if "atom14" in batch else batch
+        tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
+        kwargs = prep.model_kwargs
+        if train and cfg.dropout > 0:
+            if dropout_seed is None:
+                dev = generator.device if generator is not None else prep.latents.device
+                dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                                 device=dev))
+            kwargs = dict(kwargs, dropout_seed=dropout_seed)
         out = self.transport.training_losses(
-            model, prep.latents, prep.loss_mask, prep.model_kwargs,
+            model, prep.latents, prep.loss_mask, kwargs,
             generator=generator, t=t, x0=x0,
             aatype1=tok["seqres"] if cfg.design else None, x_d=x_d,
         )
@@ -258,18 +298,22 @@ class TrainRuntime:
             metrics["loss_discrete"] = out["loss_discrete"].detach().mean()
         return loss, metrics
 
-    def _grads(self, model, batch, generator=None, t=None, x0=None, x_d=None):
+    def _grads(self, model, batch, generator=None, t=None, x0=None, x_d=None,
+               dropout_seed=None):
         params = list(model.parameters())
-        loss, metrics = self.loss_fn(model, batch, generator, t, x0, x_d)
+        loss, metrics = self.loss_fn(model, batch, generator, t, x0, x_d,
+                                     dropout_seed=dropout_seed)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return params, grads, metrics
 
-    def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None):
+    def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None,
+                   dropout_seed=None):
         """One micro-step: gradient, optimizer (which applies an update on
         every ``accumulate_grad``-th call), EMA and the step counter, which
         both advance on every call. ``grad_norm`` is this micro-batch's."""
-        params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
+        params, grads, metrics = self._grads(state.model, batch, generator, t, x0,
+                                             dropout_seed=dropout_seed)
         metrics["grad_norm"] = global_norm(grads)
         self.tx.step(params, grads, state.opt_state)
         if state.ema is not None:
@@ -282,7 +326,7 @@ class TrainRuntime:
 
     @torch.no_grad()
     def val_step(self, model, batch: dict, generator=None, t=None, x0=None) -> dict:
-        return self.loss_fn(model, batch, generator, t, x0)[1]
+        return self.loss_fn(model, batch, generator, t, x0, train=False)[1]
 
     def eval_params(self, state: TrainState) -> LatentMDGenModel:
         """The model to evaluate with: the EMA copy when enabled."""

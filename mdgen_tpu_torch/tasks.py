@@ -1,9 +1,10 @@
 """Task layer: tokenized batches -> model inputs, and latents -> atoms.
 
-Port of ``mdgen_tpu/tasks.py`` (the frames path, and the upsampling
-window packing, numpy only). Latent layout per
-frame and residue: [offset tensor-7 (+7 reverse offsets for endpoint tasks)
-| 14 torsion sin/cos | 20 design simplex channels (design only)].
+Port of ``mdgen_tpu/tasks.py`` (the upsampling window packing numpy
+only). Latent layout per frame and residue: [offset tensor-7 (+7 reverse
+offsets for endpoint tasks) | 14 torsion sin/cos | 20 design simplex
+channels (design only)]; under ``no_frames`` the 111 flattened atom37
+coordinates.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def prep_batch(cfg, batch: dict) -> PreparedBatch:
     trans [B,T,L,3], rots [B,T,L,3,3], seqres [B,L], mask [B,L]} ->
     latents, loss mask and denoiser kwargs."""
     if cfg.no_frames:
-        raise NotImplementedError("no_frames: ROADMAP queue 1, remaining model options")
+        return prep_batch_no_frames(cfg, batch)
     rigids = Rigid(batch["rots"], batch["trans"])
     B, T, L = rigids.batch_shape
 
@@ -115,6 +116,27 @@ def prep_batch(cfg, batch: dict) -> PreparedBatch:
         "x_cond_mask": cond_mask,
     }
     return PreparedBatch(latents, loss_mask, rigids, model_kwargs)
+
+
+def prep_batch_no_frames(cfg, batch: dict) -> PreparedBatch:
+    """The raw-atom37 ablation: {atom37 [B,T,L,37,3], seqres [B,L], mask
+    [B,L,37]} -> latents [B,T,L,111] (the flattened coordinates), the loss
+    mask of the present atoms, the residue mask (from the N atom), and frame
+    0 given under ``sim_condition``; no frames."""
+    B, T, L = batch["atom37"].shape[:3]
+    latents = batch["atom37"].reshape(B, T, L, 111)
+    mask = batch["mask"][:, None, :, 1].expand(B, T, L)
+    loss_mask = batch["mask"][:, None, :, :, None].expand(B, T, L, 37, 3).reshape(B, T, L, 111)
+    cond_mask = torch.zeros((B, T, L), dtype=torch.int32, device=latents.device)
+    if cfg.sim_condition:
+        cond_mask[:, 0] = 1
+    model_kwargs = {
+        "mask": mask,
+        "aatype": batch["seqres"],
+        "x_cond": torch.where(cond_mask[..., None].bool(), latents, 0.0),
+        "x_cond_mask": cond_mask,
+    }
+    return PreparedBatch(latents, loss_mask, None, model_kwargs)
 
 
 def build_upsampling_windows(tok: dict, num_frames: int, cond_interval: int):

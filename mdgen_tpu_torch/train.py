@@ -77,9 +77,9 @@ def parse_args(argv=None):
 
 def _refuse_unported(args, cfg) -> None:
     if args.coordinator_address or args.num_processes or args.process_id is not None:
-        raise NotImplementedError("multi-host training is not ported (ROADMAP queue 1, item 15)")
+        raise NotImplementedError("multi-host training is not ported (ROADMAP queue 1, item 13)")
     if cfg.dp_size > 1:
-        raise NotImplementedError("--dp_size > 1 is not ported (ROADMAP queue 1, item 15)")
+        raise NotImplementedError("--dp_size > 1 is not ported (ROADMAP queue 1, item 13)")
     if args.wandb:
         raise NotImplementedError("--wandb is not ported: metrics go to log.out and CSVs")
 

@@ -1,9 +1,10 @@
 """Stochastic-interpolant coupling plans (port of ``mdgen_tpu/transport/paths.py``).
 
 x_t = alpha_t * x1 + sigma_t * x0, x0 ~ N(0, I) noise, x1 data; alpha grows
-from 0 to 1 as t goes 0 -> 1. Ported: what the probability-flow ODE drift
-needs (sigma, d(alpha)/alpha, the forward drift) and what the training loss
-needs (alpha, interpolate).
+from 0 to 1 as t goes 0 -> 1. Each plan gives the schedules, the
+score-parametrized forward drift, the SDE diffusion coefficient in the six
+forms of the reference, the converters between velocity, score and noise
+parametrizations, and the interpolation the training loss takes.
 """
 from __future__ import annotations
 
@@ -35,6 +36,44 @@ class LinearPlan:
         ratio = self.d_alpha_over_alpha(t)
         sigma_t, d_sigma_t = self.sigma(t)
         return -(ratio * x), ratio * sigma_t**2 - sigma_t * d_sigma_t
+
+    def diffusion(self, x, t, form="SBDM", norm=1.0):
+        """The SDE's diffusion coefficient g(t) (broadcast against x; a 0-d
+        tensor for ``constant``); an unknown form raises."""
+        t = expand_t(t, x)
+        if form == "constant":
+            return torch.tensor(norm, dtype=torch.float32, device=x.device)
+        if form == "SBDM":
+            return norm * self.drift(x, t)[1]
+        if form == "sigma":
+            return norm * self.sigma(t)[0]
+        if form == "linear":
+            return norm * (1 - t)
+        if form == "decreasing":
+            return 0.25 * (norm * torch.cos(math.pi * t) + 1) ** 2
+        if form == "increasing-decreasing":
+            return norm * torch.sin(math.pi * t) ** 2
+        raise NotImplementedError(f"diffusion form {form}")
+
+    def score_from_velocity(self, velocity, x, t):
+        t = expand_t(t, x)
+        alpha_t, d_alpha_t = self.alpha(t)
+        sigma_t, d_sigma_t = self.sigma(t)
+        rev = alpha_t / d_alpha_t
+        var = sigma_t**2 - rev * d_sigma_t * sigma_t
+        return (rev * velocity - x) / var
+
+    def noise_from_velocity(self, velocity, x, t):
+        t = expand_t(t, x)
+        alpha_t, d_alpha_t = self.alpha(t)
+        sigma_t, d_sigma_t = self.sigma(t)
+        rev = alpha_t / d_alpha_t
+        var = rev * d_sigma_t - sigma_t
+        return (rev * velocity - x) / var
+
+    def velocity_from_score(self, score, x, t):
+        drift, var = self.drift(x, t)
+        return var * score - drift
 
     def interpolate(self, t, x0, x1):
         """Returns (x_t, u_t): the noisy sample and the target velocity."""

@@ -1,9 +1,10 @@
 """Flow-matching transport (port of ``mdgen_tpu/transport/transport.py``):
 the training loss (with the Dirichlet flow of the 20 sequence-design
 channels, ``dirichlet.py``), the sampling interval, the probability-flow
-drift and ODE sampling."""
+drift and score, ODE and SDE sampling, and the ODE log-likelihood."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -168,6 +169,15 @@ class Transport:
 
         return {"velocity": velocity_ode, "score": score_ode, "noise": noise_ode}[pred]
 
+    def score_fn(self, model_fn: Callable) -> Callable:
+        """The score under the configured parametrization."""
+        pred, plan = self.cfg.prediction, self.plan
+        if pred == "noise":
+            return lambda x, t, **kw: model_fn(x, t, **kw) / -plan.sigma(expand_t(t, x))[0]
+        if pred == "score":
+            return model_fn
+        return lambda x, t, **kw: plan.score_from_velocity(model_fn(x, t, **kw), x, t)
+
 
 def _cross_entropy(logits, labels):
     """Token-mean cross entropy over 20 classes; ``labels`` broadcast
@@ -205,5 +215,108 @@ class Sampler:
 
         def sample(x, **model_kwargs):
             return solve(lambda xx, tt: drift(xx, tt, **model_kwargs), x)
+
+        return sample
+
+    def sample_sde(self, model_fn: Callable, *, sampling_method: str = "Euler",
+                   diffusion_form: str = "SBDM", diffusion_norm: float = 1.0,
+                   last_step: Optional[str] = "Mean", last_step_size: float = 0.04,
+                   num_steps: int = 250, stats: Optional[dict] = None) -> Callable:
+        """Returns ``sample(x_init, generator=None, noise=None, **model_kwargs)
+        -> x_final``: Euler-Maruyama (``Euler``) or stochastic Heun
+        (``Heun``) over the SDE drift f + g * score, then the last step
+        ``Mean`` (x + (f + g score) * last_step_size), ``Tweedie`` (x /
+        alpha(t1) + sigma(t1)^2 / alpha(t1) * score), ``Euler`` (x + f *
+        last_step_size) or None (no last step, and t1 = 1). ``noise`` [num_steps
+        - 1, *x.shape] replaces the per-step draws from ``generator``. Each
+        SDE drift evaluates the model once. An unknown method or last step
+        raises."""
+        if sampling_method not in ("Euler", "Heun"):
+            raise NotImplementedError(f"SDE sampling_method={sampling_method!r}: the SDE "
+                                      "samplers are Euler, Heun")
+        if last_step not in (None, "Mean", "Tweedie", "Euler"):
+            raise NotImplementedError(f"last_step={last_step!r}: Mean, Tweedie, Euler or None")
+        transport, plan = self.transport, self.transport.plan
+        drift = transport.drift_fn(model_fn)
+        score = transport.score_fn(model_fn)
+
+        def diffusion(x, t):
+            return plan.diffusion(x, t, form=diffusion_form, norm=diffusion_norm)
+
+        def sde_drift(x, t, **kw):
+            # one model evaluation feeds both the drift and the score (the
+            # JAX expression calls the model twice with the same inputs)
+            out = model_fn(x, t, **kw)
+            once = lambda *_, **__: out  # noqa: E731
+            return (transport.drift_fn(once)(x, t)
+                    + diffusion(x, t) * transport.score_fn(once)(x, t))
+
+        if last_step is None:
+            last_step_size = 0.0
+        t0, t1 = transport.check_interval(sde=True, eval=True, diffusion_form=diffusion_form,
+                                          last_step_size=last_step_size)
+        solve = integrators.sde_euler_maruyama if sampling_method == "Euler" else \
+            integrators.sde_heun
+
+        def last_step_fn(x, t, **kw):
+            if last_step == "Mean":
+                return x + sde_drift(x, t, **kw) * last_step_size
+            if last_step == "Tweedie":
+                t1v = torch.tensor(t1, dtype=torch.float32, device=x.device)
+                a, s = plan.alpha(t1v)[0], plan.sigma(t1v)[0]
+                return x / a + (s**2 / a) * score(x, t, **kw)
+            if last_step == "Euler":
+                return x + drift(x, t, **kw) * last_step_size
+            return x
+
+        def sample(x, generator=None, noise=None, **model_kwargs):
+            xs = solve(lambda xx, tt: sde_drift(xx, tt, **model_kwargs), diffusion, x, t0, t1,
+                       num_steps, generator=generator, noise=noise, stats=stats)
+            tvec = torch.full((x.shape[0],), t1, dtype=torch.float32, device=x.device)
+            return last_step_fn(xs, tvec, **model_kwargs)
+
+        return sample
+
+    def sample_ode_likelihood(self, model_fn: Callable, *, sampling_method: str = "dopri5",
+                              num_steps: int = 50, atol: float = 1e-6, rtol: float = 1e-3,
+                              stats: Optional[dict] = None) -> Callable:
+        """Returns ``sample(x_data, generator=None, eps=None, **model_kwargs)
+        -> (log p [B], z)``: the Hutchinson estimate with a Rademacher ``eps``
+        (drawn from ``generator`` unless given), integrating the pair (x,
+        log p) from the data to the noise with dopri5, euler or heun; the
+        divergence is eps . (J eps) by ``torch.func.jvp``. Forward-mode AD
+        does not pass the hand-written kernels (their wrappers refuse a
+        tangent): run the model on the dense route (``fused_block`` off, no
+        flash, as at 512 keys or fewer)."""
+        t0, t1 = self.transport.check_interval(sde=False, eval=True)
+        solvers = {
+            "euler": lambda f, s: integrators.ode_euler(f, s, t0, t1, num_steps, stats=stats),
+            "heun": lambda f, s: integrators.ode_heun(f, s, t0, t1, num_steps, stats=stats),
+            "dopri5": lambda f, s: integrators.ode_dopri5(f, s, t0, t1, rtol=rtol, atol=atol,
+                                                          stats=stats),
+        }
+        if sampling_method not in solvers:
+            raise NotImplementedError(f"sampling_method={sampling_method!r}: the likelihood "
+                                      f"solvers are {', '.join(solvers)}")
+        solve = solvers[sampling_method]
+        drift = self.transport.drift_fn(model_fn)
+
+        def sample(x_data, generator=None, eps=None, **model_kwargs):
+            if eps is None:
+                eps = torch.randint(0, 2, x_data.shape, generator=generator,
+                                    device=x_data.device).to(x_data.dtype) * 2 - 1
+            dims = tuple(range(1, x_data.ndim))
+
+            def aug_drift(state, t):
+                x, _ = state
+                rev_t = 1 - t
+                fx, jvp = torch.func.jvp(lambda xx: drift(xx, rev_t, **model_kwargs), (x,),
+                                         (eps,))
+                return -fx, (jvp * eps).sum(dims)
+
+            init = (x_data, x_data.new_zeros(x_data.shape[0]))
+            z, delta_logp = solve(aug_drift, init)
+            prior_logp = -0.5 * z[0].numel() * math.log(2 * math.pi) - 0.5 * z.square().sum(dims)
+            return prior_logp - delta_logp, z
 
         return sample

@@ -65,7 +65,7 @@ def _setup(kw, seed=0):
     B, T, L = 2, cfg.num_frames, cfg.crop
     x = rng.normal(size=(B, T, L, cfg.latent_dim)).astype(np.float32)
     t = np.asarray([0.3, 0.7], np.float32)
-    params = JaxModel(cfg, cfg.latent_dim).init(
+    params = jax.jit(JaxModel(cfg, cfg.latent_dim).init)(
         jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t), **prep_j.model_kwargs
     )["params"]
     noise = np.random.default_rng(seed + 1)
@@ -80,7 +80,7 @@ def _setup(kw, seed=0):
 
 def _jax_forward(cfg, params, prep_j, x, t):
     with jax.default_matmul_precision("highest"):
-        return np.asarray(JaxModel(cfg, cfg.latent_dim).apply(
+        return np.asarray(jax.jit(JaxModel(cfg, cfg.latent_dim).apply)(
             {"params": params}, jnp.asarray(x), jnp.asarray(t), **prep_j.model_kwargs
         ))
 

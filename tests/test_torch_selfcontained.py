@@ -117,6 +117,10 @@ TPS_UPSAMPLING = ["mdgen_tpu_torch.tps_inference", "mdgen_tpu_torch.upsampling_i
 # and inpainting and design
 DESIGN = ["mdgen_tpu_torch.design_inference", "mdgen_tpu_torch.analyze_peptide_design",
           "mdgen_tpu_torch.transport.dirichlet"]
+# and Hyena, the ATLAS dataset, the no_frames and SDE / likelihood modules
+OPTIONS = ["mdgen_tpu_torch.models.hyena", "mdgen_tpu_torch.models.layers",
+           "mdgen_tpu_torch.data.dataset", "mdgen_tpu_torch.tasks",
+           "mdgen_tpu_torch.transport.paths", "mdgen_tpu_torch.transport.transport"]
 
 
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
@@ -124,7 +128,7 @@ def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
     if which == "package":
-        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN)
+        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS)
         assert want <= set(names), want - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr

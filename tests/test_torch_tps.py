@@ -23,7 +23,8 @@
   the JAX package is refused.
 * ``python -m mdgen_tpu_torch.analyze_peptide_tps`` against
   ``scripts/analyze_peptide_tps.py`` run in a subprocess on the same files.
-* The options the port still refuses raise ``NotImplementedError``.
+* The TPS CLI needs a card unless ``--device cpu`` is given, and refuses
+  ``--dp_size``.
 """
 import json
 import os
@@ -291,10 +292,3 @@ def test_tps_cli_needs_cuda_unless_cpu_is_asked_for(tps_run):
         tps_inference.main(["--sim_ckpt", str(tps_run["work"] / "ckpt"), "--data_dir", "."])
     with pytest.raises(NotImplementedError, match="dp_size"):
         tps_inference.main(["--sim_ckpt", ".", "--data_dir", ".", "--dp_size", "2"])
-
-
-@pytest.mark.parametrize("option", ["hyena", "interleave_ipa", "no_frames"])
-def test_unported_task_options_still_raise(option):
-    cfg = TorchConfig(**{**TINY, option: True})
-    with pytest.raises(NotImplementedError, match=option):
-        LatentMDGenModel(cfg, cfg.latent_dim)
