@@ -338,6 +338,24 @@ def _host_us(torch, fn, iters=200):
     return host
 
 
+def _probe_host_us(torch, call, args, iters=2000):
+    """The forward-mode refusal's host cost on a fused wrapper: its host µs
+    per call with ``refuse_tangent`` switched off (the wrapper as it was
+    before the refusal), and the probe alone on the same arguments."""
+    from mdgen_tpu_torch.ops import _common
+
+    probe = _common.refuse_tangent
+    _common.refuse_tangent = lambda *a: None
+    try:
+        without = _host_us(torch, call)
+    finally:
+        _common.refuse_tangent = probe
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        probe("probe", *args)
+    return without, (time.perf_counter() - t0) / iters * 1e6
+
+
 def _bound(n_bytes, flops, kind):
     """(ms, what bounds it): the least time for the work on this card."""
     t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
@@ -436,11 +454,15 @@ def phase_kernel_parity(torch):
             # and as device time
             res.update(ms=_time_ms(torch, call), plain_ms=_time_ms(torch, twin),
                        device_ms=device_ms, host_us=_host_us(torch, call))
+            res["host_us_no_tangent_probe"], res["tangent_probe_us"] = _probe_host_us(
+                torch, call, args)
             res["bound_ms"], res["bound_by"] = _sublayer_bound(torch, name, args, y, mask)
             log(f"[time] {name} bf16: eager through the wrapper (CUDA events, 20 calls): kernel "
                 f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms; device: kernel "
                 f"{device_ms:.4f} ms, plain {plain_device_ms:.4f} ms (CUDA graph of 20 calls); "
-                f"the wrapper's host time {res['host_us']:.1f} us per call; bound "
+                f"the wrapper's host time {res['host_us']:.1f} us per call "
+                f"({res['host_us_no_tangent_probe']:.1f} us with the forward-mode refusal off, "
+                f"the refusal alone {res['tangent_probe_us']:.2f} us); bound "
                 f"{res['bound_ms']:.5f} ms ({res['bound_by']}), {res['bound_ms'] / res['ms']:.2%} "
                 f"of it reached eagerly, {res['bound_ms'] / device_ms:.2%} in device time")
         results[name] = res
@@ -784,71 +806,110 @@ def seeded_model(torch, cfg):
     return model
 
 
-def phase_model_parity(torch, state_dict):
+def _start(torch):
+    """The main path's start frame, sequence and residue mask on the card."""
     import numpy as np
 
     from mdgen_tpu_torch.data import synthetic_trajectory
     from mdgen_tpu_torch.geometry import constants as rc
+
+    start = torch.from_numpy(synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32))[None]
+    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long()
+    return start.cuda(), seqres.cuda(), torch.ones(B, L, device="cuda")
+
+
+def _runtime(torch, cfg, state_dict):
+    """An MDGenRuntime for ``cfg`` with ``state_dict`` loaded, on the card."""
     from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime, tokenize_atom14
+    from mdgen_tpu_torch.runtime import MDGenRuntime
+
+    model = LatentMDGenModel(cfg, cfg.latent_dim)
+    model.load_state_dict(state_dict)
+    return MDGenRuntime(cfg, model.cuda())
+
+
+def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, rollouts=2,
+                       frame_kernel=True):
+    """Fused against dense from the same inputs, for the bench model or for
+    ``cfg`` (another configuration at the bench shape): one forward at
+    t = 0.4 in each precision of ``tols`` (its tolerance relative to
+    max(|out|, 1)), then ``rollouts`` f32 rollouts of 4 Euler steps (T = 100),
+    each fused rollout from the dense one's start, within 1e-3 A; the fused
+    rollouts launch kernels 1 and 3 (and 2 when ``frame_kernel``) once a layer
+    and an evaluation and no flash kernel, the dense ones nothing. Returns the
+    fused rollouts' launch counts."""
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.runtime import tokenize
     from mdgen_tpu_torch.tasks import prep_batch
 
-    start = torch.from_numpy(synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32))[None].cuda()
-    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long().cuda()
-    mask = torch.ones(B, L, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(1)
+    cfg = cfg or bench_config()
     # relative to max(|out|, 1): f32 sums in another order; under bf16-mixed
     # the dense path rounds q, k, logits and probs to bf16 where the fused
     # residue kernel keeps f32, as in the JAX package
-    for precision, tol in (("32-true", 1e-4), ("bf16-mixed", 1e-2)):
+    tols = tols or {"32-true": TOL["f32"], "bf16-mixed": TOL["bf16"]}
+    start, seqres, mask = _start(torch)
+    g = torch.Generator(device="cuda")
+    for precision, tol in tols.items():
         outs = {}
         for fused in (False, True):
-            cfg = bench_config(precision=precision, fused_block=fused)
-            model = LatentMDGenModel(cfg, cfg.latent_dim)
-            model.load_state_dict(state_dict)
-            rt = MDGenRuntime(cfg, model.cuda())
-            tok = tokenize_atom14({"atom14": start[:, None].expand(B, T, L, 14, 3),
-                                   "seqres": seqres, "mask": mask})
-            prep = prep_batch(cfg, tok)
-            x = torch.randn(B, T, L, cfg.latent_dim, device="cuda", generator=g.manual_seed(1))
-            t = torch.full((B,), 0.4, device="cuda")
+            c = cfg.replace(precision=precision, fused_block=fused)
+            rt = _runtime(torch, c, state_dict)
+            prep = prep_batch(c, tokenize(c, {"atom14": start[:, None].expand(B, T, L, 14, 3),
+                                              "seqres": seqres, "mask": mask}))
+            x = torch.randn(B, T, L, c.latent_dim, device="cuda", generator=g.manual_seed(1))
             with torch.inference_mode():
-                out = rt.model_inf(x, t, **prep.model_kwargs).float()
-            outs[fused] = out
+                outs[fused] = rt.model_inf(x, torch.full((B,), 0.4, device="cuda"),
+                                           **prep.model_kwargs).float()
+            del rt
         err = (outs[True] - outs[False]).abs().max().item()
         scale = outs[False].abs().max().item()
         ok = bool(torch.isfinite(outs[True]).all()) and scale > 1e-2 and err <= tol * max(scale, 1.0)
-        log(f"[model] 5x384x16 forward {precision}: fused vs dense max_abs_err {err:.3e} "
+        log(f"[{tag}] 5x384x16 forward {precision}: fused vs dense max_abs_err {err:.3e} "
             f"(|out| max {scale:.3f}), tol {tol:g} x max(|out|,1) -> {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"fused and dense forwards disagree ({precision}): {err}")
+            raise AssertionError(f"{tag}: fused and dense forwards disagree ({precision}): {err}")
 
-    # a short rollout (T=100, 4 Euler steps, 2 rollouts, f32), same noise; each
-    # fused rollout starts where the dense one did. Re-encoding a start is
-    # ill-conditioned at residue 0: its pre-omega torsion comes from a frame
-    # whose two padding atoms (the absent previous residue) coincide, so it is
-    # rounding noise that enters x_cond (as in the JAX package). A difference
-    # of an f32 ulp at the end of rollout 1 then gives rollout 2 another
-    # conditioning torsion, on either path: the chained figure is printed, not
-    # held.
-    noise = torch.randn(2, B, T, L, 21, device="cuda", generator=g.manual_seed(2))
-    rts = {}
-    for fused in (False, True):
-        cfg = bench_config(precision="32-true", fused_block=fused, inference_steps=4)
-        model = LatentMDGenModel(cfg, cfg.latent_dim)
-        model.load_state_dict(state_dict)
-        rts[fused] = MDGenRuntime(cfg, model.cuda())
-    dense = rts[False].rollout(start, seqres, mask, 2, noise=noise)
+    # Re-encoding a start is ill-conditioned at residue 0: its pre-omega
+    # torsion comes from a frame whose two padding atoms (the absent previous
+    # residue) coincide, so it is rounding noise that enters x_cond (as in the
+    # JAX package). A difference of an f32 ulp at the end of rollout 1 then
+    # gives rollout 2 another conditioning torsion, on either path: the
+    # chained figure is printed, not held.
+    noise = torch.randn(rollouts, B, T, L, cfg.latent_dim, device="cuda",
+                        generator=g.manual_seed(2))
+    rts = {fused: _runtime(torch, cfg.replace(precision="32-true", fused_block=fused,
+                                              sampling_method="euler", inference_steps=4),
+                           state_dict)
+           for fused in (False, True)}
+    ops.reset_launch_counts()
+    dense = rts[False].rollout(start, seqres, mask, rollouts, noise=noise)
+    torch.cuda.synchronize()
+    dense_counts = ops.launch_counts()
+    starts = [start] + [dense[:, r * T - 1] for r in range(1, rollouts)]
+    ops.reset_launch_counts()
     fused = torch.cat([rts[True].rollout(s, seqres, mask, 1, noise=noise[r:r + 1])
-                       for r, s in enumerate((start, dense[:, T - 1]))], dim=1)
-    chained = (rts[True].rollout(start, seqres, mask, 2, noise=noise) - dense).abs().max().item()
+                       for r, s in enumerate(starts)], dim=1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    chained = ""
+    if rollouts > 1:
+        diff = (rts[True].rollout(start, seqres, mask, rollouts, noise=noise) - dense).abs().max()
+        chained = f" (chained from its own start: {diff.item():.3e} A, not held)"
+    del rts
     err = (fused - dense).abs().max().item()
-    ok = bool(torch.isfinite(fused).all()) and err <= 1e-3
-    log(f"[model] rollout 2 x 100 frames, 4 Euler steps, f32, each fused rollout from the dense "
-        f"one's start: fused vs dense max_abs_err {err:.3e} A, tol 1e-3 A -> "
-        f"{'ok' if ok else 'FAIL'} (chained from its own start: {chained:.3e} A, not held)")
+    n = rollouts * 3 * cfg.num_layers  # 4 Euler steps: 3 evaluations
+    want = {"fused_l_sublayer": n, "fused_t_sublayer": n if frame_kernel else 0,
+            "fused_ffn_sublayer": n}
+    ok = (bool(torch.isfinite(fused).all()) and err <= 1e-3
+          and all(counts[k] == v for k, v in want.items())
+          and not any(counts[k] for k in FLASH_KERNELS) and not any(dense_counts.values()))
+    log(f"[{tag}] rollout {rollouts} x {T} frames, 4 Euler steps, f32, each fused rollout from "
+        f"the dense one's start: fused vs dense max_abs_err {err:.3e} A, tol 1e-3 A; launches "
+        f"fused {counts} (want {want}), dense {dense_counts} -> {'ok' if ok else 'FAIL'}{chained}")
     if not ok:
-        raise AssertionError(f"fused and dense rollouts disagree: {err} A")
+        raise AssertionError(f"{tag}: fused and dense rollouts disagree: {err} A, {counts}, "
+                             f"{dense_counts}")
+    return counts
 
 
 def phase_main_path(state_dict, smi):
@@ -901,17 +962,9 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     """One dopri5 rollout (T=100 frames) of the bench model: 32-true fused
     and dense from the same start and noise, then bf16-mixed fused. Returns
     the f32 fused solve's stats."""
-    import numpy as np
-
     from mdgen_tpu_torch import ops
-    from mdgen_tpu_torch.data import synthetic_trajectory
-    from mdgen_tpu_torch.geometry import constants as rc
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime
 
-    start = torch.from_numpy(synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32))[None].cuda()
-    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long().cuda()
-    mask = torch.ones(B, L, device="cuda")
+    start, seqres, mask = _start(torch)
     noise = torch.randn(1, B, T, L, 21, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(7))
     euler_fps = NUM_FRAMES / euler_rollout_s
@@ -919,9 +972,7 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     for name, precision, fused in (("f32 fused", "32-true", True), ("f32 dense", "32-true", False),
                                    ("bf16 fused", "bf16-mixed", True)):
         cfg = bench_config(precision=precision, fused_block=fused, sampling_method="dopri5")
-        model = LatentMDGenModel(cfg, cfg.latent_dim)
-        model.load_state_dict(state_dict)
-        rt = MDGenRuntime(cfg, model.cuda())
+        rt = _runtime(torch, cfg, state_dict)
         solves = []
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -944,7 +995,7 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
         if name == "bf16 fused" and not st["reached_t1"]:
             log(f"[dopri5] finding: the bf16-mixed fused solve spent max_steps "
                 f"({st['attempts']} attempts) and stopped at t = {st['t_final']:.6f} < 1")
-        del model, rt
+        del rt
     (fused, st, counts), (dense, _, dense_counts) = runs["f32 fused"], runs["f32 dense"]
     err = (fused - dense).abs().max().item()
     want = 5 * st["evals"]
@@ -1047,21 +1098,16 @@ def _fused_vs_dense(torch, cfg, state_dict, batch, noise):
     """One dopri5 solve of ``batch`` from ``noise`` in 32-true, fused and
     dense: {fused: (atoms, solver stats, launch counts)}."""
     from mdgen_tpu_torch import ops
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime
 
     runs = {}
     for fused in (True, False):
-        c = cfg.replace(precision="32-true", fused_block=fused)
-        model = LatentMDGenModel(c, c.latent_dim)
-        model.load_state_dict(state_dict)
-        rt = MDGenRuntime(c, model.cuda())
+        rt = _runtime(torch, cfg.replace(precision="32-true", fused_block=fused), state_dict)
         st = {}
         ops.reset_launch_counts()
         atoms, _ = rt.inference(batch, noise=noise, stats=st)
         torch.cuda.synchronize()
         runs[fused] = (atoms, st, ops.launch_counts())
-        del model, rt
+        del rt
     return runs
 
 
@@ -1312,8 +1358,6 @@ def _design(torch, smi, work):
     atoms, simplex channels and designed sequences."""
     import shutil
 
-    import numpy as np
-
     from mdgen_tpu_torch import design_inference, ops
     from mdgen_tpu_torch.geometry import constants as rc
     from mdgen_tpu_torch.runtime import checkpoint
@@ -1366,8 +1410,7 @@ def _design(torch, smi, work):
         raise AssertionError(f"design path: frames {frames}, solve {st}, launches {counts}")
 
     # the same windows and noise, fused and dense, 32-true
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime, tokenize_atom14
+    from mdgen_tpu_torch.runtime import tokenize_atom14
     from mdgen_tpu_torch.tasks import decode_latents, prep_batch
     from mdgen_tpu_torch.transport.dirichlet import sample_dirichlet
 
@@ -1380,9 +1423,7 @@ def _design(torch, smi, work):
     runs = {}
     for fused in (True, False):
         c = cfg.replace(precision="32-true", fused_block=fused)
-        model = LatentMDGenModel(c, c.latent_dim)
-        model.load_state_dict(state_dict)
-        rt = MDGenRuntime(c, model.cuda())
+        rt = _runtime(torch, c, state_dict)
         prep = prep_batch(c, tokenize_atom14(batch))
         solve = {}
         ops.reset_launch_counts()
@@ -1393,7 +1434,7 @@ def _design(torch, smi, work):
             atoms, aa = decode_latents(c, samples, prep.rigids, batch["seqres"])
         torch.cuda.synchronize()
         runs[fused] = (atoms, samples[..., -20:], aa, solve, ops.launch_counts())
-        del model, rt
+        del rt
     (fa, fs, faa, fst, fc), (da, ds, daa, dst, dc) = runs[True], runs[False]
     err = (fa - da).abs().max().item()
     serr = (fs - ds).abs().max().item()
@@ -1421,12 +1462,9 @@ def phase_mpnn(torch, smi):
     (T = 100, of which the model keeps the first frame, or the first and
     last), fused and dense in 32-true: the logits [B, 1, L, 20], and kernel 2
     at T = 1 and 2, seen through its wrapper."""
-    import numpy as np
-
     from mdgen_tpu_torch import ops
     from mdgen_tpu_torch.data import synthetic_trajectory
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime, tokenize_atom14
+    from mdgen_tpu_torch.runtime import tokenize_atom14
     from mdgen_tpu_torch.tasks import prep_batch
 
     md = synthetic_trajectory(SEQ, NUM_FRAMES + DESIGN_BATCH, seed=0)
@@ -1445,9 +1483,7 @@ def phase_mpnn(torch, smi):
         outs, counts = {}, {}
         for fused in (True, False):
             c = cfg.replace(precision="32-true", fused_block=fused)
-            model = LatentMDGenModel(c, c.latent_dim)
-            model.load_state_dict(state_dict)
-            rt = MDGenRuntime(c, model.cuda())
+            rt = _runtime(torch, c, state_dict)
             prep = prep_batch(c, tokenize_atom14(batch))
             x = torch.cat([prep.latents, prep.latents.new_zeros(*prep.latents.shape[:3], 20)], -1)
             seen_t.clear()
@@ -1461,7 +1497,7 @@ def phase_mpnn(torch, smi):
             finally:
                 ops.fused_t_sublayer = kernel_2
             counts[fused] = (ops.launch_counts(), sorted(set(seen_t)))
-            del model, rt
+            del rt
         err = (outs[True] - outs[False]).abs().max().item()
         scale = outs[False].abs().max().item()
         (fc, ft), (dc, _) = counts[True], counts[False]
@@ -1604,13 +1640,7 @@ def _profile_upsampling_window(torch, cfg, state_dict, window, smi):
     """One upsampling window (T = 1000, bf16-mixed, fused, dopri5) under
     torch.profiler, through MDGenRuntime.inference: device ms per kernel
     name, the device's busy share, and kernel 2's device µs per launch."""
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime
-
-    c = cfg.replace(fused_block=True)
-    model = LatentMDGenModel(c, c.latent_dim)
-    model.load_state_dict(state_dict)
-    rt = MDGenRuntime(c, model.cuda())
+    rt = _runtime(torch, cfg.replace(fused_block=True), state_dict)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rt.inference(window, gen)  # warm-up
     torch.cuda.synchronize()
@@ -1655,22 +1685,11 @@ def _profile_rollout(state_dict, unprofiled_s, smi):
     through the runtime that sim_inference drives, with its configuration
     and weights: device ms per kernel name, the device's busy share,
     launches per evaluation, frames/s."""
-    import numpy as np
     import torch
 
-    from mdgen_tpu_torch.data import synthetic_trajectory
-    from mdgen_tpu_torch.geometry import constants as rc
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime
-
     cfg = bench_config(fused_block=True)
-    model = LatentMDGenModel(cfg, cfg.latent_dim)
-    model.load_state_dict(state_dict)
-    rt = MDGenRuntime(cfg, model.to("cuda").eval())
-    frame0 = synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32)
-    start = torch.from_numpy(frame0)[None].cuda()
-    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long().cuda()
-    mask = torch.ones(B, L, device="cuda")
+    rt = _runtime(torch, cfg, state_dict)
+    start, seqres, mask = _start(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rt.rollout(start, seqres, mask, 1, generator=gen)  # warm-up
     torch.cuda.synchronize()
@@ -1857,87 +1876,12 @@ ATLAS_TRAIN, ATLAS_LONG = "7lao_A", "6sms_A"
 REMAT_STEPS = 3
 
 
-def _start(torch):
-    """The main path's start frame, sequence and residue mask on the card."""
-    import numpy as np
-
-    from mdgen_tpu_torch.data import synthetic_trajectory
-    from mdgen_tpu_torch.geometry import constants as rc
-
-    start = torch.from_numpy(synthetic_trajectory(SEQ, 1, seed=0)[0].astype(np.float32))[None]
-    seqres = torch.from_numpy(rc.str_sequence_to_aatype(SEQ)[None]).long()
-    return start.cuda(), seqres.cuda(), torch.ones(B, L, device="cuda")
-
-
-def _runtime(torch, cfg, state_dict):
-    from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.runtime import MDGenRuntime
-
-    model = LatentMDGenModel(cfg, cfg.latent_dim)
-    model.load_state_dict(state_dict)
-    return MDGenRuntime(cfg, model.cuda())
-
-
-def _f32_fused_vs_dense(torch, cfg, state_dict):
-    """32-true, fused and dense from the same inputs: one forward at t = 0.4
-    and a rollout of 4 Euler steps (T = 100) from the same start and noise.
-    Returns (forward max abs err, |out| max, rollout max |atoms| err in A,
-    the fused rollout's launch counts, the dense one's, finite)."""
-    from mdgen_tpu_torch import ops
-    from mdgen_tpu_torch.runtime import tokenize
-    from mdgen_tpu_torch.tasks import prep_batch
-
-    start, seqres, mask = _start(torch)
-    g = torch.Generator(device="cuda")
-    outs, atoms, counts = {}, {}, {}
-    for fused in (True, False):
-        c = cfg.replace(precision="32-true", fused_block=fused, sampling_method="euler",
-                        inference_steps=4)
-        rt = _runtime(torch, c, state_dict)
-        prep = prep_batch(c, tokenize(c, {"atom14": start[:, None].expand(B, T, L, 14, 3),
-                                          "seqres": seqres, "mask": mask}))
-        x = torch.randn(B, T, L, c.latent_dim, device="cuda", generator=g.manual_seed(1))
-        with torch.inference_mode():
-            outs[fused] = rt.model_inf(x, torch.full((B,), 0.4, device="cuda"),
-                                       **prep.model_kwargs).float()
-        noise = torch.randn(1, B, T, L, c.latent_dim, device="cuda", generator=g.manual_seed(2))
-        ops.reset_launch_counts()
-        atoms[fused] = rt.rollout(start, seqres, mask, 1, noise=noise)
-        torch.cuda.synchronize()
-        counts[fused] = ops.launch_counts()
-        del rt
-    return ((outs[True] - outs[False]).abs().max().item(), outs[False].abs().max().item(),
-            (atoms[True] - atoms[False]).abs().max().item(), counts[True], counts[False],
-            bool(torch.isfinite(atoms[True]).all() and torch.isfinite(outs[True]).all()))
-
-
-def _check_option(tag, cfg, state_dict, torch, frame_kernel=True):
-    """_f32_fused_vs_dense held: the forward within TOL["f32"] x max(|out|, 1),
-    the rollout within 1e-3 A (phase 4's bound), one launch a layer and an
-    evaluation of kernels 1 and 3 (and of kernel 2 when ``frame_kernel``),
-    none dense."""
-    err, scale, roll, fc, dc, finite = _f32_fused_vs_dense(torch, cfg, state_dict)
-    n = 3 * cfg.num_layers  # 3 evaluations
-    want = {"fused_l_sublayer": n, "fused_t_sublayer": n if frame_kernel else 0,
-            "fused_ffn_sublayer": n}
-    ok = (finite and scale > 1e-2 and err <= TOL["f32"] * max(scale, 1.0) and roll <= 1e-3
-          and all(fc[k] == v for k, v in want.items()) and not any(dc.values())
-          and not any(fc[k] for k in FLASH_KERNELS))
-    log(f"[{tag}] fused vs dense, 32-true: forward max_abs_err {err:.3e} (|out| max "
-        f"{scale:.3f}), tol {TOL['f32']:g} x max(|out|,1); rollout of 4 Euler steps from the same "
-        f"start and noise: max_abs_err {roll:.3e} A, tol 1e-3 A; launches fused {fc} (want "
-        f"{want}), dense {dc} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{tag}: fused and dense disagree: {err}, {roll} A, {fc}, {dc}")
-    return fc
-
-
 def phase_hyena(torch, smi):
     """--hyena --fused_block: one 4AA rollout at the bench shape (B = 1,
     T = 100, 100 Euler steps, bf16-mixed) of a seeded full-width Hyena model:
     frames/s, and kernels 1 and 3 five times an evaluation while the frame
     sublayer is the Hyena operator (kernel 2 never); then fused vs dense in
-    32-true (_check_option). Returns the rollout's launch counts."""
+    32-true (phase_model_parity). Returns the rollout's launch counts."""
     from mdgen_tpu_torch import ops
 
     cfg = bench_config(hyena=True, fused_block=True)
@@ -1965,7 +1909,8 @@ def phase_hyena(torch, smi):
     if not ok:
         raise AssertionError(f"hyena rollout: launches {counts}")
     del rt
-    _check_option("hyena", cfg, state_dict, torch, frame_kernel=False)
+    phase_model_parity(torch, state_dict, cfg, "hyena", {"32-true": TOL["f32"]}, rollouts=1,
+                       frame_kernel=False)
     return counts
 
 
@@ -2160,7 +2105,6 @@ def _atlas(torch, smi, work):
     import numpy as np
 
     from mdgen_tpu_torch import ops, train
-    from mdgen_tpu_torch.config import MDGenConfig
     from mdgen_tpu_torch.data import MDGenDataset, synthetic_trajectory
     from mdgen_tpu_torch.runtime import MDGenRuntime, batch_to_device, checkpoint
 
@@ -2353,13 +2297,13 @@ def _remat_4aa(torch, smi):
 def phase_options(torch, smi):
     """interleave_ipa (an IPA in each trunk layer) and no_frames (the raw
     atom37 latent, no IPA tower) at full width, seeded: fused vs dense in
-    32-true (_check_option). Returns the fused rollouts' counts, summed."""
+    32-true (phase_model_parity). Returns the fused rollouts' counts, summed."""
     total = dict.fromkeys(KERNELS, 0)
     for tag, kw in (("interleave_ipa", dict(interleave_ipa=True)),
                     ("no_frames", dict(no_frames=True, prepend_ipa=False))):
         cfg = bench_config(**kw)
-        counts = _check_option(f"options: {tag}", cfg, seeded_model(torch, cfg).state_dict(),
-                               torch)
+        counts = phase_model_parity(torch, seeded_model(torch, cfg).state_dict(), cfg,
+                                    f"options: {tag}", {"32-true": TOL["f32"]}, rollouts=1)
         for k in KERNELS:
             total[k] += counts[k]
     return total

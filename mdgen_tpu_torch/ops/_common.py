@@ -57,6 +57,28 @@ def on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
+def tangent_probes(fc=None, fwd=forward_ad):
+    """(interpreter peek, wrapped-tensor test) of ``torch._C._functorch``,
+    resolved once, with ``forward_ad._current_level`` checked: a torch that
+    renames any of these private internals fails here, when the ops are
+    imported, rather than as an AttributeError inside every kernel call."""
+    fc = torch._C._functorch if fc is None else fc
+    peek = getattr(fc, "peek_interpreter_stack", None)
+    wrapped = getattr(fc, "is_functorch_wrapped_tensor", None)
+    if peek is None or wrapped is None or not isinstance(getattr(fwd, "_current_level", None),
+                                                         int):
+        raise ImportError(
+            f"torch {torch.__version__} lacks torch._C._functorch.peek_interpreter_stack, "
+            "torch._C._functorch.is_functorch_wrapped_tensor or "
+            "torch.autograd.forward_ad._current_level, which the kernel wrappers read to "
+            "refuse forward-mode AD (mdgen_tpu_torch.ops._common.refuse_tangent)"
+        )
+    return peek, wrapped
+
+
+_PEEK_TRANSFORM, _IS_WRAPPED = tangent_probes()
+
+
 def refuse_tangent(name: str, *tensors) -> None:
     """No kernel has a forward-mode derivative: a kernel reads its inputs'
     storage and would drop a tangent (``torch.func.jvp`` runs without grad
@@ -64,12 +86,11 @@ def refuse_tangent(name: str, *tensors) -> None:
     tensor under a ``torch.func`` transform or carrying a ``forward_ad``
     tangent, on any device, as the CUDA path would. Two cheap checks first:
     no dual level and no transform active."""
-    if forward_ad._current_level < 0 and torch._C._functorch.peek_interpreter_stack() is None:
+    if forward_ad._current_level < 0 and _PEEK_TRANSFORM() is None:
         return
     for t in tensors:
         if isinstance(t, torch.Tensor) and (
-                torch._C._functorch.is_functorch_wrapped_tensor(t)
-                or forward_ad.unpack_dual(t).tangent is not None):
+                _IS_WRAPPED(t) or forward_ad.unpack_dual(t).tangent is not None):
             raise RuntimeError(
                 f"{name} has no forward-mode derivative and refuses a tensor under a "
                 "torch.func transform or with a forward-mode tangent; run the model on the "

@@ -307,13 +307,11 @@ class TrainRuntime:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return params, grads, metrics
 
-    def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None,
-                   dropout_seed=None):
+    def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None):
         """One micro-step: gradient, optimizer (which applies an update on
         every ``accumulate_grad``-th call), EMA and the step counter, which
         both advance on every call. ``grad_norm`` is this micro-batch's."""
-        params, grads, metrics = self._grads(state.model, batch, generator, t, x0,
-                                             dropout_seed=dropout_seed)
+        params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
         metrics["grad_norm"] = global_norm(grads)
         self.tx.step(params, grads, state.opt_state)
         if state.ema is not None:

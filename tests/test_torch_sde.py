@@ -242,6 +242,26 @@ def test_kernel_wrappers_refuse_a_forward_mode_tangent():
                 call()
 
 
+def test_tangent_probes_fail_loudly_without_torch_internals():
+    """The refusal's private torch internals are resolved once, at import: a
+    torch that lacks one raises an ImportError naming them, not an
+    AttributeError in a kernel call."""
+    from types import SimpleNamespace
+
+    from mdgen_tpu_torch.ops import _common
+
+    fc = torch._C._functorch
+    peek, wrapped = _common.tangent_probes()
+    assert peek is fc.peek_interpreter_stack and wrapped is fc.is_functorch_wrapped_tensor
+    complete = dict(peek_interpreter_stack=peek, is_functorch_wrapped_tensor=wrapped)
+    for missing in complete:
+        partial = SimpleNamespace(**{k: v for k, v in complete.items() if k != missing})
+        with pytest.raises(ImportError, match="refuse forward-mode AD"):
+            _common.tangent_probes(fc=partial)
+    with pytest.raises(ImportError, match="_current_level"):
+        _common.tangent_probes(fwd=SimpleNamespace())
+
+
 def test_model_likelihood_runs_dense_and_matches_jax():
     """The tiny denoiser's log-likelihood (euler, 3 steps, JAX's eps): the
     dense model matches JAX's; with fused_block the fused twins refuse the
