@@ -43,6 +43,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      finite and in [0, 1], each XTC read back with its frame-0 PDB topology
      and within XTC precision (1e-3 nm) of the sampled atoms superposed onto
      frame 0, and the printed JSON (its JSDs mean nothing at this budget);
+     then `[eval-protocol]`: `python -m mdgen_tpu_torch.eval_protocol
+     --fused_block` on that run (EVAL_FRAMES eval frames, EVAL_ROLLOUTS
+     rollouts a peptide, the noise floor): its table finite, its drift
+     evaluations per solve and kernel launches (kernels 1-3, no flash kernel);
   7a. TPS: `mdgen_tpu_torch.tps_inference.main(... --fused_block)` with a
      seeded full-width TPS checkpoint (the IPA tower from both endpoints) on
      a synthetic rotamer tetrapeptide's MD (TPS_MD_FRAMES frames, the MSM at
@@ -129,6 +133,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      the 4AA recipe (T = 1000) with grad_checkpointing against the same
      steps without (losses, grad norms, gradients; kernel 5 launched again
      in each recompute);
+  11b. data-parallel training (`[dp]`): `python -m mdgen_tpu_torch.train`
+     at the 4AA recipe (T = 1000, global batch 8, 32-true, --ema) for
+     DP_STEPS steps with the multi-host flags, as one rank and as two gloo
+     ranks in two processes sharing the card (batch 4 each) on trajectories
+     of exactly T frames; each step's loss and grad norm and the validation
+     loss of the two runs within DP_TOL relative; ms a step of each; each
+     rank's launches (kernels 5-7 at 5 x DP_STEPS, kernel 4 at 5); the
+     checkpoint written once;
+  11c. reference checkpoints (`[port-ckpt]`): a Lightning .ckpt of the
+     seeded bench model in the reference layout with its `ema` entry,
+     ported by `python -m mdgen_tpu_torch.port_checkpoint`; the ported
+     run's model against the seeded one (f32 forward, PORT_CKPT_TOL); one
+     `sim_inference --fused_block` rollout from the run (kernels 1-3 at 5 x
+     99 launches);
   12. profiles, last because a torch.profiler session slows the host work
       of the rest of the process: each launch's device µs of the fused
       kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
@@ -145,9 +163,16 @@ Phases, in order; any failure raises and the exit code is not 0:
       f32 bound on CUDA cores; every kernel its launches on the TPS,
       upsampling, design and mpnn paths, and on the Hyena, SDE, likelihood,
       options, ATLAS training, ATLAS residue-attention and checkpointed 4AA
-      runs), the nvidia-smi line, and the result line.
+      runs, on each rank of `[dp]` and on `[port-ckpt]` and `[eval-protocol]`),
+      the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --dp_ranks N
+
+runs the device phase, the build and `[dp]` alone, with N NCCL ranks on N
+cards of the host (one command, --dp_size N, DP_SCALING_STEPS steps)
+against one rank: data-parallel scaling across cards. It needs N cards.
 """
 import importlib
 import json
@@ -1012,9 +1037,12 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     return st
 
 
-def phase_quality(torch, smi, tag="quality", train_extra=""):
+def phase_quality(torch, smi, tag="quality", train_extra="", eval_protocol=False):
+    """The quality chain; with ``eval_protocol``, then the noise-floor
+    protocol on its run (returns that phase's launches)."""
     with tempfile.TemporaryDirectory(prefix="mdgen_quality_") as work:
-        return _quality(torch, smi, work, tag, train_extra)
+        res = _quality(torch, smi, work, tag, train_extra)
+        return _eval_protocol(smi, work, res) if eval_protocol else None
 
 
 def _quality(torch, smi, work, tag, train_extra):
@@ -1075,6 +1103,7 @@ def _quality(torch, smi, work, tag, train_extra):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{tag} chain: XTC err {worst} A, summary {s}")
+    return res
 
 
 def task_config(**kw):
@@ -1803,7 +1832,7 @@ def train_argv(work):
             "--inference_steps", "2", "--ema", "--epochs", str(TRAIN_EPOCHS), "--val_batches",
             "1", "--val_epoch_freq", str(TRAIN_EPOCHS), "--ckpt_freq", str(TRAIN_EPOCHS),
             "--train_split", split, "--val_split", split, "--data_dir", work,
-            "--workdir", work, "--run_name", "run", "--device", "cuda"]
+            "--workdir", work, "--run_name", "run", "--device", "cuda", "--dp_size", "1"]
 
 
 def _training(torch, smi, work):
@@ -2122,7 +2151,7 @@ def _atlas(torch, smi, work):
             "--sampling_method", "euler", "--inference_steps", "3", "--epochs", str(ATLAS_STEPS),
             "--no_validate", "--ckpt_freq", str(10 * ATLAS_STEPS), "--train_split", split,
             "--val_split", split, "--data_dir", work, "--workdir", work, "--run_name", "atlas",
-            "--device", "cuda"]
+            "--device", "cuda", "--dp_size", "1"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2309,7 +2338,247 @@ def phase_options(torch, smi):
     return total
 
 
-def main():
+# -- data-parallel training, reference checkpoints, the noise-floor protocol --
+
+# the [dp] phase: the 4AA recipe (T = 1000, global batch B_TRAIN, 32-true)
+# for DP_STEPS steps as one rank and as two gloo ranks sharing the card;
+# per-step losses and grad norms held within DP_TOL relative: the same sums
+# over batches of 4 and 8 rows (the CPU test holds 1e-6 on the first step)
+DP_STEPS, DP_TOL = 3, 1e-4
+# `--dp_ranks N`: steps of each run (ms a step over steps 2..)
+DP_SCALING_STEPS = 5
+# the [port-ckpt] phase: the ported model's forward against the seeded one's
+# (the same f32 weights through the same code: 0 is expected)
+PORT_CKPT_TOL = 1e-6
+# the [eval-protocol] phase on the [quality] run: eval frames and rollouts
+EVAL_FRAMES, EVAL_ROLLOUTS = 1000, 2
+
+
+def _run_clis(argvs, timeout=600):
+    """Run ``python -m ...`` commands side by side from the checkout; a
+    failure kills the others and raises with its output. Returns each
+    command's stdout and its seconds."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *a], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for a in argvs]
+    outs = []
+    try:
+        for p, a in zip(procs, argvs):
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(a[:2])} exited {p.returncode}:\n{out[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def phase_dp(torch, smi, world=2, backend="gloo", steps=DP_STEPS):
+    with tempfile.TemporaryDirectory(prefix="mdgen_dp_") as work:
+        return _dp(torch, smi, work, world, backend, steps)
+
+
+def _dp(torch, smi, work, world, backend, steps):
+    """The 4AA recipe through `python -m mdgen_tpu_torch.train` for ``steps``
+    steps: one rank with the global batch, then ``world`` ranks with a share
+    of it each. Under gloo the ranks share the one card: ``world`` processes,
+    joined by the multi-host flags (--num_processes, --process_id,
+    --coordinator_address). Under NCCL one command starts them, one card a
+    rank (--dp_size). Trajectories of exactly TRAIN_FRAMES frames, so both
+    runs read the same rows without a window draw. Returns the launches of
+    each run's ranks."""
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.parallel import free_port
+
+    for i, s in enumerate(TRAIN_SEQS):
+        np.save(os.path.join(work, f"{s}.npy"), synthetic_trajectory(s, TRAIN_FRAMES, seed=i))
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write("name,seqres\n" + "".join(f"{s},{s}\n" for s in TRAIN_SEQS))
+    base = ["-m", "mdgen_tpu_torch.train", "--sim_condition", "--num_frames", str(TRAIN_FRAMES),
+            "--prepend_ipa", "--abs_pos_emb", "--abs_time_emb", "--crop", str(L), "--ema",
+            "--epochs", str(steps), "--val_batches", "1", "--val_epoch_freq", str(steps),
+            "--ckpt_freq", "1000", "--train_split", split, "--val_split", split, "--data_dir",
+            work, "--workdir", work, "--device", "cuda"]
+
+    def run(name, n):
+        flags = [*base, "--run_name", name, "--record", os.path.join(work, f"{name}.{{rank}}.json"),
+                 "--dp_size", str(n)]
+        if n > 1 and backend == "gloo":
+            addr = f"127.0.0.1:{free_port()}"
+            argvs = [[*flags, "--coordinator_address", addr, "--num_processes", str(n),
+                      "--process_id", str(r), "--dist_backend", "gloo"] for r in range(n)]
+        else:
+            argvs = [flags]
+        _, sec = _run_clis(argvs)
+        recs = []
+        for r in range(n):
+            with open(os.path.join(work, f"{name}.{r}.json")) as fh:
+                recs.append(json.load(fh))
+        return recs, sec
+
+    (one,), one_s = run("one", 1)
+    many, many_s = run("many", world)
+
+    def ms(rec):  # steps 2..steps: the first pays the warm-up
+        return (rec["step_end"][-1] - rec["step_end"][0]) / (len(rec["step_end"]) - 1) * 1e3
+
+    worst = 0.0
+    for rec in many:
+        for key in ("losses", "grad_norms"):
+            a, b = np.asarray(rec[key]), np.asarray(one[key])
+            if a.shape != (steps,) or b.shape != (steps,) or not np.isfinite(a).all():
+                raise AssertionError(f"[dp] {key}: {a} vs {b}")
+            worst = max(worst, float(np.abs(a / b - 1).max()))
+        a, b = rec["val"][-1]["val_loss"], one["val"][-1]["val_loss"]
+        worst = max(worst, abs(a / b - 1))
+    want = {"flash_fwd_lse": 5 * steps, "flash_bwd_dq": 5 * steps, "flash_bwd_dkv": 5 * steps,
+            "flash_fwd": 5, "fused_l_sublayer": 0, "fused_t_sublayer": 0,
+            "fused_ffn_sublayer": 0}
+    launches = [one["launches"]] + [rec["launches"] for rec in many]
+    ok = worst <= DP_TOL and all(c == want for c in launches) and \
+        os.listdir(os.path.join(work, "many")).count(f"step_{steps}") == 1
+    where = "on the one card, the gradient all-reduce staged through the host" \
+        if backend == "gloo" else "one card a rank"
+    log(f"[dp] python -m mdgen_tpu_torch.train, 4AA recipe (5x384x16, T={TRAIN_FRAMES}, global "
+        f"batch {B_TRAIN}, 32-true, --ema), {steps} steps: one rank {ms(one):.1f} ms a step "
+        f"(after the first), {world} {backend} ranks ({where}, batch {B_TRAIN // world} each) "
+        f"{' / '.join(f'{ms(r):.1f}' for r in many)} ms a step; commands {one_s:.1f} s and "
+        f"{many_s:.1f} s ({smi}); losses {one['losses']} vs {many[0]['losses']}, grad norms "
+        f"{one['grad_norms']} vs {many[0]['grad_norms']}, val loss "
+        f"{one['val'][-1]['val_loss']:.6f} vs {many[0]['val'][-1]['val_loss']:.6f}: max rel "
+        f"err {worst:.3e}, tol {DP_TOL:g}; launches per rank {launches} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[dp]: rel err {worst}, launches {launches}")
+    return launches
+
+
+def phase_port_ckpt(torch, smi):
+    with tempfile.TemporaryDirectory(prefix="mdgen_port_ckpt_") as work:
+        return _port_ckpt(torch, smi, work)
+
+
+def _port_ckpt(torch, smi, work):
+    """A reference-layout Lightning .ckpt of the seeded bench model (the EMA
+    entry: the seeded weights; the raw weights: those plus noise) ported by
+    `python -m mdgen_tpu_torch.port_checkpoint`; the ported run's model (its
+    EMA) against the seeded model in f32 on the card; then
+    `sim_inference --fused_block` on the run directory. Returns the
+    sampling's launches."""
+    import numpy as np
+
+    from mdgen_tpu_torch import interop, ops, sim_inference
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    cfg = bench_config(ema=True)
+    seeded = seeded_model(torch, cfg).state_dict()
+    g = torch.Generator().manual_seed(3)
+    raw = {k: v + 0.01 * torch.randn(v.shape, generator=g) for k, v in seeded.items()}
+    ckpt, out = os.path.join(work, "ref.ckpt"), os.path.join(work, "ported")
+    interop.write_lightning_checkpoint(ckpt, cfg, raw, seeded, global_step=704999,
+                                       precision="bf16-mixed")
+    (text,), sec = _run_clis([["-m", "mdgen_tpu_torch.port_checkpoint", "--ckpt", ckpt,
+                               "--out", out]])
+    if checkpoint.latest_step(out) != 704999 or checkpoint.load_config(out) != cfg:
+        raise AssertionError(f"[port-ckpt] bad run directory: {os.listdir(out)}\n{text}")
+
+    f32 = cfg.replace(precision="32-true")
+    ported, _ = checkpoint.load_model(out, f32, "cuda")
+    ref = _runtime(torch, f32, seeded).model.eval()
+    start, seqres, mask = _start(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"atom14": start[:, None].expand(B, NUM_FRAMES, L, 14, 3), "seqres": seqres,
+             "mask": mask}
+    from mdgen_tpu_torch.runtime.wrapper import tokenize
+    from mdgen_tpu_torch.tasks import prep_batch
+
+    prep = prep_batch(f32, tokenize(f32, batch))
+    x = torch.randn((B, NUM_FRAMES, L, cfg.latent_dim), generator=gen, device="cuda")
+    t = torch.full((B,), 0.4, device="cuda")
+    with torch.no_grad():
+        want = ref(x, t, **prep.model_kwargs)
+        got = ported(x, t, **prep.model_kwargs)
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+
+    np.save(os.path.join(work, "ACDE.npy"), synthetic_trajectory(SEQ, NUM_FRAMES, seed=0))
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write(f"name,seqres\nACDE,{SEQ}\n")
+    ops.reset_launch_counts()
+    rec = sim_inference.main(["--sim_ckpt", out, "--data_dir", work, "--split", split,
+                              "--out_dir", os.path.join(work, "samples"), "--num_rollouts", "1",
+                              "--fused_block", "--device", "cuda"])[0]
+    counts = ops.launch_counts()
+    want_counts = {k: 0 if k.startswith("flash_") else 5 * (EULER_STEPS - 1) for k in counts}
+    with open(rec["paths"][0]) as fh:
+        pdb = fh.read()
+    coords = np.array([float(line[30:38]) for line in pdb.splitlines() if line.startswith("ATOM")])
+    ok = err <= PORT_CKPT_TOL and counts == want_counts and rec["frames"] == NUM_FRAMES and \
+        coords.size > 0 and np.isfinite(coords).all()
+    log(f"[port-ckpt] python -m mdgen_tpu_torch.port_checkpoint (Lightning .ckpt, reference "
+        f"layout, 5x384x16 with ema, global_step 704999): {sec:.1f} s; the ported run's EMA "
+        f"model vs the seeded model, f32 forward (T={NUM_FRAMES}): max err {err:.3e} of "
+        f"max(|out|, 1), tol {PORT_CKPT_TOL:g}; sim_inference --fused_block from the run: "
+        f"{rec['frames']} frames in {rec['seconds']:.3f} s ({smi}); launches {counts} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[port-ckpt]: err {err}, launches {counts}, {rec['frames']} frames")
+    return counts
+
+
+def _eval_protocol(smi, work, res):
+    """`python -m mdgen_tpu_torch.eval_protocol` on the quality run in
+    ``work``: its table finite (a ratio of None, a floor of 0, is not), its
+    drift evaluations and the sampling's kernel launches (printed by the
+    protocol): kernels 1-3 once a layer in every evaluation, the flash
+    kernels never. Returns the launches."""
+    import re
+
+    import numpy as np
+
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    (text,), sec = _run_clis([["-m", "mdgen_tpu_torch.eval_protocol", "--ckpt", res["run_dir"],
+                               "--train_data", res["data_dir"], "--out",
+                               os.path.join(work, "eval"), "--train_frames",
+                               str(QUALITY_MD_FRAMES), "--eval_frames", str(EVAL_FRAMES),
+                               "--num_rollouts", str(EVAL_ROLLOUTS), "--fused_block",
+                               "--device", "cuda"]])
+    line = next(x for x in text.splitlines() if x.startswith("[eval-protocol]"))
+    launches = json.loads(line.split("kernel launches ", 1)[1])
+    evals = int(re.search(r"solves, (\d+) in all\)", line).group(1))
+    layers = checkpoint.load_config(res["run_dir"]).num_layers
+    want = {k: layers * evals if k in FUSED_KERNELS else 0 for k in launches}
+    table = json.loads(text[text.index("\n{") + 1:text.index("EVAL PROTOCOL OK")])
+    vals = [table["mean_torsion_jsd"], table["floor_torsion_jsd"], table["ratio"]]
+    vals += [v[k] for v in table["per_type"].values() for k in ("model", "floor", "ratio")]
+    ok = "EVAL PROTOCOL OK" in text and launches == want and \
+        all(v is not None and np.isfinite(v) for v in vals)
+    log(f"[eval-protocol] python -m mdgen_tpu_torch.eval_protocol --fused_block on the [quality] "
+        f"run ({EVAL_FRAMES} eval frames, {EVAL_ROLLOUTS} rollouts x 8 peptides, the noise floor "
+        f"at {EVAL_ROLLOUTS * 100} frames): {sec:.1f} s ({smi}); {line[len('[eval-protocol] '):]}; "
+        f"table {json.dumps(table)}; launches held to {layers} layers x {evals} evaluations "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[eval-protocol]: table {table}, launches {launches}, want {want}")
+    return launches
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dp_ranks", type=int, default=0,
+                        help="run [dp] alone with this many NCCL ranks, one card each")
+    dp_ranks = parser.parse_args(argv).dp_ranks
     if not os.path.isdir(os.path.join(HERE, "mdgen_tpu_torch")):
         raise RuntimeError("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, HERE)
@@ -2320,12 +2589,23 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
+    if dp_ranks:
+        if count < dp_ranks:
+            raise RuntimeError(f"--dp_ranks {dp_ranks} needs {dp_ranks} cards, found {count}")
+        phase_dp(torch, smi, dp_ranks, "nccl", DP_SCALING_STEPS)
+        log(f"[done] [dp] with {dp_ranks} NCCL ranks passed in {time.perf_counter() - t0:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": count}}))
+        return
     parity = phase_kernel_parity(torch)
     state_dict = seeded_model(torch, bench_config()).state_dict()
     phase_model_parity(torch, state_dict)
     counts, rollout_s = phase_main_path(state_dict, smi)
     phase_dopri5(torch, state_dict, rollout_s, smi)
-    phase_quality(torch, smi)
+    t_new = time.perf_counter()
+    eval_counts = phase_quality(torch, smi, eval_protocol=True)
+    quality_s = time.perf_counter() - t_new
     tps_counts, _ = phase_tps(torch, smi)
     ups_counts, _, upsampling = phase_upsampling(torch, smi)
     design_counts, _ = phase_design(torch, smi)
@@ -2343,9 +2623,14 @@ def main():
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)
     t_new = time.perf_counter()
+    dp_launches = phase_dp(torch, smi)
+    port_counts = phase_port_ckpt(torch, smi)
+    slice_s = time.perf_counter() - t_new
+    t_new = time.perf_counter()
     atlas_counts = phase_atlas(torch, smi)
     atlas_s = time.perf_counter() - t_new
-    log(f"[phases] [hyena] to [quality-hyena] {new_s:.1f} s, [atlas] {atlas_s:.1f} s")
+    log(f"[phases] [hyena] to [quality-hyena] {new_s:.1f} s, [atlas] {atlas_s:.1f} s, "
+        f"[quality] with [eval-protocol] {quality_s:.1f} s, [dp] and [port-ckpt] {slice_s:.1f} s")
     frame_us = phase_profiles(torch, state_dict, rollout_s, smi, upsampling)
     parity["fused_t_sublayer"]["upsampling_t1000_us_per_launch"] = frame_us
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -2361,6 +2646,8 @@ def main():
          "atlas_train_launches": atlas_counts["train"][k],
          "atlas_residue_launches": atlas_counts["residue"][k],
          "remat_launches": atlas_counts["remat"][k],
+         "dp_launches_per_rank": [c[k] for c in dp_launches],
+         "port_ckpt_launches": port_counts[k], "eval_protocol_launches": eval_counts[k],
          **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
          **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}
         for k, (src, rep) in KERNELS.items()

@@ -8,8 +8,12 @@ flash kernels forward and backward), 4AA forward simulation
 the three fused serving sublayers) and the quality chain (the synthetic
 rotamer dataset, PDB/XTC I/O, ``python -m
 mdgen_tpu_torch.analyze_peptide_sim`` and ``python -m
-mdgen_tpu_torch.quality_run``); all seven kernels are hand-written CUDA
-(``ops/``, ``csrc/``).
+mdgen_tpu_torch.quality_run``), the TPS, upsampling and design tasks, every
+model configuration, data-parallel training over ``torch.distributed``
+(``parallel/``), reference checkpoints (``port_checkpoint``), MD
+preprocessing (``prep_sims``) and the noise-floor protocol
+(``noise_floor``, ``eval_protocol``); all seven kernels are hand-written
+CUDA (``ops/``, ``csrc/``).
 """
 
 __version__ = "0.2.0"

@@ -11,7 +11,9 @@ metric dict to ``{pdbdir}/{save_name}``:
 
 ``--split`` (read with ``csv``) names the peptides and is held to each
 PDB's sequence; without it, every ``.pdb`` in ``--pdbdir`` is analysed.
-``--plot`` is not ported. Runs on the CPU; needs numpy, scipy and torch.
+``--plot`` writes ``{pdbdir}/{name}.pdf``, the script's 4 x 4 figure (it
+needs matplotlib, imported only then). Runs on the CPU; needs numpy, scipy
+and torch.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ def parse_args(argv=None):
     p.add_argument("--pdbdir", type=str, required=True)
     p.add_argument("--suffix", type=str, default="", help="reference npy suffix")
     p.add_argument("--save", action="store_true")
-    p.add_argument("--plot", action="store_true", help="not ported (needs matplotlib)")
+    p.add_argument("--plot", action="store_true",
+                   help="write {pdbdir}/{name}.pdf (needs matplotlib)")
     p.add_argument("--save_name", type=str, default="out.pkl")
     p.add_argument("--pdb_id", nargs="*", default=[])
     p.add_argument("--no_msm", action="store_true")
@@ -160,14 +163,82 @@ def analyze(name, args, seqres=None):
                 out["traj_pi"] = pi
         except Exception as e:  # noqa: BLE001 (as the original script: the MSM is optional)
             print("ERROR", e, name, flush=True)
+    if args.plot:
+        make_plot(name, out, feat_names, ref_ang, traj_ang, ref_tica, traj_tica, args.pdbdir)
     return out
+
+
+def make_plot(name, out, feat_names, ref_ang, traj_ang, ref_tica, traj_tica, pdbdir):
+    """``{pdbdir}/{name}.pdf``, the script's 4 x 4 figure: overlaid torsion
+    histograms, backbone / sidechain decorrelation curves of MD and samples,
+    TICA autocorrelation, TICA free-energy surfaces, metastable occupancies,
+    the MSM transition matrices and the JSD bars."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    colors = plt.rcParams["axes.prop_cycle"].by_key()["color"]
+    fig, axs = plt.subplots(4, 4, figsize=(20, 20))
+    bins = np.linspace(-np.pi, np.pi, 61)
+
+    bb = [i for i, f in enumerate(feat_names) if "CHI" not in f]
+    sc = [i for i, f in enumerate(feat_names) if "CHI" in f]
+    for ax, idxs, title in ((axs[0, 0], bb, "BB torsions"), (axs[1, 0], sc, "Sidechain torsions")):
+        for i in idxs:
+            ax.hist(ref_ang[:, i], bins=bins, histtype="step", color=colors[0], density=True)
+            ax.hist(traj_ang[:, i], bins=bins, histtype="step", color=colors[1], density=True)
+        ax.set_title(f"{title} (MD={colors[0]}, ours={colors[1]})")
+
+    # the stored curves are already baseline-normalized
+    if "md_decorrelation" in out:
+        for row, key in ((0, "md_decorrelation"), (1, "our_decorrelation")):
+            for j, idxs, title in ((1, bb, "Backbone"), (2, sc, "Sidechain")):
+                ax = axs[row, j]
+                for ci, i in enumerate(idxs):
+                    c = np.asarray(out[key][feat_names[i]], np.float64)
+                    ax.plot(1 + np.arange(len(c)), c, color=colors[ci % len(colors)], lw=0.8)
+                ax.set_xscale("log")
+                ax.set_title(f"{title} decorrelation ({'MD' if row == 0 else 'ours'})")
+            axs[row, 3].plot(np.asarray(out[key]["tica"], np.float64))
+            axs[row, 3].set_title("MD TICA" if row == 0 else "Traj TICA")
+
+    for ax, data, title in ((axs[2, 0], ref_tica[::10], "TICA FES (MD)"),
+                            (axs[2, 1], traj_tica, "TICA FES (ours)")):
+        h, xe, ye = np.histogram2d(data[:, 0], data[:, 1], bins=50)
+        with np.errstate(divide="ignore"):
+            F = -np.log(h.T / h.sum())
+        ax.imshow(F, origin="lower", aspect="auto", extent=[xe[0], xe[-1], ye[0], ye[-1]],
+                  cmap="nipy_spectral")
+        ax.set_title(title)
+
+    if "ref_metastable_probs" in out:
+        x = np.arange(10)
+        axs[2, 2].bar(x - 0.2, out["ref_metastable_probs"], 0.4, label="MD")
+        axs[2, 2].bar(x + 0.2, out["traj_metastable_probs"], 0.4, label="ours")
+        axs[2, 2].set_title("metastable occupancies")
+        axs[2, 2].legend()
+    if "msm_transition_matrix" in out:
+        axs[3, 0].imshow(out["msm_transition_matrix"], cmap="viridis")
+        axs[3, 0].set_title("MSM transition matrix (MD)")
+    if "traj_transition_matrix" in out:
+        axs[3, 1].imshow(out["traj_transition_matrix"], cmap="viridis")
+        axs[3, 1].set_title("MSM transition matrix (ours)")
+
+    jsd = out["JSD"]
+    axs[3, 2].bar(range(len(jsd)), list(jsd.values()))
+    axs[3, 2].set_title("JSDs")
+    axs[2, 3].axis("off")
+    axs[3, 3].axis("off")
+
+    fig.tight_layout()
+    fig.savefig(f"{pdbdir}/{name}.pdf")
+    plt.close(fig)
 
 
 def main(argv=None) -> dict:
     """Returns {name: metric dict}; with ``--save`` also pickles it."""
     args = parse_args(argv)
-    if args.plot:
-        raise NotImplementedError("--plot is not ported (matplotlib); ROADMAP queue 1")
     seqs = {}
     if args.split:
         from .data import read_split

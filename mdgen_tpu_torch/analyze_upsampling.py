@@ -13,7 +13,10 @@ gen, naive}}}``: the decorrelation curves of the MD
 (``{mddir}/{name}{suffix}.npy``), of the upsampled trajectory and of the MD
 subsampled every ``--cond_interval`` frames, as float16. As in the
 original, an error in one peptide is printed and the others go on.
-``--plot`` is not ported (matplotlib). Summarize the pickle with
+``--plot`` writes ``{pdbdir}/{name}_decorr.pdf``: sidechain and backbone
+autocorrelation panels, MD solid, the naive subsample as points, the
+upsampled trajectory dashed (matplotlib, imported only then). Summarize the
+pickle with
 ``python -m mdgen_tpu_torch.summarize_upsampling --pkl OUT/upsampling_out.pkl``.
 """
 from __future__ import annotations
@@ -38,7 +41,8 @@ def parse_args(argv=None):
     p.add_argument("--pdb_id", nargs="*", default=[])
     p.add_argument("--save", action="store_true")
     p.add_argument("--save_name", type=str, default="upsampling_out.pkl")
-    p.add_argument("--plot", action="store_true", help="not ported (needs matplotlib)")
+    p.add_argument("--plot", action="store_true",
+                   help="write {pdbdir}/{name}_decorr.pdf (needs matplotlib)")
     return p.parse_args(argv)
 
 
@@ -72,14 +76,46 @@ def analyze(name, args) -> dict:
                     sub_ang[:, l, k], min(args.nlag // args.cond_interval, len(sub_ang) - 2)
                 ).astype(np.float16),
             }
+    if args.plot:
+        make_plot(name, out, args.cond_interval, args.pdbdir)
     return out
+
+
+def make_plot(name, out, cond_interval, pdbdir):
+    """``{pdbdir}/{name}_decorr.pdf``, the script's two panels."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    colors = plt.rcParams["axes.prop_cycle"].by_key()["color"]
+    fig, axs = plt.subplots(1, 2, figsize=(10, 5))
+    for ax, section, title in ((axs[0], "sidechain", "sidechains"),
+                               (axs[1], "backbone", "backbone")):
+        for i, (key, d) in enumerate(sorted(out[section].items())):
+            c = colors[i % len(colors)]
+            truth = np.asarray(d["truth"], np.float32)[1:]
+            ax.plot(1 + np.arange(len(truth)), truth, color=c)
+            naive = np.asarray(d["naive"], np.float32)[1:]
+            ax.scatter(cond_interval * (1 + np.arange(len(naive))), naive, color=c, label=key,
+                       s=12)
+            gen = np.asarray(d["gen"], np.float32)[1:]
+            ax.plot(1 + np.arange(len(gen)), gen, color=c, linestyle="--")
+        ax.set_title(f"{name} {title}")
+        ax.set_xscale("log")
+        ax.set_xlabel("frames")
+        ax.set_ylabel("autocorrelation")
+        ax.legend(loc="upper center", bbox_to_anchor=(0.5, -0.12), ncol=3, fontsize=6)
+    fig.tight_layout()
+    path = os.path.join(pdbdir, f"{name}_decorr.pdf")
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
+    print("plot ->", path)
 
 
 def main(argv=None) -> dict:
     """Returns {name: curves}; with ``--save`` also pickles it."""
     args = parse_args(argv)
-    if args.plot:
-        raise NotImplementedError("--plot is not ported (matplotlib); ROADMAP queue 1")
     if args.pdb_id:
         names = list(args.pdb_id)
     else:

@@ -60,6 +60,16 @@ class MDGenDataset:
         return self.repeat * len(self.names)
 
     def __getitem__(self, idx: int) -> dict:
+        return self._item(idx)
+
+    def skip(self, idx: int) -> None:
+        """Make item ``idx``'s random draws without reading its frames (only
+        the file's header): a data-parallel rank walks the other ranks'
+        items of a global batch so, and its own items get the draws they
+        get in a one-rank run."""
+        self._item(idx, load=False)
+
+    def _item(self, idx: int, load: bool = True) -> Optional[dict]:
         cfg = self.cfg
         idx = 0 if cfg.overfit else idx % len(self.names)
         if cfg.overfit_peptide is None:
@@ -79,13 +89,18 @@ class MDGenDataset:
         frame_start = self.rng.integers(0, span) if span > 0 else 0
         if cfg.overfit_frame:
             frame_start = 0
+        L = arr.shape[1]
+        crop_start = self.rng.integers(0, L - cfg.crop + 1) if cfg.atlas and L > cfg.crop \
+            else None
+        if not load:
+            return None
         atom14 = np.array(arr[frame_start : frame_start + cfg.num_frames], dtype=np.float32)
         if cfg.copy_frames:
             atom14[1:] = atom14[0]
         seqres_idx = rc.str_sequence_to_aatype(seqres)
         mask = np.ones(atom14.shape[1], dtype=np.float32)
         if cfg.atlas:
-            atom14, seqres_idx, mask = self._atlas_crop(atom14, seqres_idx, mask)
+            atom14, seqres_idx, mask = self._atlas_crop(atom14, seqres_idx, mask, crop_start)
         return {
             "name": name,
             "frame_start": int(frame_start),
@@ -94,13 +109,12 @@ class MDGenDataset:
             "mask": mask,
         }
 
-    def _atlas_crop(self, atom14, seqres_idx, mask):
-        """Crop at random or pad to ``crop`` residues, plus the left-context
-        column: [crop + 1] wide."""
+    def _atlas_crop(self, atom14, seqres_idx, mask, start):
+        """Crop at the drawn ``start`` (None: the chain fits) or pad to
+        ``crop`` residues, plus the left-context column: [crop + 1] wide."""
         cfg = self.cfg
         L = atom14.shape[1]
-        if L > cfg.crop:
-            start = self.rng.integers(0, L - cfg.crop + 1)
+        if start is not None:
             lo = max(start - 1, 0)
             atom14 = atom14[:, lo:start + cfg.crop]
             seqres_idx = seqres_idx[lo:start + cfg.crop]

@@ -1,6 +1,7 @@
 """Batching loader with background prefetch: the port's own copy of
 ``mdgen_tpu/data/loader.py`` (queue, threading and numpy only; held to the
-original by ``tests/test_torch_selfcontained.py``).
+original by ``tests/test_torch_selfcontained.py``). One change: a shard
+walks the other shards' items of each batch for their random draws.
 
 ``Loader(dataset, batch_size, shuffle, drop_last=True, seed, max_batches)``
 yields numpy batches {atom14, seqres, mask, name} from a prefetch thread.
@@ -25,7 +26,11 @@ class Loader:
         """``batch_size`` is the GLOBAL batch. With num_shards > 1 (one shard
         per process), every process draws the identical shuffled order (same
         seed) and loads only its contiguous slice of each batch, the
-        counterpart of torch's DistributedSampler."""
+        counterpart of torch's DistributedSampler. It walks the other
+        shards' items too (``dataset.skip(i)`` where the dataset has it,
+        else a load it drops), so a dataset that draws at random (a window,
+        a replica, a crop) gives each item the draw it gets with one
+        shard."""
         assert batch_size % num_shards == 0, (
             f"batch {batch_size} not divisible by {num_shards} shards"
         )
@@ -54,10 +59,16 @@ class Loader:
             self.rng.shuffle(order)
         nb = len(self)
         per = self.batch_size // self.num_shards
+        skip = getattr(self.dataset, "skip", self.dataset.__getitem__)
         for b in range(nb):
             idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
-            idxs = idxs[self.shard_id * per : (self.shard_id + 1) * per]
-            items = [self.dataset[int(i)] for i in idxs]
+            lo, hi = self.shard_id * per, (self.shard_id + 1) * per
+            items = []
+            for j, i in enumerate(idxs):
+                if lo <= j < hi:
+                    items.append(self.dataset[int(i)])
+                else:
+                    skip(int(i))
             batch = {
                 k: np.stack([it[k] for it in items]) for k in _STACK_KEYS
             }

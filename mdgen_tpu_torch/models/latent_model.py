@@ -146,16 +146,17 @@ class LatentMDGenLayer(nn.Module):
             compute_dtype=self.dt,
         )
 
-    def forward(self, x, mod, mask, frames=None, dropout_seed=None):
+    def forward(self, x, mod, mask, frames=None, dropout_seed=None, dropout_rows=None):
         """``mod``: this layer's 9-chunk slice of the trunk-wide adaLN,
         [B, 1, 9C]; mask [B, T, L] (frame-constant); frames [B, L] (the key
         frames, for ``interleave_ipa``); ``dropout_seed`` (training) seeds
-        this call's dropout masks."""
+        this call's dropout masks, ``dropout_rows`` as ``layers.Dropout``."""
         cfg = self.cfg
         B, T, L, C = x.shape
         dt = self.dt
         sh_l, sc_l, g_l, sh_t, sc_t, g_t, sh_m, sc_m, g_m = mod.chunk(9, dim=-1)
-        drop = None if dropout_seed is None else Dropout(cfg.dropout, dropout_seed, x.device)
+        drop = None if dropout_seed is None else Dropout(cfg.dropout, dropout_seed, x.device,
+                                                         dropout_rows)
         if cfg.interleave_ipa:
             x = x + self.ipa(affine_layer_norm(self.ipa_norm, x), frames.expand_dims(1),
                              frame_mask=mask, drop=drop)
@@ -320,14 +321,16 @@ class LatentMDGenModel(nn.Module):
         return x_r + x_f
 
     def forward(self, x, t, mask, start_frames=None, end_frames=None, x_cond=None,
-                x_cond_mask=None, aatype=None, dropout_seed=None):
+                x_cond_mask=None, aatype=None, dropout_seed=None, dropout_rows=None):
         """x [B, T, L, latent_dim] f32, t [B] -> velocity [B, T, L, latent_dim]
         (under design the last 20 channels carry the logits added on); the
         mpnn modes run on the first frame (``mpnn``) or the first and last
         (``dynamic_mpnn``) and return the logits [B, 1, L, 20].
         ``dropout_seed`` (an int; training with ``cfg.dropout > 0``) turns
         dropout on: each IPA tower layer and each trunk layer draws its masks
-        from a seed of its own, drawn from this one on the host."""
+        from a seed of its own, drawn from this one on the host;
+        ``dropout_rows = (lo, n)``: this batch is rows lo.. of an n-row one
+        (a data-parallel rank), whose masks are drawn and sliced."""
         cfg = self.cfg
         nl = cfg.num_layers
         seeds = [None] * (2 * nl)
@@ -350,7 +353,8 @@ class LatentMDGenModel(nn.Module):
 
         t_emb = self.t_embedder(t * cfg.time_multiplier)[:, None]  # [B, 1, C]
         if cfg.prepend_ipa:
-            drops = [None if s is None else Dropout(cfg.dropout, s, x.device) for s in seeds[:nl]]
+            drops = [None if s is None else Dropout(cfg.dropout, s, x.device, dropout_rows)
+                     for s in seeds[:nl]]
             x = x + self.run_ipa(t_emb[:, 0], mask[:, 0], start_frames, end_frames,
                                  aatype, x_d, drops)[:, None]
 
@@ -359,10 +363,10 @@ class LatentMDGenModel(nn.Module):
         for layer, mod, seed in zip(self.layers, trunk_mods.chunk(nl, dim=-1), seeds[nl:]):
             if remat:
                 # the layer seeds its own masks (no global generator to restore)
-                x = checkpoint(layer, x, mod, mask, start_frames, seed, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = checkpoint(layer, x, mod, mask, start_frames, seed, dropout_rows,
+                               use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, mod, mask, start_frames, seed)
+                x = layer(x, mod, mask, start_frames, seed, dropout_rows)
         latent = None if self.mpnn_mode else self.emb_to_latent(x, t_emb)
         if not cfg.design:
             return latent

@@ -57,15 +57,21 @@ class Dropout:
     The masks come, in call order, from a generator seeded with ``seed`` on
     ``device``. A trunk layer builds its own from its seed inside its
     (possibly checkpointed) forward, so the recompute draws the same masks:
-    ``torch.utils.checkpoint`` restores only the global generators."""
+    ``torch.utils.checkpoint`` restores only the global generators.
+    ``rows = (lo, n)``: the caller holds rows lo.. of an n-row batch (one
+    data-parallel rank); each mask is drawn for all n rows and sliced, so the
+    ranks together draw the one-process masks."""
 
-    def __init__(self, rate: float, seed: int, device):
+    def __init__(self, rate: float, seed: int, device, rows=None):
         self.keep = 1.0 - rate
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.rows = rows
 
     def mask(self, shape, device) -> torch.Tensor:
-        return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
+        full = shape if self.rows is None else (self.rows[1], *shape[1:])
+        m = torch.empty(full, dtype=torch.bool, device=device).bernoulli_(
             self.keep, generator=self.generator)
+        return m if self.rows is None else m[self.rows[0]:self.rows[0] + shape[0]]
 
     def __call__(self, p: torch.Tensor) -> torch.Tensor:
         return p * self.mask(p.shape, p.device).to(p.dtype) / self.keep

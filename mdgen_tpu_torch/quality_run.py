@@ -5,7 +5,8 @@ The ``sim``, ``tps`` and ``upsampling`` tasks of the repository's
 tetrapeptides (seed 0: the dataset's seed defines the physical system),
 trains a 4AA model on it with ``mdgen_tpu_torch.train`` and scores it. Each
 stage is called through its ``main(argv)``, in this process, on
-``--device`` (default ``cuda``).
+``--device`` (default ``cuda``); training runs as one rank
+(``--train_extra='--dp_size N'`` for more).
 
   * ``--task sim``: ``--sim_condition``; ``--num_rollouts`` rollouts per
     peptide with ``sim_inference --xtc`` (the run's ``sampling_method``,
@@ -186,7 +187,7 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
             "--val_split", split, "--val_epoch_freq", "500", "--val_batches", "1",
             "--ckpt_freq", "1000", "--print_freq", "200", "--workdir", workdir,
             "--run_name", run_name, "--seed", str(args.seed), "--device", args.device,
-            *resume, *shlex.split(args.train_extra),
+            "--dp_size", "1", *resume, *shlex.split(args.train_extra),
         ]
         print("+ train", " ".join(argv_train), flush=True)
         rec = train.main(argv_train)

@@ -31,6 +31,7 @@ from ..geometry import (
 )
 from ..geometry import constants as rc
 from ..models import LatentMDGenModel
+from ..parallel import all_reduce_mean, process_allgather, rank, world_size
 from ..tasks import decode_latents, prep_batch
 from ..transport import Sampler, Transport, TransportConfig
 from ..transport.dirichlet import sample_dirichlet
@@ -141,7 +142,8 @@ class MDGenRuntime:
 
     @torch.inference_mode()
     def inference(self, batch: dict, generator: Optional[torch.Generator] = None,
-                  noise: Optional[torch.Tensor] = None, stats: Optional[dict] = None):
+                  noise: Optional[torch.Tensor] = None, stats: Optional[dict] = None,
+                  rows: Optional[tuple] = None):
         """noise -> ODE sample (``cfg.sampling_method``) -> (atom14 [B,T,L,14,3],
         aatype [B,T,L]). A raw batch (atom14) is tokenized on its device
         (``tokenize``); a token dict (``tokenize_atom14``'s keys, e.g.
@@ -154,7 +156,9 @@ class MDGenRuntime:
         Dirichlet(1) over [B, L, 20], broadcast over T (a given ``noise``
         carries both), and ``aatype`` is the designed sequence. The mpnn
         modes take one forward at t = 1 with zero simplex channels: aatype
-        [B, 1, L] is its argmax, the atoms are those of the true tokens."""
+        [B, 1, L] is its argmax, the atoms are those of the true tokens.
+        ``rows = (lo, n)``: the batch is rows lo.. of an n-row one (a
+        data-parallel rank); the noise is drawn for n rows and sliced."""
         cfg = self.cfg
         tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
@@ -167,16 +171,18 @@ class MDGenRuntime:
             atom14 = frames_torsions_to_atom14(prep.rigids, tok["torsions"], aatype)
             return atom14, torch.argmax(logits, dim=-1)
         if noise is None:
+            lo, n = rows or (0, B)
             if cfg.design:
                 noise = torch.cat([
-                    torch.randn((B, T, L, cfg.latent_dim - 20), generator=generator,
+                    torch.randn((n, T, L, cfg.latent_dim - 20), generator=generator,
                                 device=self.device),
-                    sample_dirichlet(torch.ones((B, L, 20), device=self.device),
-                                     generator)[:, None].expand(B, T, L, 20),
+                    sample_dirichlet(torch.ones((n, L, 20), device=self.device),
+                                     generator)[:, None].expand(n, T, L, 20),
                 ], dim=-1)
             else:
-                noise = torch.randn((B, T, L, cfg.latent_dim), generator=generator,
+                noise = torch.randn((n, T, L, cfg.latent_dim), generator=generator,
                                     device=self.device)
+            noise = noise[lo:lo + B]
         sample_fn = self.sampler.sample_ode(
             self.model_inf.forward_inference, sampling_method=cfg.sampling_method,
             num_steps=cfg.inference_steps, stats=stats,
@@ -237,11 +243,22 @@ class TrainState:
 
 class TrainRuntime:
     """The JAX runtime's training half: ``_loss_fn``, ``train_step``,
-    ``val_step``, ``eval_params`` and ``grad_report``."""
+    ``val_step``, ``eval_params`` and ``grad_report``.
+
+    Data parallel (a process group of ``world`` ranks, read when the runtime
+    is made; ``parallel.init_distributed``): each rank holds rows rank*B..
+    of a global batch of world*B rows and computes what one process computes
+    on the global batch. It draws t, x0, the design simplex point and the
+    dropout masks for the global batch from the shared generator and keeps
+    its rows; the gradients are averaged over ranks (one all-reduce per
+    dtype) before the norm, the clip, the optimizer and the EMA, and the
+    step's and validation's metrics are averaged too. One rank runs no
+    collective."""
 
     def __init__(self, cfg, device="cpu"):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.rank, self.world = rank(), world_size()
         # the fused sublayers are forward-only: never in the training model
         self.model_cfg = cfg.replace(fused_block=False)
         self.transport = Transport(transport_config(cfg))
@@ -270,17 +287,23 @@ class TrainRuntime:
         and the two loss terms. With ``cfg.dropout > 0`` a train step's
         model runs with dropout: its seed is ``dropout_seed``, else drawn
         from ``generator`` before t and x0 (validation: ``train=False``,
-        no dropout)."""
+        no dropout). With more than one rank the draws are the global
+        batch's (``_global_draws``) and the metrics this rank's means."""
         cfg = self.cfg
         tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
         kwargs = prep.model_kwargs
+        B = prep.latents.shape[0]
         if train and cfg.dropout > 0:
             if dropout_seed is None:
                 dev = generator.device if generator is not None else prep.latents.device
                 dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                                  device=dev))
             kwargs = dict(kwargs, dropout_seed=dropout_seed)
+            if self.world > 1:
+                kwargs["dropout_rows"] = (self.rank * B, self.world * B)
+        if self.world > 1:
+            t, x0, x_d = self._global_draws(prep.latents, tok["seqres"], generator, t, x0, x_d)
         out = self.transport.training_losses(
             model, prep.latents, prep.loss_mask, kwargs,
             generator=generator, t=t, x0=x0,
@@ -298,6 +321,30 @@ class TrainRuntime:
             metrics["loss_discrete"] = out["loss_discrete"].detach().mean()
         return loss, metrics
 
+    def _global_draws(self, x1, seqres, generator, t, x0, x_d):
+        """This rank's rows of t [world*B], x0 [world*B, ...] and, under
+        design (not the mpnn modes), x_d [world*B, L, 20], drawn as
+        ``training_losses`` draws them for the global batch (a given t, x0 or
+        x_d is this rank's rows and stays)."""
+        cfg = self.cfg
+        B = x1.shape[0]
+        lo, n = self.rank * B, self.world * B
+        rows = slice(lo, lo + B)
+        t_all = self.transport.sample_t(n, generator, x1.device) if t is None \
+            else process_allgather(t)
+        if x0 is None:
+            x0 = torch.randn((n, *x1.shape[1:]), generator=generator, device=x1.device,
+                             dtype=x1.dtype)[rows]
+        if cfg.design and not (cfg.dynamic_mpnn or cfg.mpnn) and x_d is None:
+            x_d = self.transport.sample_x_d(t_all, process_allgather(seqres), generator)[rows]
+        return t_all[rows], x0, x_d
+
+    def _mean_over_ranks(self, metrics: dict) -> dict:
+        if self.world == 1:
+            return metrics
+        means = all_reduce_mean([torch.stack([v.float() for v in metrics.values()])])[0]
+        return dict(zip(metrics, means))
+
     def _grads(self, model, batch, generator=None, t=None, x0=None, x_d=None,
                dropout_seed=None):
         params = list(model.parameters())
@@ -305,12 +352,13 @@ class TrainRuntime:
                                      dropout_seed=dropout_seed)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        return params, grads, metrics
+        return params, all_reduce_mean(grads), self._mean_over_ranks(metrics)
 
     def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None):
         """One micro-step: gradient, optimizer (which applies an update on
         every ``accumulate_grad``-th call), EMA and the step counter, which
-        both advance on every call. ``grad_norm`` is this micro-batch's."""
+        both advance on every call. ``grad_norm`` is this micro-batch's
+        (the global batch's, averaged over ranks)."""
         params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
         metrics["grad_norm"] = global_norm(grads)
         self.tx.step(params, grads, state.opt_state)
@@ -324,7 +372,8 @@ class TrainRuntime:
 
     @torch.no_grad()
     def val_step(self, model, batch: dict, generator=None, t=None, x0=None) -> dict:
-        return self.loss_fn(model, batch, generator, t, x0, train=False)[1]
+        return self._mean_over_ranks(self.loss_fn(model, batch, generator, t, x0,
+                                                  train=False)[1])
 
     def eval_params(self, state: TrainState) -> LatentMDGenModel:
         """The model to evaluate with: the EMA copy when enabled."""

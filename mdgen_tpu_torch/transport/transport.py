@@ -96,8 +96,7 @@ class Transport:
         mpnn = cfg.dynamic_mpnn or cfg.mpnn
         B = x1.shape[0]
         if t is None:
-            t0, t1 = self.check_interval()
-            t = torch.rand((B,), generator=generator, device=x1.device) * (t1 - t0) + t0
+            t = self.sample_t(B, generator, x1.device)
         if x0 is None:
             x0 = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
         xt, ut = self.plan.interpolate(t, x0, x1)
@@ -109,9 +108,7 @@ class Transport:
                 t = torch.ones_like(t)
                 x_d = torch.zeros((B, L, 20), dtype=x1.dtype, device=x1.device)
             elif x_d is None:
-                alphas, _ = t_to_alpha(t, cfg.alpha_max)
-                one_hot = F.one_hot(aatype1.long(), 20).to(x1.dtype)
-                x_d = sample_dirichlet(1 + one_hot * (alphas[:, None, None] - 1), generator)
+                x_d = self.sample_x_d(t, aatype1, generator)
             xt = torch.cat([xt, x_d[:, None].expand(B, T, L, 20).to(xt.dtype)], dim=-1)
         pred = model_fn(xt, t, **(model_kwargs or {}))
         logits = None
@@ -134,6 +131,18 @@ class Transport:
             terms["loss_discrete"] = loss_d
             terms["logits"] = logits
         return terms
+
+    def sample_t(self, B: int, generator=None, device=None) -> torch.Tensor:
+        """t ~ U[t0, t1) [B], ``training_losses``' first draw."""
+        t0, t1 = self.check_interval()
+        return torch.rand((B,), generator=generator, device=device) * (t1 - t0) + t0
+
+    def sample_x_d(self, t: torch.Tensor, aatype1: torch.Tensor, generator=None) -> torch.Tensor:
+        """The design simplex point [B, L, 20] ~ Dirichlet(1 + onehot(aatype1)
+        (alpha_t - 1)), ``training_losses``' last draw."""
+        alphas, _ = t_to_alpha(t, self.cfg.alpha_max)
+        one_hot = F.one_hot(aatype1.long(), 20).to(t.dtype)
+        return sample_dirichlet(1 + one_hot * (alphas[:, None, None] - 1), generator)
 
     def _continuous_loss(self, pred, xt, t, x0, ut, mask):
         if self.cfg.prediction == "velocity":

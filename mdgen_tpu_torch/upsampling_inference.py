@@ -56,7 +56,8 @@ def main(argv=None):
     and mean |sampled - kept| over the kept frames' backbone atoms, A)}."""
     args = parse_args(argv)
     if args.dp_size:
-        raise NotImplementedError("--dp_size is not ported (ROADMAP queue 1, item 13)")
+        raise NotImplementedError("--dp_size is not ported: the inference CLIs run one device "
+                                  "(ROADMAP queue 1, item 2)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")

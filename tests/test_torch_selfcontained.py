@@ -3,7 +3,9 @@ nothing ``chip_smoke.py`` imports) opens or imports a file of the JAX
 package, and each copy the port keeps of a jax-free JAX module agrees with
 its original: the config, the residue constants, the batching loader, the
 metric logger, the graceful stop, the XTC codec, the analysis metrics and
-MSM toolkit and the upsampling summarizer; and the rotamer dataset writer, a
+MSM toolkit, the upsampling summarizer, the reference-checkpoint map and
+its precision table, the data-parallel batch slice and the eval protocol's
+summary; and the rotamer dataset writer, a
 port onto the port's geometry, writes the JAX package's files. The TPS,
 upsampling and design chains (train, inference, analysis) run on the CPU in
 a process that cannot import jax.
@@ -123,12 +125,20 @@ OPTIONS = ["mdgen_tpu_torch.models.hyena", "mdgen_tpu_torch.models.layers",
            "mdgen_tpu_torch.transport.paths", "mdgen_tpu_torch.transport.transport"]
 
 
+# and data-parallel training, reference checkpoints, MD preprocessing and
+# the noise-floor protocol
+SLICE11 = ["mdgen_tpu_torch.interop", "mdgen_tpu_torch.port_checkpoint",
+           "mdgen_tpu_torch.prep_sims", "mdgen_tpu_torch.parallel",
+           "mdgen_tpu_torch.parallel.distributed", "mdgen_tpu_torch.noise_floor",
+           "mdgen_tpu_torch.eval_protocol"]
+
+
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
 def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
     if which == "package":
-        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS)
+        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS + SLICE11)
         assert want <= set(names), want - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -464,3 +474,77 @@ def test_task_chain_runs_without_jax(task, frames, tmp_path):
     out = {"tps": "tps_out.pkl", "upsampling": "upsampling_out.pkl",
            "design": "ACDE_metadata.json"}[task]
     assert (tmp_path / "q" / "samples" / out).exists()
+
+
+def _load_original(rel, name):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _eval_pickle(path):
+    rng = np.random.default_rng(31)
+    feats = ["PSI 0 ALA", "PHI 1 CYS", "PSI 1 CYS", "CHI1 1 CYS", "PHI 2 ASP", "CHI2 2 ASP"]
+    out = {}
+    for name in ("ACDE", "WYNK"):
+        jsd = {f: float(v) for f, v in zip(feats, rng.uniform(0.05, 0.6, len(feats)))}
+        jsd["PHI 1 CYS|PSI 1 CYS"] = 0.3
+        jsd["TICA-0"], jsd["TICA-0,1"] = 0.2, 0.4
+        out[name] = {"JSD": jsd}
+    with open(path, "wb") as fh:
+        pickle.dump(out, fh)
+    return path
+
+
+@pytest.mark.parametrize("copy", ["port_reference_state_dict", "PRECISION_MAP",
+                                  "local_batch_slice", "summarize"])
+def test_slice11_copies_match_originals(copy, tmp_path):
+    """The reference map (element-equal on a seeded reference-layout state
+    dict), the Lightning precision table, the dp batch slice and the eval
+    protocol's summary (its source and its output)."""
+    if copy == "port_reference_state_dict":
+        import torch
+
+        from mdgen_tpu.interop import port_reference_state_dict as original
+        from mdgen_tpu_torch import interop
+        from mdgen_tpu_torch.models import LatentMDGenModel
+
+        cfg = torch_config.MDGenConfig(num_layers=2, embed_dim=32, mha_heads=4, ipa_heads=2,
+                                       ipa_head_dim=8, ipa_qk=2, ipa_v=2, num_frames=4, crop=4,
+                                       sim_condition=True, prepend_ipa=True)
+        model = LatentMDGenModel(cfg, cfg.latent_dim)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        ref = interop.state_dict_to_reference(model.state_dict(), cfg)
+        got = dict(interop._flatten(interop.port_reference_state_dict(ref, cfg, cfg.latent_dim)))
+        want = dict(interop._flatten(original(
+            ref, jax_config.MDGenConfig(**dataclasses.asdict(cfg)), cfg.latent_dim)))
+        assert got.keys() == want.keys()
+        assert all(np.array_equal(got[k], np.asarray(w)) for k, w in want.items())
+    elif copy == "PRECISION_MAP":
+        from mdgen_tpu_torch.interop import PRECISION_MAP
+
+        assert PRECISION_MAP == _load_original("tools/port_checkpoint.py",
+                                               "port_checkpoint_original").PRECISION_MAP
+    elif copy == "local_batch_slice":
+        from mdgen_tpu.parallel.distributed import local_batch_slice as original
+        from mdgen_tpu_torch.parallel import local_batch_slice
+
+        for shards, batch in ((1, 8), (2, 8), (4, 8), (8, 8), (3, 12)):
+            for sid in range(shards):
+                assert local_batch_slice(shards, sid, batch) == original(shards, sid, batch)
+        for fn in (local_batch_slice, original):
+            with pytest.raises(AssertionError):
+                fn(3, 0, 8)
+    else:
+        from mdgen_tpu_torch import eval_protocol
+
+        env = dict(os.environ)
+        try:
+            original = _load_original("scripts/eval_protocol.py", "eval_protocol_original")
+        finally:  # the script sets JAX_PLATFORMS when it is loaded
+            os.environ.clear()
+            os.environ.update(env)
+        assert inspect.getsource(eval_protocol.summarize) == inspect.getsource(original.summarize)
+        pkl = _eval_pickle(str(tmp_path / "out.pkl"))
+        assert eval_protocol.summarize(pkl) == original.summarize(pkl)

@@ -281,8 +281,9 @@ def test_analyze_peptide_tps_matches_jax_script(tps_run):
     assert set(g) == set(w) and {"gen_valid_rate", "gen_JSD", "a_rep_JSD"} <= set(g)
     for k in w:
         np.testing.assert_allclose(g[k], w[k], rtol=1e-6, atol=1e-9, err_msg=k)
-    with pytest.raises(NotImplementedError, match="--plot"):
-        analyze_peptide_tps.main([*flags, "--plot"])
+    analyze_peptide_tps.main(["--mddir", str(work), "--pdbdir", str(out), "--n_bridge_samples",
+                              "200", "--plot"])
+    assert (out / f"{tps_run['seq']}_tps.pdf").stat().st_size > 0
 
 
 def test_tps_cli_needs_cuda_unless_cpu_is_asked_for(tps_run):
