@@ -141,7 +141,24 @@ Phases, in order; any failure raises and the exit code is not 0:
      loss of the two runs within DP_TOL relative; ms a step of each; each
      rank's launches (kernels 5-7 at 5 x DP_STEPS, kernel 4 at 5); the
      checkpoint written once;
-  11c. reference checkpoints (`[port-ckpt]`): a Lightning .ckpt of the
+  11c. tensor and sequence parallelism (`[mp]`): the same recipe and steps
+     through `python -m mdgen_tpu_torch.train --dp_size 1 --sp_size 2` and
+     `--tp_size 2`, each one command whose two gloo ranks share the card;
+     each rank's losses, grad norms and val loss within DP_TOL of `[dp]`'s
+     one rank, its launches (tp: kernels 5-7 at 5 x DP_STEPS on H/2 heads,
+     4 at 5; sp: none, the frame attention dense as JAX keeps it), ms a
+     step and peak device memory beside one rank's, the checkpoint loaded
+     whole within 2 lr a step of one rank's; then the ATLAS recipe at sp = 2
+     for ATLAS_MP_STEPS steps against `[atlas]`'s first ones (bf16 TOL),
+     each rank's peak memory beside one rank's;
+  11d. data-parallel sampling (`[dp-infer]`): `sim_inference --fused_block`
+     on one rank and `--dp_size 2` (two gloo ranks on the card), 2 peptides
+     x ROLLOUTS rollouts of the main path: the written PDBs' first rollout
+     within DP_INFER_TOL, equal evaluations, kernels 1-3 at 2475 on every
+     rank; one dopri5 batch of `tps_inference` (3 paths, padded to 4) on
+     one and two ranks: equal evaluation counts, the paths within
+     DP_INFER_TOL;
+  11e. reference checkpoints (`[port-ckpt]`): a Lightning .ckpt of the
      seeded bench model in the reference layout with its `ema` entry,
      ported by `python -m mdgen_tpu_torch.port_checkpoint`; the ported
      run's model against the seeded one (f32 forward, PORT_CKPT_TOL); one
@@ -163,7 +180,8 @@ Phases, in order; any failure raises and the exit code is not 0:
       f32 bound on CUDA cores; every kernel its launches on the TPS,
       upsampling, design and mpnn paths, and on the Hyena, SDE, likelihood,
       options, ATLAS training, ATLAS residue-attention and checkpointed 4AA
-      runs, on each rank of `[dp]` and on `[port-ckpt]` and `[eval-protocol]`),
+      runs, on each rank of `[dp]`, `[mp]` and `[dp-infer]`, and on
+      `[port-ckpt]` and `[eval-protocol]`),
       the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -173,6 +191,13 @@ of the repository, it exits non-zero and prints no result.
 runs the device phase, the build and `[dp]` alone, with N NCCL ranks on N
 cards of the host (one command, --dp_size N, DP_SCALING_STEPS steps)
 against one rank: data-parallel scaling across cards. It needs N cards.
+
+    python3 chip_smoke.py --mesh DP,SP,TP
+
+runs `[mp]` alone on that grid of NCCL ranks, one card each
+(DP_SCALING_STEPS steps of the 4AA recipe; the ATLAS recipe too where sp
+divides its 250 frames), against one rank: ms a step and peak device memory
+per rank. It needs DP x SP x TP cards.
 """
 import importlib
 import json
@@ -2130,7 +2155,7 @@ def _atlas(torch, smi, work):
     residues, T = 250, through kernel 4 against dense (a masked residue);
     (4) REMAT_STEPS 4AA recipe steps (T = 1000, B = 8) with
     grad_checkpointing against the same steps without. Returns {"train":
-    counts, "residue": counts, "remat": counts}."""
+    counts, "record": the train run's record, "residue": counts, "remat": counts}."""
     import numpy as np
 
     from mdgen_tpu_torch import ops, train
@@ -2199,7 +2224,8 @@ def _atlas(torch, smi, work):
     del model, rt, atoms
     torch.cuda.empty_cache()
     marks.append(time.perf_counter())
-    out = {"train": counts, "residue": _atlas_residue_attention(torch, smi, len(seqs[ATLAS_LONG]))}
+    out = {"train": counts, "record": rec,
+           "residue": _atlas_residue_attention(torch, smi, len(seqs[ATLAS_LONG]))}
     marks.append(time.perf_counter())
     out["remat"] = _remat_4aa(torch, smi)
     marks.append(time.perf_counter())
@@ -2377,9 +2403,59 @@ def _run_clis(argvs, timeout=600):
     return outs, time.perf_counter() - t0
 
 
-def phase_dp(torch, smi, world=2, backend="gloo", steps=DP_STEPS):
-    with tempfile.TemporaryDirectory(prefix="mdgen_dp_") as work:
-        return _dp(torch, smi, work, world, backend, steps)
+def _recipe_argv(work, steps):
+    """`python -m mdgen_tpu_torch.train` at the 4AA recipe on TRAIN_SEQS
+    trajectories of exactly TRAIN_FRAMES frames (written to ``work`` once),
+    so every run reads the same rows without a window draw."""
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+
+    split = os.path.join(work, "split.csv")
+    if not os.path.exists(split):
+        for i, s in enumerate(TRAIN_SEQS):
+            np.save(os.path.join(work, f"{s}.npy"), synthetic_trajectory(s, TRAIN_FRAMES, seed=i))
+        with open(split, "w") as fh:
+            fh.write("name,seqres\n" + "".join(f"{s},{s}\n" for s in TRAIN_SEQS))
+    return ["-m", "mdgen_tpu_torch.train", "--sim_condition", "--num_frames", str(TRAIN_FRAMES),
+            "--prepend_ipa", "--abs_pos_emb", "--abs_time_emb", "--crop", str(L), "--ema",
+            "--epochs", str(steps), "--val_batches", "1", "--val_epoch_freq", str(steps),
+            "--ckpt_freq", "1000", "--train_split", split, "--val_split", split, "--data_dir",
+            work, "--workdir", work, "--device", "cuda"]
+
+
+def _records(work, name, n):
+    out = []
+    for r in range(n):
+        with open(os.path.join(work, f"{name}.{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _ms_a_step(rec):  # steps 2..: the first pays the warm-up
+    return (rec["step_end"][-1] - rec["step_end"][0]) / (len(rec["step_end"]) - 1) * 1e3
+
+
+def _rel_worst(runs, one, keys=("losses", "grad_norms"), val=True):
+    """The largest relative difference of each run's per-step ``keys`` (and
+    last validation loss) from ``one``'s; raises on a wrong length or a
+    non-finite value."""
+    import numpy as np
+
+    worst = 0.0
+    for rec in runs:
+        for key in keys:
+            a, b = np.asarray(rec[key]), np.asarray(one[key])
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{key}: {a} vs {b}")
+            worst = max(worst, float(np.abs(a / b - 1).max()))
+        if val:
+            worst = max(worst, abs(rec["val"][-1]["val_loss"] / one["val"][-1]["val_loss"] - 1))
+    return worst
+
+
+def phase_dp(torch, smi, work, world=2, backend="gloo", steps=DP_STEPS):
+    return _dp(torch, smi, work, world, backend, steps)
 
 
 def _dp(torch, smi, work, world, backend, steps):
@@ -2388,24 +2464,11 @@ def _dp(torch, smi, work, world, backend, steps):
     of it each. Under gloo the ranks share the one card: ``world`` processes,
     joined by the multi-host flags (--num_processes, --process_id,
     --coordinator_address). Under NCCL one command starts them, one card a
-    rank (--dp_size). Trajectories of exactly TRAIN_FRAMES frames, so both
-    runs read the same rows without a window draw. Returns the launches of
-    each run's ranks."""
-    import numpy as np
-
-    from mdgen_tpu_torch.data import synthetic_trajectory
+    rank (--dp_size). Returns the launches of each run's ranks and the
+    one-rank run's record."""
     from mdgen_tpu_torch.parallel import free_port
 
-    for i, s in enumerate(TRAIN_SEQS):
-        np.save(os.path.join(work, f"{s}.npy"), synthetic_trajectory(s, TRAIN_FRAMES, seed=i))
-    split = os.path.join(work, "split.csv")
-    with open(split, "w") as fh:
-        fh.write("name,seqres\n" + "".join(f"{s},{s}\n" for s in TRAIN_SEQS))
-    base = ["-m", "mdgen_tpu_torch.train", "--sim_condition", "--num_frames", str(TRAIN_FRAMES),
-            "--prepend_ipa", "--abs_pos_emb", "--abs_time_emb", "--crop", str(L), "--ema",
-            "--epochs", str(steps), "--val_batches", "1", "--val_epoch_freq", str(steps),
-            "--ckpt_freq", "1000", "--train_split", split, "--val_split", split, "--data_dir",
-            work, "--workdir", work, "--device", "cuda"]
+    base = _recipe_argv(work, steps)
 
     def run(name, n):
         flags = [*base, "--run_name", name, "--record", os.path.join(work, f"{name}.{{rank}}.json"),
@@ -2417,27 +2480,14 @@ def _dp(torch, smi, work, world, backend, steps):
         else:
             argvs = [flags]
         _, sec = _run_clis(argvs)
-        recs = []
-        for r in range(n):
-            with open(os.path.join(work, f"{name}.{r}.json")) as fh:
-                recs.append(json.load(fh))
-        return recs, sec
+        return _records(work, name, n), sec
 
     (one,), one_s = run("one", 1)
     many, many_s = run("many", world)
-
-    def ms(rec):  # steps 2..steps: the first pays the warm-up
-        return (rec["step_end"][-1] - rec["step_end"][0]) / (len(rec["step_end"]) - 1) * 1e3
-
-    worst = 0.0
-    for rec in many:
-        for key in ("losses", "grad_norms"):
-            a, b = np.asarray(rec[key]), np.asarray(one[key])
-            if a.shape != (steps,) or b.shape != (steps,) or not np.isfinite(a).all():
-                raise AssertionError(f"[dp] {key}: {a} vs {b}")
-            worst = max(worst, float(np.abs(a / b - 1).max()))
-        a, b = rec["val"][-1]["val_loss"], one["val"][-1]["val_loss"]
-        worst = max(worst, abs(a / b - 1))
+    ms = _ms_a_step
+    if len(one["losses"]) != steps:
+        raise AssertionError(f"[dp] one rank: {one['losses']}")
+    worst = _rel_worst(many, one)
     want = {"flash_fwd_lse": 5 * steps, "flash_bwd_dq": 5 * steps, "flash_bwd_dkv": 5 * steps,
             "flash_fwd": 5, "fused_l_sublayer": 0, "fused_t_sublayer": 0,
             "fused_ffn_sublayer": 0}
@@ -2457,7 +2507,296 @@ def _dp(torch, smi, work, world, backend, steps):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[dp]: rel err {worst}, launches {launches}")
-    return launches
+    return launches, one
+
+
+# -- tensor and sequence parallelism; data-parallel inference -----------------
+
+# the [mp] phase: the [dp] recipe (4AA, T = 1000, global batch 8, 32-true,
+# --ema, DP_STEPS steps) on one rank and on each grid of MP_MESHES, two gloo
+# ranks sharing the card (`--mesh DP,SP,TP`: that grid alone, NCCL, one card
+# a rank); losses, grad norms and the val loss within DP_TOL relative of one
+# rank's (the same sums in another order: the row-parallel all-reduces, the
+# frame sums), and the written checkpoint loaded in one process within
+# ADAM_BOUND of one rank's (Adam moves an entry at most lr a step, so a
+# misplaced shard shows as a difference of the weights' own size)
+MP_MESHES = ((1, 2, 1), (1, 1, 2))
+# then the ATLAS recipe (crop 256, T = 250, B = 1, bf16-mixed, checkpointing,
+# dropout 0.1) for ATLAS_MP_STEPS steps on the first mesh whose sp divides T
+# against one rank's first steps ([atlas]'s run: the same data and draws):
+# bf16 activations summed in another order (TOL bf16)
+ATLAS_MP_STEPS = 2
+
+
+def _adam_bound(steps, lr=1e-4):
+    return 2 * lr * steps
+
+
+def _ckpt_diff(torch, run_a, run_b):
+    """Max |a - b| over the model and EMA tensors of two runs' newest
+    checkpoints, each loaded whole in this process."""
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    a, b = (torch.load(checkpoint.weights_path(r), map_location="cpu", weights_only=True)
+            for r in (run_a, run_b))
+    worst = 0.0
+    for key in ("model", "ema"):
+        if a[key].keys() != b[key].keys():
+            raise AssertionError(f"checkpoint keys differ: {set(a[key]) ^ set(b[key])}")
+        for k, v in a[key].items():
+            if v.shape != b[key][k].shape:
+                raise AssertionError(f"{key}.{k}: {tuple(v.shape)} vs {tuple(b[key][k].shape)}")
+            worst = max(worst, (v.float() - b[key][k].float()).abs().max().item())
+    return worst
+
+
+def _mesh_flags(mesh, backend):
+    dp, sp, tp = mesh
+    where = ["--device", "cuda:0", "--dist_backend", "gloo"] if backend == "gloo" else \
+        ["--device", "cuda", "--dist_backend", "nccl"]
+    return ["--dp_size", str(dp), "--sp_size", str(sp), "--tp_size", str(tp), *where]
+
+
+def phase_mp(torch, smi, work, one=None, meshes=MP_MESHES, backend="gloo", steps=DP_STEPS,
+             atlas_one=None):
+    return _mp(torch, smi, work, one, meshes, backend, steps, atlas_one)
+
+
+def _mp(torch, smi, work, one, meshes, backend, steps, atlas_one):
+    """Each grid of ``meshes`` through `python -m mdgen_tpu_torch.train
+    --dp_size --sp_size --tp_size` (one command; its ranks on cuda:0 under
+    gloo, one card each under NCCL) against one rank (``one``: [dp]'s run,
+    else run here). Checks each rank's losses, grad norms and val loss, its
+    launches (kernels 5-7 at 5 x steps and kernel 4 at 5 under tp alone; none
+    under sp, whose frame attention is dense as JAX keeps it) and the
+    checkpoint; prints ms a step and each rank's peak device memory. Then
+    the ATLAS recipe (``atlas_one``: [atlas]'s one-rank run of the same data
+    and draws, else run here). Returns {mesh: launches of each rank}."""
+    base = _recipe_argv(work, steps)
+    if one is None:
+        _run_clis([[*base, "--run_name", "one", "--dp_size", "1", "--record",
+                    os.path.join(work, "one.{rank}.json")]])
+        (one,) = _records(work, "one", 1)
+    gib = 2**30
+    out = {}
+    for mesh in meshes:
+        name = "mp" + "x".join(map(str, mesh))
+        n = mesh[0] * mesh[1] * mesh[2]
+        _, sec = _run_clis([[*base, "--run_name", name, "--record",
+                             os.path.join(work, f"{name}.{{rank}}.json"),
+                             *_mesh_flags(mesh, backend)]])
+        ranks = _records(work, name, n)
+        worst = _rel_worst(ranks, one)
+        ckpt = _ckpt_diff(torch, os.path.join(work, "one"), os.path.join(work, name))
+        flash = mesh[1] == 1
+        want = {"flash_fwd_lse": 5 * steps * flash, "flash_bwd_dq": 5 * steps * flash,
+                "flash_bwd_dkv": 5 * steps * flash, "flash_fwd": 5 * flash,
+                "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0}
+        launches = [r["launches"] for r in ranks]
+        ok = (worst <= DP_TOL and ckpt <= _adam_bound(steps)
+              and all(c == want for c in launches))
+        mems = " / ".join(f"{r['peak_device_bytes'] / gib:.2f}" for r in ranks)
+        step_ms = " / ".join(f"{_ms_a_step(r):.1f}" for r in ranks)
+        log(f"[mp] python -m mdgen_tpu_torch.train, 4AA recipe (5x384x16, T={TRAIN_FRAMES}, "
+            f"global batch {B_TRAIN}, 32-true, --ema), {steps} steps on a dp x sp x tp = "
+            f"{' x '.join(map(str, mesh))} grid of {backend} ranks: {step_ms} ms a step "
+            f"against one rank's {_ms_a_step(one):.1f}; peak device memory per rank {mems} GiB "
+            f"against {one['peak_device_bytes'] / gib:.2f}; command {sec:.1f} s ({smi}); losses "
+            f"{ranks[0]['losses']} vs {one['losses']}, grad norms {ranks[0]['grad_norms']} vs "
+            f"{one['grad_norms']}, val loss {ranks[0]['val'][-1]['val_loss']:.6f} vs "
+            f"{one['val'][-1]['val_loss']:.6f}: max rel err {worst:.3e}, tol {DP_TOL:g}; "
+            f"checkpoint loaded whole, max |diff| {ckpt:.3e} from one rank's, bound "
+            f"{_adam_bound(steps):g}; launches per rank {launches}, want {want} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[mp] {mesh}: rel err {worst}, ckpt {ckpt}, {launches}")
+        out[name] = launches
+    atlas = [m for m in meshes if ATLAS_FRAMES % m[1] == 0 and H % m[2] == 0]
+    if atlas:
+        out.update(_mp_atlas(torch, smi, work, atlas[0], backend, atlas_one))
+    else:
+        log(f"[mp] ATLAS: T={ATLAS_FRAMES} is not a multiple of sp in {meshes}: not run")
+    return out
+
+
+def _mp_atlas(torch, smi, work, mesh, backend, one):
+    """The ATLAS recipe for ATLAS_MP_STEPS steps on ``mesh`` against one
+    rank's first ATLAS_MP_STEPS (``one``, else run here)."""
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_trajectory
+
+    seq = _atlas_seqs()[ATLAS_TRAIN]
+    data = os.path.join(work, "atlas")
+    os.makedirs(data, exist_ok=True)
+    for r in (1, 2, 3):
+        np.save(os.path.join(data, f"{ATLAS_TRAIN}_R{r}.npy"),
+                synthetic_trajectory(seq, ATLAS_FRAMES + 10, seed=r))
+    split = os.path.join(data, "split.csv")
+    with open(split, "w") as fh:
+        fh.write(f"name,seqres\n{ATLAS_TRAIN},{seq}\n")
+    base = ["-m", "mdgen_tpu_torch.train", "--sim_condition", "--prepend_ipa", "--abs_pos_emb",
+            "--abs_time_emb", "--atlas", "--crop", str(ATLAS_CROP), "--num_frames",
+            str(ATLAS_FRAMES), "--batch_size", "1", "--precision", "bf16-mixed",
+            "--grad_checkpointing", "--dropout", str(ATLAS_DROPOUT), "--epochs",
+            str(ATLAS_MP_STEPS), "--no_validate", "--ckpt_freq", "1000", "--train_split", split,
+            "--val_split", split, "--data_dir", data, "--workdir", data]
+    name = "atlas" + "x".join(map(str, mesh))
+    if one is None:
+        _run_clis([[*base, "--run_name", "one", "--record",
+                    os.path.join(data, "one.{rank}.json"), "--device", "cuda", "--dp_size", "1"]])
+        (one,) = _records(data, "one", 1)
+    _, sec = _run_clis([[*base, "--run_name", name, "--record",
+                         os.path.join(data, f"{name}.{{rank}}.json"),
+                         *_mesh_flags(mesh, backend)]])
+    ranks = _records(data, name, mesh[0] * mesh[1] * mesh[2])
+    head = {k: one[k][:ATLAS_MP_STEPS] for k in ("losses", "grad_norms")}
+    worst = _rel_worst(ranks, head, val=False)
+    launches = [r["launches"] for r in ranks]
+    gib = 2**30
+    ok = worst <= TOL["bf16"] and not any(v for c in launches for v in c.values())
+    mems = " / ".join(f"{r['peak_device_bytes'] / gib:.2f}" for r in ranks)
+    step_ms = " / ".join(f"{_ms_a_step(r):.1f}" for r in ranks)
+    log(f"[mp] python -m mdgen_tpu_torch.train --atlas ({ATLAS_TRAIN} cropped to {ATLAS_CROP}, "
+        f"T={ATLAS_FRAMES}, B=1, bf16-mixed, grad_checkpointing, dropout {ATLAS_DROPOUT}), "
+        f"{ATLAS_MP_STEPS} steps on a dp x sp x tp = {' x '.join(map(str, mesh))} grid of "
+        f"{backend} ranks: peak device memory per rank {mems} GiB against one rank's "
+        f"{one['peak_device_bytes'] / gib:.2f}; step 2 {step_ms} ms against "
+        f"{_ms_a_step(one):.1f} (one rank, steps 2-{len(one['losses'])}); "
+        f"command {sec:.1f} s ({smi}); losses {ranks[0]['losses']} vs {head['losses']}, grad "
+        f"norms {ranks[0]['grad_norms']} vs {head['grad_norms']}: max rel err {worst:.3e}, tol "
+        f"{TOL['bf16']:g}; launches per rank {launches} (all dense) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[mp] ATLAS {mesh}: rel err {worst}, {launches}")
+    return {name: launches}
+
+
+# the [dp-infer] phase: `python -m mdgen_tpu_torch.sim_inference --fused_block
+# --dp_size 2` (two gloo ranks on the card, a peptide each) against one rank
+# at the main path's shape (DP_INFER_PEPTIDES, T = 100, 100 Euler steps,
+# ROLLOUTS rollouts, bf16-mixed): each rank runs the same kernels on fewer
+# rows; the first rollout within DP_INFER_TOL (a row's sums can take another
+# cuBLAS algorithm at another batch size, in bf16), the later chained ones
+# reported; and one dopri5 batch of TPS_DP_PATHS paths of `tps_inference
+# --dp_size 2` (padded to 4), equal evaluation counts
+DP_INFER_PEPTIDES = ("ACDE", "FGHI")
+DP_INFER_TOL = 1e-2
+TPS_DP_PATHS = 3
+
+
+def _pdb_frames(path):
+    import numpy as np
+
+    with open(path) as fh:
+        lines = [ln for ln in fh.read().splitlines() if ln.startswith("ATOM")]
+    return np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])] for ln in lines])
+
+
+def phase_dp_infer(torch, smi, work, state_dict):
+    return _dp_infer(torch, smi, work, state_dict)
+
+
+def _one_rank(work, module, name, argv):
+    """`mdgen_tpu_torch.{module}.main(argv)` on one rank in this process,
+    into ``work/{name}1``: {"records", "launches"} as a rank's JSON."""
+    from mdgen_tpu_torch import ops
+
+    cli = importlib.import_module(f"mdgen_tpu_torch.{module}")
+    ops.reset_launch_counts()
+    records = cli.main([*argv, "--out_dir", os.path.join(work, f"{name}1"), "--device", "cuda"])
+    return json.loads(json.dumps({"records": records, "launches": ops.launch_counts()},
+                                 default=lambda a: a.tolist()))
+
+
+def _two_gloo_ranks(work, module, name, argv):
+    """`python -m mdgen_tpu_torch.{module} --dp_size 2`, both ranks on the
+    card, into ``work/{name}2``: each rank's {"records", "launches"}."""
+    _run_clis([["-m", f"mdgen_tpu_torch.{module}", *argv, "--out_dir",
+                os.path.join(work, f"{name}2"), "--record", os.path.join(work, f"{name}2.{{rank}}.json"),
+                "--dp_size", "2", "--device", "cuda:0", "--dist_backend", "gloo"]])
+    return _records(work, f"{name}2", 2)
+
+
+def _dp_infer(torch, smi, work, state_dict):
+    """Returns {"sim": launches of each rank (one rank, then two),
+    "tps": the same}."""
+    import shutil
+
+    import numpy as np
+
+    from mdgen_tpu_torch.data import synthetic_rotamer_trajectory, synthetic_trajectory
+    from mdgen_tpu_torch.runtime import checkpoint
+
+    for i, s in enumerate(DP_INFER_PEPTIDES):
+        np.save(os.path.join(work, f"{s}.npy"), synthetic_trajectory(s, 1, seed=i))
+    split = os.path.join(work, "split.csv")
+    with open(split, "w") as fh:
+        fh.write("name,seqres\n" + "".join(f"{s},{s}\n" for s in DP_INFER_PEPTIDES))
+    ckpt = os.path.join(work, "ckpt")
+    checkpoint.save_checkpoint(ckpt, bench_config(), state_dict)
+    argv = ["--sim_ckpt", ckpt, "--data_dir", work, "--split", split, "--num_rollouts",
+            str(ROLLOUTS), "--batch_size", str(len(DP_INFER_PEPTIDES)), "--fused_block"]
+    one = _one_rank(work, "sim_inference", "sim", argv)
+    two_recs = _two_gloo_ranks(work, "sim_inference", "sim", argv)
+    first, worst, shapes = 0.0, 0.0, True
+    for s in DP_INFER_PEPTIDES:
+        a, b = (_pdb_frames(os.path.join(work, f"sim{n}", f"{s}.pdb")) for n in (1, 2))
+        per = len(a) // ROLLOUTS  # the atoms of one rollout's frames
+        shapes &= a.shape == b.shape and bool(np.isfinite(a).all() and np.isfinite(b).all())
+        first = max(first, float(np.abs(a[:per] - b[:per]).max()))
+        worst = max(worst, float(np.abs(a - b).max()))
+    want = 5 * (EULER_STEPS - 1) * ROLLOUTS
+    launches = [r["launches"] for r in [one, *two_recs]]
+    rec1, rec2 = one["records"][0], two_recs[0]["records"][0]
+    ok = (first <= DP_INFER_TOL and shapes
+          and [x["evals"] for x in rec1["solves"]] == [x["evals"] for x in rec2["solves"]]
+          and all(c[k] == want for c in launches for k in FUSED_KERNELS)
+          and not any(c[k] for c in launches for k in FLASH_KERNELS))
+    fps = [r["frames"] / r["seconds"] for r in (rec1, rec2)]
+    log(f"[dp-infer] python -m mdgen_tpu_torch.sim_inference --fused_block (5x384x16, "
+        f"bf16-mixed, {len(DP_INFER_PEPTIDES)} peptides x {ROLLOUTS} rollouts x {NUM_FRAMES} "
+        f"frames, Euler {EULER_STEPS}): one rank {fps[0]:.1f} frames/s, --dp_size 2 (gloo, the "
+        f"one card) {fps[1]:.1f} frames/s ({smi}); written PDBs: first rollout max |diff| "
+        f"{first:.3e} A, tol {DP_INFER_TOL:g} A; all {ROLLOUTS} chained rollouts {worst:.3e} A; "
+        f"evaluations {[x['evals'] for x in rec2['solves']]}; launches per rank (one rank, "
+        f"then two) {launches}, want {want} of each fused kernel -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[dp-infer] sim: first {first} A, launches {launches}")
+    out = {"sim": launches}
+
+    md = synthetic_rotamer_trajectory(SEQ, TPS_MD_FRAMES, seed=0)
+    np.save(os.path.join(work, "md_ACDE.npy"), md)
+    tps_split = os.path.join(work, "tps.csv")
+    with open(tps_split, "w") as fh:
+        fh.write(f"name,seqres\nmd_ACDE,{SEQ}\n")
+    cfg = task_config(tps_condition=True, num_frames=NUM_FRAMES)
+    tps_ckpt = os.path.join(work, "tps_ckpt")
+    checkpoint.save_checkpoint(tps_ckpt, cfg, seeded_model(torch, cfg).state_dict())
+    argv = ["--sim_ckpt", tps_ckpt, "--data_dir", work, "--split", tps_split, "--num_batches",
+            "1", "--batch_size", str(TPS_DP_PATHS), "--tica_lag", str(TPS_TICA_LAG), "--msm_lag",
+            str(TPS_MSM_LAG), "--fused_block"]
+    recs = {1: [_one_rank(work, "tps_inference", "tps", argv)]}
+    os.makedirs(os.path.join(work, "tps2"))  # the one-rank run's MSM
+    shutil.copy(os.path.join(work, "tps1", "md_ACDE_metadata.pkl"), os.path.join(work, "tps2"))
+    recs[2] = _two_gloo_ranks(work, "tps_inference", "tps", argv)
+    r1, r2 = recs[1][0]["records"][0], recs[2][0]["records"][0]
+    err = max(float(np.abs(_pdb_frames(p) - _pdb_frames(q)).max())
+              for p, q in zip(r1["paths"], r2["paths"]))
+    st1, st2 = r1["solves"][0], r2["solves"][0]
+    launches = [r["launches"] for r in recs[1] + recs[2]]
+    ok = (st1["evals"] == st2["evals"] and st1["reached_t1"] and err <= DP_INFER_TOL
+          and r1["start_idx"] == r2["start_idx"] and r1["end_idx"] == r2["end_idx"]
+          and all(c[k] == 5 * st1["evals"] for c in launches for k in FUSED_KERNELS))
+    log(f"[dp-infer] python -m mdgen_tpu_torch.tps_inference --fused_block --dp_size 2 "
+        f"(bf16-mixed dopri5, {TPS_DP_PATHS} paths padded to 4): {st2['evals']} evaluations "
+        f"({st2['attempts']} attempts, {st2['rejected']} rejected) against one rank's "
+        f"{st1['evals']}; paths max |diff| {err:.3e} A, tol {DP_INFER_TOL:g} A; "
+        f"{r1['seconds']:.3f} s vs {r2['seconds']:.3f} s ({smi}); launches per rank "
+        f"{launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[dp-infer] tps: {st1} vs {st2}, {err} A, {launches}")
+    out["tps"] = launches
+    return out
 
 
 def phase_port_ckpt(torch, smi):
@@ -2578,7 +2917,13 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dp_ranks", type=int, default=0,
                         help="run [dp] alone with this many NCCL ranks, one card each")
-    dp_ranks = parser.parse_args(argv).dp_ranks
+    parser.add_argument("--mesh", type=str, default=None, metavar="DP,SP,TP",
+                        help="run [mp] alone on this grid of NCCL ranks, one card each")
+    opts = parser.parse_args(argv)
+    dp_ranks = opts.dp_ranks
+    mesh = tuple(int(v) for v in opts.mesh.split(",")) if opts.mesh else None
+    if mesh is not None and len(mesh) != 3:
+        raise ValueError(f"--mesh takes DP,SP,TP, got {opts.mesh!r}")
     if not os.path.isdir(os.path.join(HERE, "mdgen_tpu_torch")):
         raise RuntimeError("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, HERE)
@@ -2589,11 +2934,17 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
-    if dp_ranks:
-        if count < dp_ranks:
-            raise RuntimeError(f"--dp_ranks {dp_ranks} needs {dp_ranks} cards, found {count}")
-        phase_dp(torch, smi, dp_ranks, "nccl", DP_SCALING_STEPS)
-        log(f"[done] [dp] with {dp_ranks} NCCL ranks passed in {time.perf_counter() - t0:.1f} s")
+    if dp_ranks or mesh:
+        need = dp_ranks or mesh[0] * mesh[1] * mesh[2]
+        if count < need:
+            raise RuntimeError(f"{need} NCCL ranks need {need} cards, found {count}")
+        with tempfile.TemporaryDirectory(prefix="mdgen_dp_") as work:
+            if dp_ranks:
+                phase_dp(torch, smi, work, dp_ranks, "nccl", DP_SCALING_STEPS)
+            else:
+                phase_mp(torch, smi, work, None, [mesh], "nccl", DP_SCALING_STEPS)
+        log(f"[done] {'[dp]' if dp_ranks else '[mp]'} with {need} NCCL ranks passed in "
+            f"{time.perf_counter() - t0:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": count}}))
@@ -2623,14 +2974,23 @@ def main(argv=None):
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)
     t_new = time.perf_counter()
-    dp_launches = phase_dp(torch, smi)
-    port_counts = phase_port_ckpt(torch, smi)
-    slice_s = time.perf_counter() - t_new
-    t_new = time.perf_counter()
     atlas_counts = phase_atlas(torch, smi)
     atlas_s = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mdgen_dp_") as work:
+        dp_launches, one = phase_dp(torch, smi, work)
+        dp_s = time.perf_counter() - t_new
+        mp_launches = phase_mp(torch, smi, work, one, atlas_one=atlas_counts["record"])
+    mp_s = time.perf_counter() - t_new - dp_s
+    with tempfile.TemporaryDirectory(prefix="mdgen_dp_infer_") as work:
+        infer_launches = phase_dp_infer(torch, smi, work, state_dict)
+    infer_s = time.perf_counter() - t_new - dp_s - mp_s
+    t_new = time.perf_counter()
+    port_counts = phase_port_ckpt(torch, smi)
+    slice_s = time.perf_counter() - t_new + dp_s
     log(f"[phases] [hyena] to [quality-hyena] {new_s:.1f} s, [atlas] {atlas_s:.1f} s, "
-        f"[quality] with [eval-protocol] {quality_s:.1f} s, [dp] and [port-ckpt] {slice_s:.1f} s")
+        f"[quality] with [eval-protocol] {quality_s:.1f} s, [dp] and [port-ckpt] {slice_s:.1f} s, "
+        f"[mp] {mp_s:.1f} s, [dp-infer] {infer_s:.1f} s")
     frame_us = phase_profiles(torch, state_dict, rollout_s, smi, upsampling)
     parity["fused_t_sublayer"]["upsampling_t1000_us_per_launch"] = frame_us
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -2647,6 +3007,9 @@ def main(argv=None):
          "atlas_residue_launches": atlas_counts["residue"][k],
          "remat_launches": atlas_counts["remat"][k],
          "dp_launches_per_rank": [c[k] for c in dp_launches],
+         "mp_launches_per_rank": {m: [c[k] for c in cs] for m, cs in mp_launches.items()},
+         "dp_infer_launches_per_rank": {p: [c[k] for c in cs]
+                                        for p, cs in infer_launches.items()},
          "port_ckpt_launches": port_counts[k], "eval_protocol_launches": eval_counts[k],
          **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
          **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}

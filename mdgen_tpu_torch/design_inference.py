@@ -20,7 +20,9 @@ positions' sequence comes from the Dirichlet flow (the mpnn modes: one
 forward at t = 1). Each sample goes to ``OUT/{name}_{idx}.pdb`` with its
 designed sequence, and ``OUT/{name}_metadata.json`` lists them with the JAX
 CLI's fields. The split CSV is read with ``csv``. The run needs a CUDA
-device unless ``--device cpu`` is given.
+device unless ``--device cpu`` is given. ``--dp_size N`` shares each batch
+over N data-parallel ranks, as ``sim_inference``'s flag does (rank 0 builds
+the MSM cache first; rank 0 writes the samples and the metadata).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import time
 
 import numpy as np
 import torch
+
+from .sim_inference import add_dp_args, run_ranks, solve_line
 
 
 def parse_args(argv=None):
@@ -56,7 +60,7 @@ def parse_args(argv=None):
                    help="run each trunk layer as three fused CUDA sublayer kernels")
     p.add_argument("--dirichlet_flow_temp", type=float, default=None,
                    help="override the checkpoint's Dirichlet-flow sampling temperature")
-    p.add_argument("--dp_size", type=int, default=0, help="not ported: raises if set")
+    add_dp_args(p)
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -65,21 +69,16 @@ def main(argv=None):
     """Returns one record per sampled batch: {name, batch, paths (the PDBs),
     start_idx, aa_out (the designed sequences), seconds, solves (the
     solver's counts)}."""
-    args = parse_args(argv)
-    if args.dp_size:
-        raise NotImplementedError("--dp_size is not ported: the inference CLIs run one device "
-                                  "(ROADMAP queue 1, item 2)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
-    os.makedirs(args.out_dir, exist_ok=True)
+    return run_ranks(parse_args(argv), _sample)
 
+
+def _sample(rank, device, grid, args):
     from .analysis.reference_msm import JaxCacheError, highest_flux_states, load_or_build_msm
     from .data import read_split
     from .geometry import constants as rc
+    from .parallel import pad_batch_to_dp, shard_batch
     from .protein import atom14_to_pdb
     from .runtime import MDGenRuntime, checkpoint
-    from .sim_inference import solve_line
 
     cfg = checkpoint.load_config(args.sim_ckpt)
     if args.fused_block:
@@ -89,8 +88,10 @@ def main(argv=None):
     if not cfg.design:
         raise ValueError(f"{args.sim_ckpt} was not trained with --design")
     model, step = checkpoint.load_model(args.sim_ckpt, cfg, device)
-    print(f"restored {args.sim_ckpt} at step {step}")
-    rt = MDGenRuntime(cfg, model)
+    say = print if rank == 0 else (lambda *a: None)
+    say(f"restored {args.sim_ckpt} at step {step}")
+    dp = grid.dp
+    rt = MDGenRuntime(cfg, model, dp)
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -107,9 +108,9 @@ def main(argv=None):
         arr = np.lib.format.open_memmap(
             os.path.join(args.data_dir, f"{name}{args.suffix}.npy"), "r")
         try:
-            meta = load_or_build_msm(f"{args.out_dir}/{name}_metadata.pkl", arr, aatype,
-                                     tica_lag=args.tica_lag, msm_lag=args.msm_lag,
-                                     seed=args.seed)
+            meta = dp.in_turn(lambda: load_or_build_msm(
+                f"{args.out_dir}/{name}_metadata.pkl", arr, aatype, tica_lag=args.tica_lag,
+                msm_lag=args.msm_lag, seed=args.seed))
             start_state, end_state = highest_flux_states(meta["cmsm"])
             ref_discrete = meta["ref_discrete"]
         except JaxCacheError:
@@ -118,7 +119,7 @@ def main(argv=None):
             if not args.random_start_idx:
                 raise
             # with --random_start_idx the MSM only labels the metadata
-            print(f"MSM unavailable for {name} ({e}); using random windows")
+            say(f"MSM unavailable for {name} ({e}); using random windows")
             start_state = end_state = -1
             ref_discrete = np.zeros(len(arr), dtype=int)
         if cfg.frame_interval:
@@ -130,11 +131,9 @@ def main(argv=None):
         trans_idx = np.where((ref_discrete == start_state)[:-T]
                              * (ref_discrete == end_state)[T:])[0]
         if len(trans_idx) == 0 and not args.random_start_idx:
-            print(f"no transition window for {name}, skipping")
+            say(f"no transition window for {name}, skipping")
             continue
 
-        seqres = torch.from_numpy(np.broadcast_to(aatype, (B, L)).copy()).long().to(device)
-        mask = torch.ones((B, L), dtype=torch.float32, device=device)
         metadata = []
         for i in range(args.num_batches):
             if args.random_start_idx:
@@ -142,23 +141,30 @@ def main(argv=None):
             else:
                 si = rng.choice(trans_idx, B)
             atom14 = np.stack([np.asarray(arr[s: s + T], np.float32) for s in si])
-            batch = {"atom14": torch.from_numpy(atom14).to(device), "seqres": seqres,
-                     "mask": mask}
+            padded, _ = pad_batch_to_dp({"atom14": atom14}, grid)
+            batch = {"atom14": torch.from_numpy(shard_batch(grid, padded)["atom14"]).to(device)}
+            Bl = len(batch["atom14"])
+            batch["seqres"] = torch.from_numpy(np.broadcast_to(aatype, (Bl, L)).copy()).long() \
+                .to(device)
+            batch["mask"] = torch.ones((Bl, L), dtype=torch.float32, device=device)
             if device.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
             solve = {}
-            atom14s, aa_out = rt.inference(batch, generator, stats=solve)
-            atom14s, aa_out = atom14s.cpu().numpy(), aa_out.cpu().numpy()  # synchronizes
+            atom14s, aa_out = rt.inference(batch, generator, stats=solve,
+                                           rows=(dp.index * Bl, B) if dp.size > 1 else None)
+            atom14s, aa_out = (dp.gather(x)[:B].cpu().numpy()  # synchronizes
+                               for x in (atom14s, aa_out))
             dur = time.perf_counter() - t0
-            print(f"{name} batch {i}: {B} designs x {atom14s.shape[1]} frames in {dur:.2f}s "
-                  f"({B / dur:.2f} samples/s); "
-                  + (solve_line(cfg.sampling_method, [solve]) if solve else
-                     "one forward at t = 1 (mpnn)"))
+            say(f"{name} batch {i}: {B} designs x {atom14s.shape[1]} frames in {dur:.2f}s "
+                f"({B / dur:.2f} samples/s); "
+                + (solve_line(cfg.sampling_method, [solve]) if solve else
+                   "one forward at t = 1 (mpnn)"))
             paths, designed = [], []
             for j in range(B):
                 path = os.path.join(args.out_dir, f"{name}_{i * B + j}.pdb")
-                atom14_to_pdb(atom14s[j], aa_out[j, 0], path)
+                if rank == 0:
+                    atom14_to_pdb(atom14s[j], aa_out[j, 0], path)
                 paths.append(path)
                 designed.append(rc.aatype_to_str_sequence(aa_out[j, 0]))
                 metadata.append({"name": name, "start_idx": int(si[j]),
@@ -168,8 +174,9 @@ def main(argv=None):
             records.append({"name": name, "batch": i, "paths": paths, "start_idx": si,
                             "aa_out": designed, "seconds": dur,
                             "solves": [solve] if solve else []})
-        with open(f"{args.out_dir}/{name}_metadata.json", "w") as fh:
-            json.dump(metadata, fh)
+        if rank == 0:
+            with open(f"{args.out_dir}/{name}_metadata.json", "w") as fh:
+                json.dump(metadata, fh)
     return records
 
 

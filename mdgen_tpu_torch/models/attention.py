@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .layers import dense
@@ -57,6 +58,8 @@ class RoPEAttention(nn.Module):
     """Self-attention over one axis of a (B, S, C) or (B, T, L, C) tensor;
     ``axis`` 1 attends over frames, 2 over residues."""
 
+    tp = None  # the tensor-parallel mesh axis when the heads are sharded
+
     def __init__(self, embed_dim: int, num_heads: int, use_rope: bool = True,
                  dtype: torch.dtype = torch.float32, impl: str = "auto"):
         super().__init__()
@@ -85,10 +88,23 @@ class RoPEAttention(nn.Module):
         for p in (self.bias_k, self.bias_v):
             nn.init.normal_(p, std=std, generator=generator)
 
-    def forward(self, x: torch.Tensor, mask=None, axis: int = -2, drop=None):
+    def forward(self, x: torch.Tensor, mask=None, axis: int = -2, drop=None, sp=None):
         """x: [B, S, C] or [B, T, L, C]; mask matches x's leading shape with
         1 = valid key; ``drop``: a ``layers.Dropout`` for the probabilities
-        (training only). Returns x's shape in the compute dtype."""
+        (training only). Returns x's shape in the compute dtype.
+
+        ``sp`` (a mesh axis; trunk layers under sequence parallelism): x
+        holds this rank's frames of T. The frame attention (axis 1)
+        all-gathers the keys, the values and the key mask over sp, appends
+        the bias key once, after the gathered keys, ropes the queries and
+        keys at their global frame positions and runs dense, as JAX keeps
+        the flash kernels off a sharded frame axis; the residue attention
+        is local. ``self.tp`` (a mesh axis, set by ``parallel.shard_model``):
+        this rank holds heads [i H/tp, (i + 1) H/tp) of ``qkv_proj``,
+        ``bias_k`` and ``bias_v`` and the matching columns of ``out_proj``;
+        the input's gradient and the output are all-reduced over tp."""
+        from ..parallel import copy_to, gather_along, reduce_from
+
         squeeze = False
         if x.ndim == 3:
             x = x[:, None]
@@ -98,16 +114,31 @@ class RoPEAttention(nn.Module):
             axis = x.ndim + axis if axis < 0 else axis
             assert axis in (1, 2)
 
-        B, T, L, C = x.shape
-        H = self.num_heads
-        hd = C // H
-        S = x.shape[axis]
+        B, T, L, _ = x.shape
+        tp = self.tp
+        H = self.num_heads // (1 if tp is None else tp.size)
+        hd = self.embed_dim // self.num_heads
 
-        qkv = dense(x, self.qkv_proj, self.dtype)
+        qkv = dense(x if tp is None else copy_to(x, tp), self.qkv_proj, self.dtype)
         q, k, v = qkv.chunk(3, dim=-1)
         q = (q * hd**-0.5).reshape(B, T, L, H, hd)
         k = k.reshape(B, T, L, H, hd)
         v = v.reshape(B, T, L, H, hd)
+
+        # where this rank's queries sit among the one-process ones, and the
+        # slices of the dropout masks it draws (layers.Dropout)
+        q0, shards = 0, []
+        if tp is not None:
+            shards.append((2, tp.index * H, self.num_heads))
+        gathered = sp is not None and sp.size > 1 and axis == 1
+        if gathered:
+            k, v = gather_along(k, 1, sp), gather_along(v, 1, sp)
+            mask = gather_along(mask, 1, sp) if mask is not None else None
+            q0 = sp.index * T
+            shards.append((3, q0, T * sp.size))
+        elif sp is not None and sp.size > 1:
+            shards.append((1, sp.index * T, T * sp.size))
+        S = k.shape[axis]
 
         shape = [B, T, L, H, hd]
         shape[axis] = 1
@@ -123,22 +154,29 @@ class RoPEAttention(nn.Module):
             view = (1, -1, 1, 1, hd) if axis == 1 else (1, 1, -1, 1, hd)
             sin, cos = sin.reshape(view), cos.reshape(view)
             sl = [slice(None)] * 5
-            sl[axis] = slice(0, S)
+            sl[axis] = slice(q0, q0 + q.shape[axis])
             q = q * cos[tuple(sl)] + rotate_half(q) * sin[tuple(sl)]
             k = k * cos + rotate_half(k) * sin
 
-        impl = "dense" if drop is not None else resolve_impl(self.impl, S + 1)
+        impl = "dense" if drop is not None or gathered else resolve_impl(self.impl, S + 1)
         if impl == "dense":
-            out = self._dense_attention(q, k, v, mask, axis, drop)
+            out = self._dense_attention(q, k, v, mask, axis, drop, shards)
         else:
             out = self._folded_attention(q, k, v, mask, axis, impl)
-        out = dense(out.reshape(B, T, L, C), self.out_proj, self.dtype)
+        out = out.reshape(B, T, L, H * hd)
+        if tp is None:
+            out = dense(out, self.out_proj, self.dtype)
+        else:
+            dt = self.dtype or torch.float32
+            out = reduce_from(F.linear(out.to(dt), self.out_proj.weight.to(dt)), tp) \
+                + self.out_proj.bias.to(dt)
         return out[:, 0] if squeeze else out
 
     @staticmethod
-    def _dense_attention(q, k, v, mask, axis, drop=None):
+    def _dense_attention(q, k, v, mask, axis, drop=None, shards=()):
         """Einsum logits; the probabilities are cast to the compute dtype
-        (then dropped out by ``drop``) before P.V. Returns [B, T, L, H, hd]."""
+        (then dropped out by ``drop``, its mask sliced by ``shards``) before
+        P.V. Returns [B, T, L, H, hd]."""
         if axis == 2:
             logits = torch.einsum("btqhd,btkhd->bthqk", q, k)
             key_mask = mask[:, :, None, None, :] if mask is not None else None
@@ -150,7 +188,7 @@ class RoPEAttention(nn.Module):
             logits = torch.where(key_mask > 0, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         if drop is not None:
-            probs = drop(probs)
+            probs = drop(probs, shards)
         if axis == 2:
             return torch.einsum("bthqk,btkhd->btqhd", probs, v)
         return torch.einsum("blhqk,bklhd->bqlhd", probs, v)

@@ -50,9 +50,10 @@ class InvariantPointAttention(nn.Module):
         nn.init.constant_(self.head_weights, _POINT_WEIGHT_INIT)
         zeros_(self.linear_out)
 
-    def forward(self, s: torch.Tensor, frames: Rigid, frame_mask=None, drop=None):
+    def forward(self, s: torch.Tensor, frames: Rigid, frame_mask=None, drop=None, shards=()):
         """s [..., L, C]; frames broadcastable to [..., L]; frame_mask [..., L];
-        ``drop`` a ``layers.Dropout`` or None."""
+        ``drop`` a ``layers.Dropout`` or None, its masks sliced by
+        ``shards`` (a rank's frames of the weights [..., H, L, L])."""
         H, ch = self.no_heads, self.c_hidden
         Pq, Pv = self.no_qk_points, self.no_v_points
         lead = s.shape[:-1]
@@ -82,7 +83,7 @@ class InvariantPointAttention(nn.Module):
             a = a + (self.inf * (m2 - 1.0))[..., None, :, :]
         a = torch.softmax(a.float(), dim=-1).to(s.dtype)
         if drop is not None:
-            a = drop(a)
+            a = drop(a, shards)
 
         o = torch.einsum("...hqk,...khc->...qhc", *_promote(a, v)).reshape(*lead, H * ch)
         o_pt = torch.einsum("...hqk,...khpc->...qhpc", *_promote(a, v_pts))

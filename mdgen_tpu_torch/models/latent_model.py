@@ -34,6 +34,13 @@ attention and IPA, dense route; active only when the caller passes
 trunk layer under non-reentrant ``torch.utils.checkpoint``; the layer draws
 its dropout masks from a generator it seeds itself, so the recompute draws
 the same ones).
+
+On a (dp, sp, tp) grid of ranks (``parallel.mesh.shard_model``) the model
+holds this rank's shard of the attention and MLP projections (``tp``) and
+its frames of T (``sp``); the collectives that join them are named where
+they run (``RoPEAttention``, ``layers.mlp``, ``LatentMDGenLayer.forward``,
+``LatentMDGenModel.forward``). The fused sublayers take whole weights and
+every frame, so they stay off there.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from .layers import (
     dense,
     gelu,
     layer_norm,
+    mlp,
     modulate,
     sincos_pos_embed,
     xavier_,
@@ -74,6 +82,8 @@ def _ipa(cfg, dt):
 
 class IPALayer(nn.Module):
     """IPA + residue attention + MLP over (B, L, C), one per tower layer."""
+
+    tp = None  # the tensor-parallel mesh axis when fc1 / fc2 are sharded
 
     def __init__(self, cfg):
         super().__init__()
@@ -102,12 +112,13 @@ class IPALayer(nn.Module):
         h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(self.dt), mask, drop=drop)
         x = x + g_l[:, None] * h
         h = modulate(layer_norm(x), sh_m, sc_m).to(self.dt)
-        h = dense(gelu(dense(h, self.fc1, self.dt)), self.fc2, self.dt)
-        return x + g_m[:, None] * h
+        return x + g_m[:, None] * mlp(h, self.fc1, self.fc2, self.dt, self.tp)
 
 
 class LatentMDGenLayer(nn.Module):
     """Factorized spatio-temporal DiT block over (B, T, L, C)."""
+
+    tp = None  # the tensor-parallel mesh axis when fc1 / fc2 are sharded
 
     def __init__(self, cfg):
         super().__init__()
@@ -146,23 +157,34 @@ class LatentMDGenLayer(nn.Module):
             compute_dtype=self.dt,
         )
 
-    def forward(self, x, mod, mask, frames=None, dropout_seed=None, dropout_rows=None):
+    def forward(self, x, mod, mask, frames=None, dropout_seed=None, dropout_rows=None,
+                sp=None):
         """``mod``: this layer's 9-chunk slice of the trunk-wide adaLN,
         [B, 1, 9C]; mask [B, T, L] (frame-constant); frames [B, L] (the key
         frames, for ``interleave_ipa``); ``dropout_seed`` (training) seeds
-        this call's dropout masks, ``dropout_rows`` as ``layers.Dropout``."""
+        this call's dropout masks, ``dropout_rows`` as ``layers.Dropout``;
+        ``sp`` (a mesh axis): x holds this rank's frames of T, the frame
+        attention gathers its keys (``RoPEAttention``) and the Hyena
+        operator its whole input."""
+        from ..parallel import gather_along
+
         cfg = self.cfg
         B, T, L, C = x.shape
         dt = self.dt
         sh_l, sc_l, g_l, sh_t, sc_t, g_t, sh_m, sc_m, g_m = mod.chunk(9, dim=-1)
         drop = None if dropout_seed is None else Dropout(cfg.dropout, dropout_seed, x.device,
                                                          dropout_rows)
+        sp = sp if sp is not None and sp.size > 1 else None
         if cfg.interleave_ipa:
+            shards = [] if sp is None else [(1, sp.index * T, T * sp.size)]
             x = x + self.ipa(affine_layer_norm(self.ipa_norm, x), frames.expand_dims(1),
-                             frame_mask=mask, drop=drop)
+                             frame_mask=mask, drop=drop, shards=shards)
         # the JAX model's gates: no dropout, L <= 16; for the frame kernel
-        # also T <= 1024 and no Hyena
-        use_fused = cfg.fused_block and L <= 16 and drop is None
+        # also T <= 1024 and no Hyena. The fused wrappers take whole weights
+        # and every frame: off under tensor or sequence parallelism
+        whole = sp is None and all(getattr(m, "tp", None) is None
+                                   for m in (self, self.mha_l, self.mha_t))
+        use_fused = cfg.fused_block and L <= 16 and drop is None and whole
         use_fused_t = use_fused and not cfg.hyena and T <= 1024
         if use_fused:
             from ..ops import fused_l_sublayer
@@ -170,7 +192,8 @@ class LatentMDGenLayer(nn.Module):
             x = self._fused_attn(fused_l_sublayer, self.mha_l, x, sh_l, sc_l, g_l, mask)
         else:
             # the reference reuses one no-affine LN for both attention sublayers
-            h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(dt), mask, axis=2, drop=drop)
+            h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(dt), mask, axis=2, drop=drop,
+                           sp=sp)
             x = x + g_l[:, None] * h
 
         if use_fused_t:
@@ -180,10 +203,15 @@ class LatentMDGenLayer(nn.Module):
         else:
             h = modulate(layer_norm(x), sh_t, sc_t).to(dt)
             if cfg.hyena:
-                h = self.mha_t(h.transpose(1, 2).reshape(B * L, T, C))
-                h = h.reshape(B, L, T, C).transpose(1, 2)
+                # the FFT convolution needs every frame: gather them, keep ours
+                h = gather_along(h, 1, sp)
+                Tg = h.shape[1]
+                h = self.mha_t(h.transpose(1, 2).reshape(B * L, Tg, C))
+                h = h.reshape(B, L, Tg, C).transpose(1, 2)
+                if sp is not None:
+                    h = h.narrow(1, sp.index * T, T)
             else:
-                h = self.mha_t(h, mask, axis=1, drop=drop)
+                h = self.mha_t(h, mask, axis=1, drop=drop, sp=sp)
             x = x + g_t[:, None] * h
 
         if use_fused:
@@ -194,11 +222,12 @@ class LatentMDGenLayer(nn.Module):
                 self.fc2.weight, self.fc2.bias, compute_dtype=dt,
             )
         h = modulate(layer_norm(x), sh_m, sc_m).to(dt)
-        h = dense(gelu(dense(h, self.fc1, dt)), self.fc2, dt)
-        return x + g_m[:, None] * h
+        return x + g_m[:, None] * mlp(h, self.fc1, self.fc2, dt, self.tp)
 
 
 class LatentMDGenModel(nn.Module):
+    tp = None  # the tensor-parallel mesh axis when the design head's fc1 / fc2 are sharded
+    sp = None  # the sequence-parallel mesh axis: the inputs hold this rank's frames
     def __init__(self, cfg, latent_dim: int):
         super().__init__()
         if not (cfg.sim_condition or cfg.tps_condition or cfg.inpainting or cfg.mpnn
@@ -330,24 +359,46 @@ class LatentMDGenModel(nn.Module):
         dropout on: each IPA tower layer and each trunk layer draws its masks
         from a seed of its own, drawn from this one on the host;
         ``dropout_rows = (lo, n)``: this batch is rows lo.. of an n-row one
-        (a data-parallel rank), whose masks are drawn and sliced."""
+        (a data-parallel rank), whose masks are drawn and sliced.
+
+        Under sequence parallelism (``self.sp``, set by
+        ``parallel.shard_model``) the frame-axis inputs hold this rank's
+        frames of T, and the other inputs (t, the key frames, aatype) are
+        whole: the time embedding takes the global frame offsets, the means
+        over T all-reduce their sums, and the mpnn modes gather their key
+        frames and run the trunk on them whole."""
+        from ..parallel import all_reduce_sum, gather_along
+
         cfg = self.cfg
         nl = cfg.num_layers
         seeds = [None] * (2 * nl)
         if dropout_seed is not None and cfg.dropout > 0:
             seeds = torch.randint(0, 2**62, (2 * nl,),
                                   generator=torch.Generator().manual_seed(dropout_seed)).tolist()
+        sp = self.sp if self.sp is not None and self.sp.size > 1 else None
         if self.mpnn_mode:
+            if sp is not None:  # frames 0 and T-1 live on the first and last sp ranks
+                x, x_cond, x_cond_mask, mask = (gather_along(v, 1, sp)
+                                                for v in (x, x_cond, x_cond_mask, mask))
+                sp = None
             sel = [0, x.shape[1] - 1] if cfg.dynamic_mpnn else [0]
             x, x_cond = x[:, sel], x_cond[:, sel]
             x_cond_mask, mask = x_cond_mask[:, sel], mask[:, sel]
-        x_d = x[..., -20:].mean(dim=1) if cfg.design else None
+        T = x.shape[1]
+        t0 = 0 if sp is None else sp.index * T
+
+        def mean_frames(v):  # the mean over every frame of T
+            if sp is None:
+                return v.mean(dim=1)
+            return all_reduce_sum(v.sum(dim=1), sp) / (T * sp.size)
+
+        x_d = mean_frames(x[..., -20:]) if cfg.design else None
 
         x = dense(x, self.latent_to_emb)
         if cfg.abs_pos_emb:
             x = x + self.pos_embed
         if cfg.abs_time_emb:
-            x = x + self.time_embed[:, : x.shape[1], None]
+            x = x + self.time_embed[:, t0:t0 + T, None]
         if x_cond is not None:
             x = x + dense(x_cond, self.cond_to_emb) + self.mask_to_emb(x_cond_mask.long())
 
@@ -363,14 +414,14 @@ class LatentMDGenModel(nn.Module):
         for layer, mod, seed in zip(self.layers, trunk_mods.chunk(nl, dim=-1), seeds[nl:]):
             if remat:
                 # the layer seeds its own masks (no global generator to restore)
-                x = checkpoint(layer, x, mod, mask, start_frames, seed, dropout_rows,
+                x = checkpoint(layer, x, mod, mask, start_frames, seed, dropout_rows, sp,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, mod, mask, start_frames, seed, dropout_rows)
+                x = layer(x, mod, mask, start_frames, seed, dropout_rows, sp)
         latent = None if self.mpnn_mode else self.emb_to_latent(x, t_emb)
         if not cfg.design:
             return latent
-        x_l = dense(gelu(dense(x, self.fc1)), self.fc2).mean(dim=1)  # pool over T
+        x_l = mean_frames(mlp(x, self.fc1, self.fc2, tp=self.tp))  # pool over T
         logits = dense(gelu(dense(x_l, self.fc3)), self.emb_to_logits)  # [B, L, 20]
         if self.mpnn_mode:
             return logits[:, None]

@@ -58,23 +58,46 @@ class Dropout:
     ``device``. A trunk layer builds its own from its seed inside its
     (possibly checkpointed) forward, so the recompute draws the same masks:
     ``torch.utils.checkpoint`` restores only the global generators.
-    ``rows = (lo, n)``: the caller holds rows lo.. of an n-row batch (one
-    data-parallel rank); each mask is drawn for all n rows and sliced, so the
-    ranks together draw the one-process masks."""
+
+    Each mask is drawn at the one-process shape and sliced, so the ranks of
+    a grid together draw the one-process masks: ``rows = (lo, n)`` says the
+    caller holds rows lo.. of an n-row batch (its data-parallel rows), and
+    a call's ``shards``, ((dim, lo, n), ...), that the tensor holds [lo, lo
+    + its size) of n along ``dim`` (the heads of a tensor-parallel rank, the
+    frames of a sequence-parallel one)."""
 
     def __init__(self, rate: float, seed: int, device, rows=None):
         self.keep = 1.0 - rate
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.rows = rows
 
-    def mask(self, shape, device) -> torch.Tensor:
-        full = shape if self.rows is None else (self.rows[1], *shape[1:])
+    def mask(self, shape, device, shards=()) -> torch.Tensor:
+        shards = ([] if self.rows is None else [(0, *self.rows)]) + list(shards)
+        full = list(shape)
+        for dim, _, n in shards:
+            full[dim] = n
         m = torch.empty(full, dtype=torch.bool, device=device).bernoulli_(
             self.keep, generator=self.generator)
-        return m if self.rows is None else m[self.rows[0]:self.rows[0] + shape[0]]
+        for dim, lo, _ in shards:
+            m = m.narrow(dim, lo, shape[dim])
+        return m
 
-    def __call__(self, p: torch.Tensor) -> torch.Tensor:
-        return p * self.mask(p.shape, p.device).to(p.dtype) / self.keep
+    def __call__(self, p: torch.Tensor, shards=()) -> torch.Tensor:
+        return p * self.mask(p.shape, p.device, shards).to(p.dtype) / self.keep
+
+
+def mlp(h: torch.Tensor, fc1: nn.Linear, fc2: nn.Linear, dtype=None, tp=None) -> torch.Tensor:
+    """``fc2(gelu(fc1(h)))`` in ``dtype``. Under tensor parallelism (``tp``,
+    a mesh axis) fc1 holds this rank's output rows and fc2 its input
+    columns: h's gradient is all-reduced (``copy_to``), fc2's partial sums
+    are all-reduced (``reduce_from``) and its bias is added once after."""
+    if tp is None:
+        return dense(gelu(dense(h, fc1, dtype)), fc2, dtype)
+    from ..parallel import copy_to, reduce_from
+
+    dt = dtype or torch.float32
+    h = gelu(dense(copy_to(h, tp), fc1, dtype))
+    return reduce_from(F.linear(h.to(dt), fc2.weight.to(dt)), tp) + fc2.bias.to(dt)
 
 
 def xavier_(lin: nn.Linear, generator=None):

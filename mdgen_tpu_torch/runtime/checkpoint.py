@@ -12,6 +12,11 @@ Two layouts, both with ``config.json`` (the JSON of ``MDGenConfig.to_json``):
     ``tools/jax_to_torch_ckpt.py``).
 
 :func:`load_model` reads either: a flat directory, or a run's newest step.
+
+A checkpoint always holds whole tensors. A run on a grid of ranks writes
+what ``TrainRuntime.full_state`` gathers over tensor parallelism, so it
+loads in one process, and a resumed run slices each tensor to its rank's
+shard (``TrainRuntime.shard_state``), whatever grid wrote it.
 """
 from __future__ import annotations
 
@@ -55,21 +60,22 @@ def latest_step(run_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def save_train_checkpoint(run_dir: str, cfg, state, keep_last_n: int = 0) -> str:
+def save_train_checkpoint(run_dir: str, cfg, state, keep_last_n: int = 0,
+                          full: Optional[dict] = None) -> str:
     """Write ``step_{state.step}`` (model, EMA, optimizer state, step); with
     ``keep_last_n > 0`` keep only the newest N step directories by mtime
-    (a reused run directory may hold stale higher steps). Returns the step
+    (a reused run directory may hold stale higher steps). ``full``: the
+    whole {"model", "ema", "optimizer"} of a sharded state
+    (``TrainRuntime.full_state``), written in its place. Returns the step
     directory."""
     _write_config(run_dir, cfg)
     path = os.path.join(run_dir, f"step_{state.step}")
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, WEIGHTS_FILE + ".tmp")
-    torch.save({
-        "model": state.model.state_dict(),
-        "ema": state.ema.state_dict() if state.ema is not None else None,
-        "optimizer": state.opt_state,
-        "step": int(state.step),
-    }, tmp)
+    full = full or {"model": state.model.state_dict(),
+                    "ema": state.ema.state_dict() if state.ema is not None else None,
+                    "optimizer": state.opt_state}
+    torch.save({**full, "step": int(state.step)}, tmp)
     os.replace(tmp, os.path.join(path, WEIGHTS_FILE))  # also bumps the step dir's mtime
     if keep_last_n > 0:
         dirs = sorted(_step_dirs(run_dir),
@@ -83,18 +89,26 @@ def _load(path: str, device="cpu") -> dict:
     return torch.load(path, map_location=device, weights_only=True)
 
 
-def load_train_checkpoint(run_dir: str, state, step: Optional[int] = None):
+def load_train_checkpoint(run_dir: str, state, step: Optional[int] = None, shard=None):
     """Restore ``step`` (default: the newest) into ``state`` in place, on the
-    state's device. Returns (state, step)."""
+    state's device. ``shard`` maps whole {name: tensor} to this rank's
+    shards (``TrainRuntime.shard_state``), for the model, the EMA and the
+    optimizer's per-parameter lists. Returns (state, step)."""
     step = latest_step(run_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no step_* checkpoints under {run_dir}")
     device = next(state.model.parameters()).device
     blob = _load(os.path.join(run_dir, f"step_{step}", WEIGHTS_FILE), device)
-    state.model.load_state_dict(blob["model"])
+    shard = shard or (lambda named: named)
+    names = [n for n, _ in state.model.named_parameters()]
+    state.model.load_state_dict(shard(blob["model"]))
     if state.ema is not None:
-        state.ema.load_state_dict(blob["ema"])
-    state.opt_state = blob["optimizer"]
+        state.ema.load_state_dict(shard(blob["ema"]))
+    opt = blob["optimizer"]
+    for key in ("mu", "nu", "acc"):
+        if key in opt:
+            opt[key] = list(shard(dict(zip(names, opt[key]))).values())
+    state.opt_state = opt
     state.step = int(blob["step"])
     return state, step
 

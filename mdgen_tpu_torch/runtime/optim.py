@@ -14,7 +14,10 @@ Where these differ from ``torch.optim`` and ``clip_grad_norm_``:
   * MultiSteps keeps the running mean of k micro-batch gradients and applies
     clip and Adam on every k-th call only; the other calls leave the
     parameters as they are.
-The state is a dict of tensors and ints, saved with the checkpoint.
+The state is a dict of tensors and ints, saved with the checkpoint. Under
+tensor parallelism the parameters, gradients and moments are this rank's
+shards; ``norm`` is then the global norm over every shard
+(``TrainRuntime``), so every rank clips by the one-process norm.
 """
 from __future__ import annotations
 
@@ -24,17 +27,19 @@ import torch
 class Optimizer:
     def __init__(self, lr: float, grad_clip: float, adamw: bool = False,
                  accumulate_grad: int = 1, weight_decay: float = 1e-4,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, norm=None):
         if accumulate_grad < 1:
             raise ValueError(f"accumulate_grad must be >= 1, got {accumulate_grad}")
         self.lr, self.grad_clip = lr, grad_clip
         self.weight_decay = weight_decay if adamw else 0.0
         self.k = accumulate_grad
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.norm = norm or global_norm  # gradients -> their global norm
 
     @classmethod
-    def from_config(cls, cfg) -> "Optimizer":
-        return cls(cfg.lr, cfg.grad_clip, adamw=cfg.adamW, accumulate_grad=cfg.accumulate_grad)
+    def from_config(cls, cfg, norm=None) -> "Optimizer":
+        return cls(cfg.lr, cfg.grad_clip, adamw=cfg.adamW, accumulate_grad=cfg.accumulate_grad,
+                   norm=norm)
 
     def init(self, params: list[torch.Tensor]) -> dict:
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
@@ -61,7 +66,7 @@ class Optimizer:
         state["mini_step"] = (n + 1) % self.k
 
     def _clip_adam(self, params, grads, state) -> None:
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         keep = norm < self.grad_clip
         count = state["count"] + 1
         # the bias corrections in f32, as optax computes them

@@ -31,7 +31,8 @@ from ..geometry import (
 )
 from ..geometry import constants as rc
 from ..models import LatentMDGenModel
-from ..parallel import all_reduce_mean, process_allgather, rank, world_size
+from ..parallel import all_reduce_sum, make_grid, shard_model, sp_size, world_size
+from ..parallel.mesh import full_tensors, global_sq_norm, shard_tensors
 from ..tasks import decode_latents, prep_batch
 from ..transport import Sampler, Transport, TransportConfig
 from ..transport.dirichlet import sample_dirichlet
@@ -130,9 +131,13 @@ def inference_param_cast(cfg, model: LatentMDGenModel) -> LatentMDGenModel:
 
 
 class MDGenRuntime:
-    def __init__(self, cfg, model: LatentMDGenModel):
+    """Inference on one rank, or on the data-parallel ranks of ``dp`` (a
+    mesh axis), each with its rows of every batch (``rows``)."""
+
+    def __init__(self, cfg, model: LatentMDGenModel, dp=None):
         self.cfg = cfg
         self.model = model
+        self.dp = dp
         self.model_inf = inference_param_cast(cfg, model).eval()
         self.sampler = Sampler(Transport(transport_config(cfg)))
 
@@ -158,7 +163,10 @@ class MDGenRuntime:
         modes take one forward at t = 1 with zero simplex channels: aatype
         [B, 1, L] is its argmax, the atoms are those of the true tokens.
         ``rows = (lo, n)``: the batch is rows lo.. of an n-row one (a
-        data-parallel rank); the noise is drawn for n rows and sliced."""
+        data-parallel rank), padded past n with copies of row 0; the noise
+        is drawn for the n rows and sliced (a pad takes row 0's), and
+        dopri5's error norm is the n rows' over the ranks of ``self.dp``, so
+        every rank takes the steps one rank takes."""
         cfg = self.cfg
         tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
@@ -170,8 +178,9 @@ class MDGenRuntime:
             aatype = tok["seqres"][:, None].expand(B, T, L)
             atom14 = frames_torsions_to_atom14(prep.rigids, tok["torsions"], aatype)
             return atom14, torch.argmax(logits, dim=-1)
+        lo, n = rows or (0, B)
+        row = torch.arange(lo, lo + B, device=self.device)  # global row indices
         if noise is None:
-            lo, n = rows or (0, B)
             if cfg.design:
                 noise = torch.cat([
                     torch.randn((n, T, L, cfg.latent_dim - 20), generator=generator,
@@ -182,10 +191,12 @@ class MDGenRuntime:
             else:
                 noise = torch.randn((n, T, L, cfg.latent_dim), generator=generator,
                                     device=self.device)
-            noise = noise[lo:lo + B]
+            noise = noise[torch.where(row < n, row, 0)]
+        error = {} if rows is None else dict(
+            error_weight=(row < n).float(), error_sum=lambda t: all_reduce_sum(t, self.dp))
         sample_fn = self.sampler.sample_ode(
             self.model_inf.forward_inference, sampling_method=cfg.sampling_method,
-            num_steps=cfg.inference_steps, stats=stats,
+            num_steps=cfg.inference_steps, stats=stats, **error,
         )
         samples = sample_fn(noise.float(), **prep.model_kwargs)
         if cfg.no_frames:
@@ -196,10 +207,12 @@ class MDGenRuntime:
     @torch.inference_mode()
     def rollout(self, start_atom14, seqres, mask, num_rollouts: int,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, stats: Optional[list] = None):
+                noise: Optional[torch.Tensor] = None, stats: Optional[list] = None,
+                rows: Optional[tuple] = None):
         """Autoregressive forward simulation: start [B,L,14,3] ->
         [B, R*T, L, 14, 3]. ``noise`` [R,B,T,L,latent_dim] replaces the draws;
-        ``stats``, a list, receives one dict of solver counts per rollout."""
+        ``stats``, a list, receives one dict of solver counts per rollout;
+        ``rows`` as ``inference``'s."""
         B, L = seqres.shape
         T = self.cfg.num_frames
         start = start_atom14.float()
@@ -212,7 +225,7 @@ class MDGenRuntime:
             }
             solve = {}
             atom14, _ = self.inference(
-                batch, generator, None if noise is None else noise[r], solve
+                batch, generator, None if noise is None else noise[r], solve, rows
             )
             if stats is not None:
                 stats.append(solve)
@@ -241,39 +254,58 @@ class TrainState:
     ema: Optional[LatentMDGenModel]  # the EMA copy when cfg.ema, else None
 
 
+# model kwargs with a frame axis (axis 1), sliced to a rank's frames under sp
+_FRAME_KWARGS = ("mask", "x_cond", "x_cond_mask")
+
+
 class TrainRuntime:
     """The JAX runtime's training half: ``_loss_fn``, ``train_step``,
     ``val_step``, ``eval_params`` and ``grad_report``.
 
-    Data parallel (a process group of ``world`` ranks, read when the runtime
-    is made; ``parallel.init_distributed``): each rank holds rows rank*B..
-    of a global batch of world*B rows and computes what one process computes
-    on the global batch. It draws t, x0, the design simplex point and the
-    dropout masks for the global batch from the shared generator and keeps
-    its rows; the gradients are averaged over ranks (one all-reduce per
-    dtype) before the norm, the clip, the optimizer and the EMA, and the
-    step's and validation's metrics are averaged too. One rank runs no
-    collective."""
+    On a (dp, sp, tp) grid of ranks (``parallel.mesh``; default: every rank
+    of the process group on dp) every rank computes what one process
+    computes on the global batch:
+      * dp: each dp index holds rows d*B.. of a global batch of dp*B rows. It
+        draws t, x0, the design simplex point and the dropout masks for the
+        global batch from the shared generator and keeps its rows;
+      * sp: each sp index tokenizes the whole window, keeps its frames of
+        the model's inputs and of x0, and the loss sums its numerator and
+        denominator over sp (``mean_flat``), so every sp rank holds the
+        whole loss;
+      * tp: the model's projections are sharded (``parallel.shard_model``),
+        and every tp rank holds the whole loss too.
+    The autograd collectives sum every rank's share of a gradient, so the
+    gradients are averaged over the dp x sp plane (one all-reduce per dtype,
+    ``grid.data``) before the norm, the clip, the optimizer and the EMA;
+    the tp ranks' replicated parameters then stay equal, and the norm
+    counts each tp shard once. The metrics are averaged over that plane
+    too. One rank runs no collective."""
 
-    def __init__(self, cfg, device="cpu"):
+    def __init__(self, cfg, device="cpu", grid=None):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.rank, self.world = rank(), world_size()
+        self.grid = grid if grid is not None else make_grid(world_size())
         # the fused sublayers are forward-only: never in the training model
         self.model_cfg = cfg.replace(fused_block=False)
         self.transport = Transport(transport_config(cfg))
-        self.tx = Optimizer.from_config(cfg)
+        self.tx = Optimizer.from_config(cfg, norm=self._global_norm)
+        self.specs, self.sharded = {}, []  # of the model, set by init
+        sp = self.grid.sp
+        self._reduce = (lambda t: all_reduce_sum(t, sp)) if sp_size(self.grid) > 1 else None
 
     def init(self, generator: Optional[torch.Generator] = None,
              state_dict: Optional[dict] = None) -> TrainState:
-        """Fresh parameters from ``generator`` (or ``state_dict``), a fresh
-        optimizer state and, with ``cfg.ema``, an EMA copy."""
+        """Fresh parameters from ``generator`` (or a whole ``state_dict``),
+        this rank's shards of them, a fresh optimizer state and, with
+        ``cfg.ema``, an EMA copy."""
         model = LatentMDGenModel(self.model_cfg, self.cfg.latent_dim)
         if state_dict is None:
             model.reset_parameters(generator)
         else:
             model.load_state_dict(state_dict)
         model = model.to(self.device)
+        self.specs = shard_model(model, self.grid)
+        self.sharded = [n in self.specs for n, _ in model.named_parameters()]
         ema = copy.deepcopy(model).requires_grad_(False) if self.cfg.ema else None
         return TrainState(0, model, self.tx.init(list(model.parameters())), ema)
 
@@ -287,27 +319,31 @@ class TrainRuntime:
         and the two loss terms. With ``cfg.dropout > 0`` a train step's
         model runs with dropout: its seed is ``dropout_seed``, else drawn
         from ``generator`` before t and x0 (validation: ``train=False``,
-        no dropout). With more than one rank the draws are the global
-        batch's (``_global_draws``) and the metrics this rank's means."""
-        cfg = self.cfg
+        no dropout). On a grid the batch is this rank's dp rows, whole in
+        T; the draws are the global batch's (``_global_draws``; a given
+        x0 is this rank's frames) and the metrics this rank's means."""
+        cfg, grid = self.cfg, self.grid
         tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
-        kwargs = prep.model_kwargs
-        B = prep.latents.shape[0]
+        x1, loss_mask, kwargs = prep.latents, prep.loss_mask, prep.model_kwargs
+        if grid.sp.size > 1:
+            x1, loss_mask = grid.frames(x1), grid.frames(loss_mask)
+            kwargs = {k: grid.frames(v) if k in _FRAME_KWARGS else v for k, v in kwargs.items()}
+        B, dp = x1.shape[0], grid.dp
         if train and cfg.dropout > 0:
             if dropout_seed is None:
-                dev = generator.device if generator is not None else prep.latents.device
+                dev = generator.device if generator is not None else x1.device
                 dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                                  device=dev))
             kwargs = dict(kwargs, dropout_seed=dropout_seed)
-            if self.world > 1:
-                kwargs["dropout_rows"] = (self.rank * B, self.world * B)
-        if self.world > 1:
-            t, x0, x_d = self._global_draws(prep.latents, tok["seqres"], generator, t, x0, x_d)
+            if dp.size > 1:
+                kwargs["dropout_rows"] = (dp.index * B, dp.size * B)
+        if dp.size > 1 or grid.sp.size > 1:
+            t, x0, x_d = self._global_draws(x1, tok["seqres"], generator, t, x0, x_d)
         out = self.transport.training_losses(
-            model, prep.latents, prep.loss_mask, kwargs,
+            model, x1, loss_mask, kwargs,
             generator=generator, t=t, x0=x0,
-            aatype1=tok["seqres"] if cfg.design else None, x_d=x_d,
+            aatype1=tok["seqres"] if cfg.design else None, x_d=x_d, reduce=self._reduce,
         )
         loss = out["loss"].mean()
         metrics = {"loss": loss.detach(), "time": out["t"].mean()}
@@ -322,28 +358,35 @@ class TrainRuntime:
         return loss, metrics
 
     def _global_draws(self, x1, seqres, generator, t, x0, x_d):
-        """This rank's rows of t [world*B], x0 [world*B, ...] and, under
-        design (not the mpnn modes), x_d [world*B, L, 20], drawn as
-        ``training_losses`` draws them for the global batch (a given t, x0 or
-        x_d is this rank's rows and stays)."""
-        cfg = self.cfg
+        """This rank's rows of t [dp*B], x0 [dp*B, T, ...] (and its frames
+        of T) and, under design (not the mpnn modes), x_d [dp*B, L, 20],
+        drawn as ``training_losses`` draws them for the global batch (a
+        given t, x0 or x_d is this rank's part and stays)."""
+        cfg, grid = self.cfg, self.grid
         B = x1.shape[0]
-        lo, n = self.rank * B, self.world * B
+        lo, n = grid.dp.index * B, grid.dp.size * B
         rows = slice(lo, lo + B)
         t_all = self.transport.sample_t(n, generator, x1.device) if t is None \
-            else process_allgather(t)
+            else grid.dp.gather(t)
         if x0 is None:
-            x0 = torch.randn((n, *x1.shape[1:]), generator=generator, device=x1.device,
-                             dtype=x1.dtype)[rows]
+            shape = (n, x1.shape[1] * grid.sp.size, *x1.shape[2:])
+            x0 = grid.frames(torch.randn(shape, generator=generator, device=x1.device,
+                                         dtype=x1.dtype)[rows])
         if cfg.design and not (cfg.dynamic_mpnn or cfg.mpnn) and x_d is None:
-            x_d = self.transport.sample_x_d(t_all, process_allgather(seqres), generator)[rows]
+            x_d = self.transport.sample_x_d(t_all, grid.dp.gather(seqres), generator)[rows]
         return t_all[rows], x0, x_d
 
     def _mean_over_ranks(self, metrics: dict) -> dict:
-        if self.world == 1:
+        if self.grid.data.size == 1:
             return metrics
-        means = all_reduce_mean([torch.stack([v.float() for v in metrics.values()])])[0]
+        means = self.grid.data.mean([torch.stack([v.float() for v in metrics.values()])])[0]
         return dict(zip(metrics, means))
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The one-process gradients' global norm: each tp shard once."""
+        if self.grid.tp.size == 1:
+            return global_norm(grads)
+        return torch.sqrt(global_sq_norm(grads, self.sharded, self.grid.tp))
 
     def _grads(self, model, batch, generator=None, t=None, x0=None, x_d=None,
                dropout_seed=None):
@@ -352,7 +395,7 @@ class TrainRuntime:
                                      dropout_seed=dropout_seed)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        return params, all_reduce_mean(grads), self._mean_over_ranks(metrics)
+        return params, self.grid.data.mean(grads), self._mean_over_ranks(metrics)
 
     def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None):
         """One micro-step: gradient, optimizer (which applies an update on
@@ -360,7 +403,7 @@ class TrainRuntime:
         both advance on every call. ``grad_norm`` is this micro-batch's
         (the global batch's, averaged over ranks)."""
         params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = self._global_norm(grads)
         self.tx.step(params, grads, state.opt_state)
         if state.ema is not None:
             d = self.cfg.ema_decay
@@ -379,8 +422,41 @@ class TrainRuntime:
         """The model to evaluate with: the EMA copy when enabled."""
         return state.ema if self.cfg.ema else state.model
 
+    def whole_model(self, model: LatentMDGenModel) -> LatentMDGenModel:
+        """``model`` unsharded, with every tensor whole, on every rank (a
+        collective of the tp group): the model a grid samples with, each
+        rank on its dp rows. On a dp-only grid: ``model`` itself."""
+        if not self.specs and self.grid.sp.size == 1:
+            return model
+        whole = LatentMDGenModel(self.model_cfg, self.cfg.latent_dim)
+        whole.load_state_dict(full_tensors(model.state_dict(), self.specs, self.grid.tp))
+        return whole.to(self.device).requires_grad_(False)
+
+    def full_state(self, state: TrainState) -> dict:
+        """{"model", "ema", "optimizer"} of ``state`` with every tensor whole
+        (gathered over tp: every rank of a tp group calls it), as a
+        one-process run holds them."""
+        names = [n for n, _ in state.model.named_parameters()]
+
+        def full(named):
+            return full_tensors(named, self.specs, self.grid.tp)
+
+        opt = dict(state.opt_state)
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = list(full(dict(zip(names, opt[key]))).values())
+        return {"model": full(state.model.state_dict()),
+                "ema": None if state.ema is None else full(state.ema.state_dict()),
+                "optimizer": opt}
+
+    def shard_state(self, named: dict) -> dict:
+        """This rank's shards of whole {name: tensor} (``full_state``'s
+        inverse), for ``checkpoint.load_train_checkpoint``."""
+        return shard_tensors(named, self.specs, self.grid.tp)
+
     def grad_report(self, state: TrainState, batch: dict, generator=None) -> dict:
-        """{parameter name: gradient norm} for ``--check_grad``."""
+        """{parameter name: gradient norm} for ``--check_grad`` (of this
+        rank's shard of a tp-sharded parameter)."""
         names = [n for n, _ in state.model.named_parameters()]
         _, grads, _ = self._grads(state.model, batch, generator)
         return {n: float(torch.linalg.vector_norm(g)) for n, g in zip(names, grads)}

@@ -17,6 +17,9 @@ start frame repeated and the end frame last; the checkpoint's
 ``sampling_method`` integrates it (Euler, Heun or dopri5) and each path is
 written to ``OUT/{name}_{idx}.pdb`` (with ``--xtc``: a frame-0 PDB and the
 superposed ``.xtc``). The run needs a CUDA device unless ``--device cpu``.
+``--dp_size N`` shares each batch of paths over N data-parallel ranks, as
+``sim_inference``'s flag does (rank 0 builds the MSM cache first, the other
+ranks read it; rank 0 writes the paths and the metadata).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import time
 
 import numpy as np
 import torch
+
+from .sim_inference import add_dp_args, run_ranks, solve_line
 
 
 def parse_args(argv=None):
@@ -51,29 +56,25 @@ def parse_args(argv=None):
                    help="superpose each path to its frame 0 and write XTC + frame-0 PDB")
     p.add_argument("--fused_block", action="store_true",
                    help="run each trunk layer as three fused CUDA sublayer kernels")
-    p.add_argument("--dp_size", type=int, default=0, help="not ported: raises if set")
+    add_dp_args(p)
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, keep_trajectories: bool = False):
     """Returns one record per sampled batch: {name, batch, paths (the PDBs),
-    start_idx, end_idx, seconds, solves (the solver's counts)}."""
-    args = parse_args(argv)
-    if args.dp_size:
-        raise NotImplementedError("--dp_size is not ported: the inference CLIs run one device "
-                                  "(ROADMAP queue 1, item 2)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
-    os.makedirs(args.out_dir, exist_ok=True)
+    start_idx, end_idx, seconds, solves (the solver's counts)}, and with
+    ``keep_trajectories`` the sampled atom14 [B, T, L, 14, 3] as "traj"."""
+    return run_ranks(parse_args(argv), _sample, keep_trajectories)
 
+
+def _sample(rank, device, grid, args, keep_trajectories):
     from .analysis.reference_msm import load_or_build_msm, lowest_flux_states
     from .data import read_split
     from .geometry import constants as rc
+    from .parallel import pad_batch_to_dp, shard_batch
     from .protein import save_trajectory
     from .runtime import MDGenRuntime, checkpoint
-    from .sim_inference import solve_line
 
     cfg = checkpoint.load_config(args.sim_ckpt)
     if args.fused_block:
@@ -81,8 +82,10 @@ def main(argv=None):
     if not cfg.tps_condition:
         raise ValueError(f"{args.sim_ckpt} was not trained with --tps_condition")
     model, step = checkpoint.load_model(args.sim_ckpt, cfg, device)
-    print(f"restored {args.sim_ckpt} at step {step}")
-    rt = MDGenRuntime(cfg, model)
+    say = print if rank == 0 else (lambda *a: None)
+    say(f"restored {args.sim_ckpt} at step {step}")
+    dp = grid.dp
+    rt = MDGenRuntime(cfg, model, dp)
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -98,19 +101,18 @@ def main(argv=None):
         aatype = rc.str_sequence_to_aatype(split[name])
         arr = np.lib.format.open_memmap(
             os.path.join(args.data_dir, f"{name}{args.suffix}.npy"), "r")
-        meta = load_or_build_msm(f"{args.out_dir}/{name}_metadata.pkl", arr, aatype,
-                                 tica_lag=args.tica_lag, msm_lag=args.msm_lag, seed=args.seed)
+        meta = dp.in_turn(lambda: load_or_build_msm(
+            f"{args.out_dir}/{name}_metadata.pkl", arr, aatype, tica_lag=args.tica_lag,
+            msm_lag=args.msm_lag, seed=args.seed))
         start_state, end_state = lowest_flux_states(meta["cmsm"])
         ref_discrete = meta["ref_discrete"]
         start_idxs = np.where(ref_discrete == start_state)[0]
         end_idxs = np.where(ref_discrete == end_state)[0]
         if len(start_idxs) == 0 or len(end_idxs) == 0:
-            print(f"no start/end state frames for {name}, skipping")
+            say(f"no start/end state frames for {name}, skipping")
             continue
 
         L, T, B = len(aatype), cfg.num_frames, args.batch_size
-        seqres = torch.from_numpy(np.broadcast_to(aatype, (B, L)).copy()).long().to(device)
-        mask = torch.ones((B, L), dtype=torch.float32, device=device)
         metadata = []
         for i in range(args.num_batches):
             si = rng.choice(start_idxs, B)
@@ -119,32 +121,41 @@ def main(argv=None):
             for j in range(B):
                 atom14[j, :] = arr[si[j]]
                 atom14[j, -1] = arr[ei[j]]
-            batch = {"atom14": torch.from_numpy(atom14).to(device), "seqres": seqres,
-                     "mask": mask}
+            padded, _ = pad_batch_to_dp({"atom14": atom14}, grid)
+            batch = {"atom14": torch.from_numpy(shard_batch(grid, padded)["atom14"]).to(device)}
+            Bl = len(batch["atom14"])
+            batch["seqres"] = torch.from_numpy(np.broadcast_to(aatype, (Bl, L)).copy()).long() \
+                .to(device)
+            batch["mask"] = torch.ones((Bl, L), dtype=torch.float32, device=device)
             if device.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
             solve = {}
-            paths_atom14, _ = rt.inference(batch, generator, stats=solve)
-            paths_atom14 = paths_atom14.cpu().numpy()  # synchronizes
+            paths_atom14, _ = rt.inference(batch, generator, stats=solve,
+                                           rows=(dp.index * Bl, B) if dp.size > 1 else None)
+            paths_atom14 = dp.gather(paths_atom14)[:B].cpu().numpy()  # synchronizes
             dur = time.perf_counter() - t0
-            print(f"{name} batch {i}: {B} paths x {T} frames in {dur:.2f}s "
-                  f"({B / dur:.2f} paths/s); {solve_line(cfg.sampling_method, [solve])}")
+            say(f"{name} batch {i}: {B} paths x {T} frames in {dur:.2f}s "
+                f"({B / dur:.2f} paths/s); {solve_line(cfg.sampling_method, [solve])}")
             paths = []
             for j in range(B):
                 idx = i * B + j
                 path = os.path.join(args.out_dir, f"{name}_{idx}.pdb")
-                save_trajectory(paths_atom14[j], aatype, path,
-                                xtc_path=os.path.join(args.out_dir, f"{name}_{idx}.xtc")
-                                if args.xtc else None)
+                if rank == 0:
+                    save_trajectory(paths_atom14[j], aatype, path,
+                                    xtc_path=os.path.join(args.out_dir, f"{name}_{idx}.xtc")
+                                    if args.xtc else None)
                 paths.append(path)
                 metadata.append({"name": name, "start_idx": int(si[j]), "end_idx": int(ei[j]),
                                  "start_state": int(start_state), "end_state": int(end_state),
                                  "path": path})
             records.append({"name": name, "batch": i, "paths": paths, "start_idx": si,
                             "end_idx": ei, "seconds": dur, "solves": [solve]})
-        with open(f"{args.out_dir}/{name}_metadata.json", "w") as fh:
-            json.dump(metadata, fh)
+            if keep_trajectories:
+                records[-1]["traj"] = paths_atom14
+        if rank == 0:
+            with open(f"{args.out_dir}/{name}_metadata.json", "w") as fh:
+                json.dump(metadata, fh)
     return records
 
 

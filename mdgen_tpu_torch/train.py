@@ -19,34 +19,35 @@ designability probe (``--inference_batches N``, every
 batches with the evaluation weights, logs ``design_aa_recovery`` and
 ``cond_aa_recovery`` to the val CSV and writes ``RUN/epoch{E}_{name}.pdb``.
 
-Data parallel, as the JAX trainer: ``--dp_size`` ranks (-1: every visible
-card of each host; ``--device cpu``: one rank a host) share each global
-batch of ``--batch_size`` rows, and the run computes what one device
-computes (``parallel/distributed.py``, ``TrainRuntime``). Each host runs
-``dp_size / --num_processes`` ranks, started by this one command; rank
-``process_id * local + i`` uses ``cuda:i`` (or the CPU) and meets the others
-at ``--coordinator_address HOST:PORT`` (a free local port when one host runs
-them all). NCCL joins CUDA ranks, gloo CPU ones; ``--dist_backend gloo`` lets
-ranks share one card. Rank 0 alone writes ``log.out``, the CSVs and the
-checkpoints, and its STOP poll, broadcast every ``--stop_check_freq`` steps,
-stops every rank. ``--tp_size`` / ``--sp_size`` above 1 are refused with more
-than one rank (one rank builds no mesh, as in JAX), and so is ``--wandb``.
-``--record PATH`` writes what ``main`` returns, with the rank's kernel
-launches, as JSON (``{rank}`` in PATH becomes the rank).
+On a (dp, sp, tp) grid of ranks, as the JAX trainer's mesh: ``--dp_size``
+data-parallel ranks (-1: the ranks left over by the model axes, every
+visible card of each host; ``--device cpu``: one rank a host) share each
+global batch of ``--batch_size`` rows, ``--sp_size`` ranks share its frames
+and ``--tp_size`` ranks its projections' heads and hidden units, and the run
+computes what one device computes (``parallel/``, ``TrainRuntime``). Each
+host runs ``dp * sp * tp / --num_processes`` ranks, started by this one
+command, sp * tp of them at least (the model axes stay inside one host);
+rank ``process_id * local + i`` uses ``cuda:i`` (``--device cuda:K``: every
+rank on card K, with ``--dist_backend gloo``; or the CPU) and meets the
+others at ``--coordinator_address HOST:PORT`` (a free local port when one
+host runs them all). NCCL joins CUDA ranks, gloo CPU ones. Each dp index's
+Loader reads its rows, so the ranks of one sp x tp group read the same ones.
+Rank 0 alone writes ``log.out``, the CSVs and the checkpoints (whole
+tensors, gathered over tp: a grid's run loads in one process and the other
+way round), and its STOP poll, broadcast every ``--stop_check_freq`` steps,
+stops every rank. ``--wandb`` is refused. ``--record PATH`` writes what
+``main`` returns, with the rank's kernel launches, as JSON (``{rank}`` in
+PATH becomes the rank).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import tempfile
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
-
-from .parallel import free_port
 
 
 def parse_args(argv=None):
@@ -98,53 +99,7 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-@dataclass
-class RankPlan:
-    """Where this host's ranks run: ``world`` ranks in all, ``local`` of them
-    here, ranks ``base + i`` on ``devices[i]``, meeting at ``address``."""
-    world: int
-    local: int
-    base: int
-    devices: list
-    backend: str
-    address: str | None
-
-
-def plan_ranks(args, cfg) -> RankPlan:
-    """The rank layout of ``--dp_size``, ``--num_processes``,
-    ``--process_id``, ``--coordinator_address`` and ``--device``."""
-    device = torch.device(args.device)
-    hosts = args.num_processes or 1
-    if cfg.dp_size == -1:
-        per_host = torch.cuda.device_count() if device.type == "cuda" and device.index is None \
-            else 1
-        world = max(per_host, 1) * hosts
-    else:
-        world = cfg.dp_size
-    if world % hosts:
-        raise ValueError(f"--dp_size {world} is not a multiple of --num_processes {hosts}")
-    local = world // hosts
-    pid = args.process_id or 0
-    if not 0 <= pid < hosts:
-        raise ValueError(f"--process_id {pid} outside [0, {hosts})")
-    if device.type == "cuda":
-        devices = [torch.device("cuda", (device.index or 0) + i) for i in range(local)]
-    else:
-        devices = [device] * local
-    address = args.coordinator_address
-    if world > 1 and address is None:
-        if hosts > 1:
-            raise ValueError("--num_processes > 1 needs --coordinator_address HOST:PORT")
-        address = f"localhost:{free_port()}"
-    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
-    return RankPlan(world, local, pid * local, devices, backend, address)
-
-
-def _refuse_unported(args, cfg, world: int) -> None:
-    if world > 1 and (cfg.tp_size > 1 or cfg.sp_size > 1):
-        raise NotImplementedError(
-            "--tp_size / --sp_size > 1 with more than one rank: tensor and sequence "
-            "parallelism are not ported (ROADMAP queue 1, item 1)")
+def _refuse_unported(args) -> None:
     if args.wandb:
         raise NotImplementedError("--wandb is not ported: metrics go to log.out and CSVs")
 
@@ -156,54 +111,35 @@ def _floats(metrics: dict) -> dict:
 def main(argv=None) -> dict:
     """Returns {"model_dir", "step", "losses", "grad_norms", "step_end": host
     clock after each train step, synchronized, "val": the means of each
-    validation, "launches": the kernel launch counts at the end} of this
-    host's first rank."""
+    validation, "launches": the kernel launch counts at the end,
+    "peak_device_bytes": the card's peak allocation (None on the CPU)} of
+    this host's first rank."""
     args = parse_args(argv)
     from .config import config_from_args
 
+    from .parallel import launch, plan_ranks
+
     cfg = config_from_args(args)
-    plan = plan_ranks(args, cfg)
-    _refuse_unported(args, cfg, plan.world)
+    plan = plan_ranks(cfg.dp_size, args.device, cfg.sp_size, cfg.tp_size, args.num_processes,
+                      args.process_id, args.coordinator_address, args.dist_backend)
+    _refuse_unported(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on the CPU")
-    if plan.local == 1:
-        return _run_rank(0, args, cfg, plan)
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory(prefix="mdgen_train_") as tmp:
-        out = os.path.join(tmp, "record.json")
-        mp.start_processes(_spawned_rank, args=(args, cfg, plan, out), nprocs=plan.local,
-                           start_method="spawn")
-        with open(out) as fh:
-            return json.load(fh)
+    return launch(plan, _train_rank, args, cfg, plan)
 
 
-def _spawned_rank(i, args, cfg, plan, out):
-    if plan.devices[i].type == "cpu":  # the host's cores, shared by its ranks
-        torch.set_num_threads(max(1, torch.get_num_threads() // plan.local))
-    rec = _run_rank(i, args, cfg, plan)
-    if i == 0:
-        with open(out, "w") as fh:
-            json.dump(rec, fh)
+def _train_rank(rank, device, args, cfg, plan) -> dict:
+    """Rank ``rank`` of the run, on ``device``, in its process group."""
+    from .parallel import make_grid
 
-
-def _run_rank(i, args, cfg, plan) -> dict:
-    """Rank ``plan.base + i`` of the run, on ``plan.devices[i]``."""
-    from .parallel import init_distributed, shutdown
-
-    rank, device = plan.base + i, plan.devices[i]
-    init_distributed(plan.address, plan.world, rank, plan.backend, device)
-    try:
-        rec = _train(args, cfg, device, rank, plan.world)
-    finally:
-        shutdown()
+    rec = _train(args, cfg, device, rank, make_grid(plan.dp, plan.sp, plan.tp))
     if args.record:
         with open(args.record.replace("{rank}", str(rank)), "w") as fh:
             json.dump(rec, fh)
     return rec
 
 
-def _train(args, cfg, device, rank, world) -> dict:
+def _train(args, cfg, device, rank, grid) -> dict:
     from .data import Loader, MDGenDataset
     from .ops import launch_counts
     from .parallel import broadcast_one_to_all
@@ -225,28 +161,30 @@ def _train(args, cfg, device, rank, world) -> dict:
         log.setLevel("WARNING")  # rank 0 logs the run
     log.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                     if device.type == "cuda" else "")
-             + (f"; {world} data-parallel ranks" if world > 1 else ""))
+             + (f"; a grid of {grid.dp.size} x {grid.sp.size} x {grid.tp.size} (dp x sp x "
+                f"tp) ranks" if grid.dp.size * grid.sp.size * grid.tp.size > 1 else ""))
     log.info(f"config: {cfg.to_json()}")
 
     trainset = MDGenDataset(cfg, args.train_split, args.data_dir, seed=args.seed)
     valset = trainset if cfg.overfit else MDGenDataset(
         cfg, args.val_split, args.data_dir, repeat=args.val_repeat, seed=args.seed + 1)
+    dp = grid.dp
     train_loader = Loader(trainset, cfg.batch_size, shuffle=True, seed=args.seed,
-                          max_batches=args.train_batches, num_shards=world, shard_id=rank)
+                          max_batches=args.train_batches, num_shards=dp.size, shard_id=dp.index)
     val_loader = Loader(valset, cfg.batch_size, shuffle=False, seed=args.seed,
-                        max_batches=args.val_batches, num_shards=world, shard_id=rank)
+                        max_batches=args.val_batches, num_shards=dp.size, shard_id=dp.index)
     if len(train_loader) == 0:
         raise ValueError(f"{len(trainset)} training items make no batch of {cfg.batch_size} "
                          "(the loader drops the last partial batch)")
 
-    rt = TrainRuntime(cfg, device)
+    rt = TrainRuntime(cfg, device, grid)
     state = rt.init(torch.Generator().manual_seed(args.seed))
     generator = torch.Generator(device=device).manual_seed(args.seed)
     log.info(f"model parameters: {sum(p.numel() for p in state.model.parameters()):,}")
 
     start_epoch = 0
     if args.ckpt:
-        state, step = checkpoint.load_train_checkpoint(args.ckpt, state)
+        state, step = checkpoint.load_train_checkpoint(args.ckpt, state, shard=rt.shard_state)
         start_epoch = step // len(train_loader)
         log.info(f"restored checkpoint at step {step} (resuming at epoch {start_epoch})")
 
@@ -261,15 +199,17 @@ def _train(args, cfg, device, rank, world) -> dict:
             logger.log_dict(_floats(metrics), "val")
             if batch_idx < args.inference_batches and (
                     (epoch + 1) % args.designability_freq == 0 or args.validate):
-                _designability_probe(cfg, model, batch, generator, logger,
+                _designability_probe(cfg, rt.whole_model(model), batch, generator, logger,
                                      os.path.join(model_dir, f"epoch{epoch}_{names[0]}.pdb"),
-                                     rank, world)
+                                     rank, dp)
         val_means.append(logger.flush("val", epoch=epoch, step=state.step, save=True))
 
     def record(losses, grad_norms, step_end):
         return {"model_dir": model_dir, "step": state.step, "losses": losses,
                 "grad_norms": grad_norms, "step_end": step_end, "val": val_means,
-                "launches": launch_counts()}
+                "launches": launch_counts(),
+                "peak_device_bytes": torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None}
 
     if args.validate:
         run_validation(0)
@@ -287,6 +227,12 @@ def _train(args, cfg, device, rank, world) -> dict:
         if args.stop_check_freq <= 0 or step % args.stop_check_freq:
             return False
         return broadcast_one_to_all(stopper.poll() if rank == 0 else False)
+
+    def save(state):
+        """Every rank gathers the whole tensors (over tp); rank 0 writes them."""
+        full = rt.full_state(state) if rt.specs else None
+        if rank == 0:
+            return checkpoint.save_train_checkpoint(model_dir, cfg, state, args.keep_ckpts, full)
 
     check_grad_pending = args.check_grad
     profiler = None
@@ -333,11 +279,10 @@ def _train(args, cfg, device, rank, world) -> dict:
                 break
             if not args.no_validate and (epoch + 1) % args.val_epoch_freq == 0:
                 run_validation(epoch)
-            if (epoch + 1) % args.ckpt_freq == 0 and rank == 0:
-                path = checkpoint.save_train_checkpoint(model_dir, cfg, state, args.keep_ckpts)
+            if (epoch + 1) % args.ckpt_freq == 0:
+                path = save(state)
                 log.info(f"saved checkpoint: {path}")
-        if rank == 0:
-            checkpoint.save_train_checkpoint(model_dir, cfg, state, args.keep_ckpts)
+        save(state)
     finally:
         stopper.close()
         if profiler is not None:
@@ -345,21 +290,25 @@ def _train(args, cfg, device, rank, world) -> dict:
     return record(losses, grad_norms, step_end)
 
 
-def _designability_probe(cfg, model, batch, generator, logger, pdb_path, rank=0, world=1):
-    """Sample one validation batch with the evaluation weights: log the
-    designed (1:-1) and conditioning residues' recovery, the sequences, and
-    write the first sample's trajectory to ``pdb_path``. With more than one
-    rank the noise is the global batch's and the samples are gathered
-    before they are scored; rank 0 writes the PDB."""
+def _designability_probe(cfg, model, batch, generator, logger, pdb_path, rank=0, dp=None):
+    """Sample one validation batch with the evaluation weights (a whole
+    model): log the designed (1:-1) and conditioning residues' recovery,
+    the sequences, and write the first sample's trajectory to ``pdb_path``.
+    On data-parallel ranks (``dp``, a mesh axis) the noise is the global
+    batch's and the samples are gathered before they are scored; rank 0
+    writes the PDB."""
     from .geometry.constants import aatype_to_str_sequence
-    from .parallel import process_allgather
     from .protein import atom14_to_pdb
     from .runtime import MDGenRuntime
 
     B = batch["seqres"].shape[0]
-    atom14, aa_out = MDGenRuntime(cfg.replace(fused_block=False), model).inference(
-        batch, generator, rows=(rank * B, world * B))
-    atom14, aa_out, seq = (process_allgather(x) for x in (atom14, aa_out, batch["seqres"]))
+    rows = (dp.index * B, dp.size * B) if dp is not None and dp.size > 1 else None
+    atom14, aa_out = MDGenRuntime(cfg.replace(fused_block=False), model, dp).inference(
+        batch, generator, rows=rows)
+    if rows is not None:
+        atom14, aa_out, seq = (dp.gather(x) for x in (atom14, aa_out, batch["seqres"]))
+    else:
+        seq = batch["seqres"]
     if rank > 0:
         return
     seq = seq.cpu().numpy()

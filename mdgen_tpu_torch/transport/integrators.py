@@ -113,7 +113,9 @@ def _combine(x, dt, coeffs, ks):
 
 def ode_dopri5(drift: Callable, x0, t0: float, t1: float,
                rtol: float = 1e-3, atol: float = 1e-6, max_steps: int = 1000,
-               safety: float = 0.9, stats: Optional[dict] = None):
+               safety: float = 0.9, stats: Optional[dict] = None,
+               row_weight: Optional[torch.Tensor] = None,
+               all_reduce: Optional[Callable] = None):
     """Adaptive Dormand-Prince 5(4) with FSAL and a PI step-size controller,
     as the JAX ``ode_dopri5``: the error norm is the RMS over every element
     of the batch (of every member of a tuple state) of err / (atol + rtol *
@@ -121,7 +123,13 @@ def ode_dopri5(drift: Callable, x0, t0: float, t1: float,
     0.01 * (t1 - t0) and is clamped so no step passes t1; the loop runs while
     |t - t1| > 1e-12 and fewer than ``max_steps`` attempts (rejected ones
     included) were made. When the attempts run out, x at t < t1 is returned,
-    as JAX returns it; ``stats["reached_t1"]`` is then False."""
+    as JAX returns it; ``stats["reached_t1"]`` is then False.
+
+    On data-parallel ranks, each holding some rows of a batch: ``row_weight``
+    [B] is 1 for a row of the global batch and 0 for a pad, and
+    ``all_reduce`` sums a tensor over the ranks. The error norm then sums
+    the rows' squares and element counts over the ranks before the host
+    reads it, so every rank accepts and rejects the steps one rank would."""
     t1f = _F(t1)
     t = _F(t0)
     dt = _F((t1 - t0) * 0.01)
@@ -141,9 +149,12 @@ def ode_dopri5(drift: Callable, x0, t0: float, t1: float,
             ks.append(drift(xi, _tvec(x, _F(t + _F(dt * _C[i + 1])))))
         x5 = _map(lambda a, *k: _combine(a, dt, _B5, k), x, *ks)
         x4 = _map(lambda a, *k: _combine(a, dt, _B4, k), x, *ks)
-        sq = [((b5 - b4) / (atol + rtol * torch.maximum(a.abs(), b5.abs()))).square().sum()
+        sq = [((b5 - b4) / (atol + rtol * torch.maximum(a.abs(), b5.abs()))).square()
               for a, b5, b4 in zip(_leaves(x), _leaves(x5), _leaves(x4))]
-        en = _F(torch.sqrt(sum(sq) / n_elem).item())
+        if row_weight is None and all_reduce is None:
+            en = _F(torch.sqrt(sum(s.sum() for s in sq) / n_elem).item())
+        else:
+            en = _F(_ranks_error(sq, row_weight, all_reduce).item())
         accept = bool(en <= _F(1.0))
 
         en = max(en, _F(1e-10))
@@ -162,6 +173,18 @@ def ode_dopri5(drift: Callable, x0, t0: float, t1: float,
                      evals=1 + 6 * attempts, t_final=float(t),
                      reached_t1=bool(abs(t - t1f) <= _F(1e-12)))
     return x
+
+
+def _ranks_error(sq, row_weight, all_reduce):
+    """sqrt(sum / count) of per-element squares ``sq`` (each leaf [B, ...])
+    over the weighted rows of every rank."""
+    w = row_weight if row_weight is not None else sq[0].new_ones(sq[0].shape[0])
+    total = sum((s.reshape(s.shape[0], -1).sum(1) * w).sum() for s in sq)
+    count = w.sum() * sum(s[0].numel() for s in sq)
+    acc = torch.stack([total.float(), count.float()])
+    if all_reduce is not None:
+        acc = all_reduce(acc)
+    return torch.sqrt(acc[0] / acc[1])
 
 
 def sde_euler_maruyama(drift: Callable, diffusion: Callable, x0: torch.Tensor, t0: float,

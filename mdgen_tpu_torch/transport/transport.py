@@ -21,10 +21,16 @@ def t_to_alpha(t, alpha_max: float):
     return (1 - t) + t * alpha_max, (alpha_max - 1)
 
 
-def mean_flat(x, mask):
-    """Masked mean over all non-batch axes -> [B]."""
+def mean_flat(x, mask, reduce=None):
+    """Masked mean over all non-batch axes -> [B]. ``reduce`` (a callable
+    summing a tensor over the ranks that hold the other frames of T, under
+    sequence parallelism) makes it the mean over every frame: numerator and
+    denominator are summed over them."""
     axes = tuple(range(1, x.ndim))
-    return (x * mask).sum(axes) / mask.sum(axes)
+    num, den = (x * mask).sum(axes), mask.sum(axes)
+    if reduce is not None:
+        num, den = reduce(num), reduce(den)
+    return num / den
 
 
 @dataclass(frozen=True)
@@ -84,14 +90,17 @@ class Transport:
                         t: Optional[torch.Tensor] = None,
                         x0: Optional[torch.Tensor] = None,
                         aatype1: Optional[torch.Tensor] = None,
-                        x_d: Optional[torch.Tensor] = None) -> dict:
+                        x_d: Optional[torch.Tensor] = None, reduce=None) -> dict:
         """Flow-matching loss. ``model_fn(xt, t, **model_kwargs)`` is the
         denoiser; ``x1`` [B, T, L, D] the data, ``mask`` the per-element
         loss mask. t ~ U[t0, t1), x0 ~ N(0, I) and, under ``design``, the
         simplex point x_d [B, L, 20] ~ Dirichlet(1 + onehot(aatype1) (alpha_t
         - 1)) are drawn from ``generator`` (in that order) unless given.
         Returns {"t", "pred", "loss" [B]}; under ``design`` also
-        "loss_continuous", "loss_discrete" and "logits"."""
+        "loss_continuous", "loss_discrete" and "logits". ``reduce``: x1 holds
+        one rank's frames of T, and ``reduce`` sums a tensor over the ranks
+        that hold the others (``mean_flat``); the losses are then every
+        frame's."""
         cfg = self.cfg
         mpnn = cfg.dynamic_mpnn or cfg.mpnn
         B = x1.shape[0]
@@ -116,7 +125,7 @@ class Transport:
             pred, logits = pred[..., :-20], pred[..., -20:]
         terms = {"t": t, "pred": pred}
         if not mpnn:
-            terms["loss"] = self._continuous_loss(pred, xt, t, x0, ut, mask)
+            terms["loss"] = self._continuous_loss(pred, xt, t, x0, ut, mask, reduce)
         if cfg.design:
             if mpnn:
                 logits = pred  # [B, 1, L, 20]
@@ -125,7 +134,7 @@ class Transport:
                 terms["loss"] = loss_d
             else:
                 terms["loss_continuous"] = terms["loss"]
-                loss_d = _cross_entropy(logits, aatype1[:, None])
+                loss_d = _cross_entropy(logits, aatype1[:, None], reduce)
                 w = cfg.discrete_loss_weight
                 terms["loss"] = loss_d * w + (1 - w) * terms["loss"]
             terms["loss_discrete"] = loss_d
@@ -144,9 +153,9 @@ class Transport:
         one_hot = F.one_hot(aatype1.long(), 20).to(t.dtype)
         return sample_dirichlet(1 + one_hot * (alphas[:, None, None] - 1), generator)
 
-    def _continuous_loss(self, pred, xt, t, x0, ut, mask):
+    def _continuous_loss(self, pred, xt, t, x0, ut, mask, reduce=None):
         if self.cfg.prediction == "velocity":
-            return mean_flat((pred - ut) ** 2, mask)
+            return mean_flat((pred - ut) ** 2, mask, reduce)
         _, drift_var = self.plan.drift(xt, t)
         sigma_t, _ = self.plan.sigma(expand_t(t, xt))
         if self.cfg.loss_weight == "velocity":
@@ -156,8 +165,8 @@ class Transport:
         else:
             weight = 1.0
         if self.cfg.prediction == "noise":
-            return mean_flat(weight * (pred - x0) ** 2, mask)
-        return mean_flat(weight * (pred * sigma_t + x0) ** 2, mask)
+            return mean_flat(weight * (pred - x0) ** 2, mask, reduce)
+        return mean_flat(weight * (pred * sigma_t + x0) ** 2, mask, reduce)
 
     def drift_fn(self, model_fn: Callable) -> Callable:
         """Probability-flow ODE drift under the configured parametrization."""
@@ -188,11 +197,16 @@ class Transport:
         return lambda x, t, **kw: plan.score_from_velocity(model_fn(x, t, **kw), x, t)
 
 
-def _cross_entropy(logits, labels):
+def _cross_entropy(logits, labels, reduce=None):
     """Token-mean cross entropy over 20 classes; ``labels`` broadcast
-    against the logits' leading axes."""
+    against the logits' leading axes. ``reduce`` as ``mean_flat``'s: the
+    mean over every rank's tokens."""
     labels = labels.long().expand(logits.shape[:-1])
-    return F.cross_entropy(logits.reshape(-1, 20).float(), labels.reshape(-1))
+    if reduce is None:
+        return F.cross_entropy(logits.reshape(-1, 20).float(), labels.reshape(-1))
+    total = F.cross_entropy(logits.reshape(-1, 20).float(), labels.reshape(-1), reduction="sum")
+    count = torch.tensor(float(labels.numel()), device=logits.device)
+    return reduce(total) / reduce(count)
 
 
 class Sampler:
@@ -201,17 +215,22 @@ class Sampler:
 
     def sample_ode(self, model_fn: Callable, *, sampling_method: str = "dopri5",
                    num_steps: int = 50, atol: float = 1e-6, rtol: float = 1e-3,
-                   reverse: bool = False, stats: Optional[dict] = None) -> Callable:
+                   reverse: bool = False, stats: Optional[dict] = None,
+                   error_weight: Optional[torch.Tensor] = None,
+                   error_sum: Optional[Callable] = None) -> Callable:
         """Returns ``sample(x_init, **model_kwargs) -> x_final`` integrating
         with ``euler`` or ``heun`` (``num_steps`` grid points) or ``dopri5``
-        (adaptive, ``atol``/``rtol``); any other method raises. Each solve
-        fills ``stats`` (``integrators``) when it is given."""
+        (adaptive, ``atol``/``rtol``; ``error_weight`` and ``error_sum`` as
+        ``integrators.ode_dopri5``'s ``row_weight`` and ``all_reduce``); any
+        other method raises. Each solve fills ``stats`` (``integrators``)
+        when it is given."""
         t0, t1 = self.transport.check_interval(sde=False, eval=True, reverse=reverse)
         solvers = {
             "euler": lambda f, x: integrators.ode_euler(f, x, t0, t1, num_steps, stats=stats),
             "heun": lambda f, x: integrators.ode_heun(f, x, t0, t1, num_steps, stats=stats),
             "dopri5": lambda f, x: integrators.ode_dopri5(f, x, t0, t1, rtol=rtol, atol=atol,
-                                                          stats=stats),
+                                                          stats=stats, row_weight=error_weight,
+                                                          all_reduce=error_sum),
         }
         if sampling_method not in solvers:
             raise NotImplementedError(f"sampling_method={sampling_method!r}: the ODE "

@@ -18,7 +18,8 @@ frame-0 PDB and the superposed ``.xtc``). Each peptide's line gives frames/s,
 the solver's drift evaluations, and how far the sampled frames at the kept
 slots lie from the kept frames (backbone N, CA, C; the sampler does not clamp
 them, so this measures the model). The run needs a CUDA device unless
-``--device cpu``.
+``--device cpu``. ``--dp_size N`` shares each group of windows over N
+data-parallel ranks, as ``sim_inference``'s flag does (rank 0 writes).
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ import time
 
 import numpy as np
 import torch
+
+from .sim_inference import add_dp_args, run_ranks, solve_line
 
 
 def parse_args(argv=None):
@@ -45,7 +48,7 @@ def parse_args(argv=None):
                    help="superpose to frame 0 and write XTC + frame-0 PDB")
     p.add_argument("--fused_block", action="store_true",
                    help="run each trunk layer as three fused CUDA sublayer kernels")
-    p.add_argument("--dp_size", type=int, default=0, help="not ported: raises if set")
+    add_dp_args(p)
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -54,20 +57,15 @@ def main(argv=None):
     """Returns one record per peptide: {name, frames, windows, seconds, path,
     solves (the solver's counts, one dict per window group), kept_err (max
     and mean |sampled - kept| over the kept frames' backbone atoms, A)}."""
-    args = parse_args(argv)
-    if args.dp_size:
-        raise NotImplementedError("--dp_size is not ported: the inference CLIs run one device "
-                                  "(ROADMAP queue 1, item 2)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
-    os.makedirs(args.out_dir, exist_ok=True)
+    return run_ranks(parse_args(argv), _sample)
 
+
+def _sample(rank, device, grid, args):
     from .data import read_split
     from .geometry import constants as rc
+    from .parallel import pad_batch_to_dp, shard_batch
     from .protein import save_trajectory
     from .runtime import MDGenRuntime, checkpoint, tokenize_atom14
-    from .sim_inference import solve_line
     from .tasks import build_upsampling_windows, pad_window_groups
 
     cfg = checkpoint.load_config(args.ckpt)
@@ -76,8 +74,10 @@ def main(argv=None):
     if not cfg.cond_interval:
         raise ValueError(f"{args.ckpt} was not trained with --cond_interval")
     model, step = checkpoint.load_model(args.ckpt, cfg, device)
-    print(f"restored {args.ckpt} at step {step}")
-    rt = MDGenRuntime(cfg, model)
+    say = print if rank == 0 else (lambda *a: None)
+    say(f"restored {args.ckpt} at step {step}")
+    dp = grid.dp
+    rt = MDGenRuntime(cfg, model, dp)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     T, ci = cfg.num_frames, cfg.cond_interval
 
@@ -103,21 +103,26 @@ def main(argv=None):
         t0 = time.perf_counter()
         parts, solves = [], []
         for group, n_real in pad_window_groups(windows, args.batch_size):
-            batch = {k: torch.from_numpy(np.stack([g[k] for g in group])).to(device)
-                     for k in group[0]}
+            padded, n = pad_batch_to_dp({k: np.stack([g[k] for g in group]) for k in group[0]},
+                                        grid)
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in shard_batch(grid, padded).items()}
             batch["seqres"] = batch["seqres"].long()
             solve = {}
-            atom14, _ = rt.inference(batch, generator, stats=solve)
+            rows = (dp.index * len(batch["seqres"]), n) if dp.size > 1 else None
+            atom14, _ = rt.inference(batch, generator, stats=solve, rows=rows)
             solves.append(solve)
-            parts.append(atom14[:n_real].reshape(-1, L, 14, 3))
+            parts.append(dp.gather(atom14)[:n_real].reshape(-1, L, 14, 3))
         traj = torch.cat(parts).cpu().numpy()  # synchronizes
         dur = time.perf_counter() - t0
         kept = np.abs(traj[::ci, :, :3] - arr[: len(traj) // ci, :, :3])
         kept_err = (float(kept.max()), float(kept.mean()))
         path = os.path.join(args.out_dir, f"{name}.pdb")
-        save_trajectory(traj, aatype, path,
-                        xtc_path=os.path.join(args.out_dir, f"{name}.xtc") if args.xtc else None)
-        print(f"{name}: wrote {len(traj)} frames ({len(windows)} windows) to {path} in "
+        if rank == 0:
+            save_trajectory(traj, aatype, path,
+                            xtc_path=os.path.join(args.out_dir, f"{name}.xtc") if args.xtc
+                            else None)
+        say(f"{name}: wrote {len(traj)} frames ({len(windows)} windows) to {path} in "
               f"{dur:.2f}s ({len(traj) / dur:.1f} frames/s); "
               f"{solve_line(cfg.sampling_method, solves)}; kept frames: backbone max "
               f"{kept_err[0]:.3f} A, mean {kept_err[1]:.3f} A from their inputs")

@@ -32,6 +32,7 @@
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -428,8 +429,23 @@ def test_design_cli_refuses_what_it_does_not_run(design_run):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             design_inference.main(["--sim_ckpt", ckpt, "--data_dir", "."])
-    with pytest.raises(NotImplementedError, match="dp_size"):
-        design_inference.main(["--sim_ckpt", ckpt, "--data_dir", ".", "--dp_size", "2"])
+    # --dp_size runs: two gloo ranks (3 windows, padded to 4) design the
+    # one-rank run's sequences and write its samples
+    work = design_run["work"]
+    one_out, one_records = design_run["runs"]["transition"]
+    out = work / "dp2"
+    out.mkdir()
+    shutil.copy(one_out / "ACDE_metadata.pkl", out)
+    records = design_inference.main([
+        "--sim_ckpt", ckpt, "--data_dir", str(work), "--split", str(work / "split.csv"),
+        "--out_dir", str(out), "--num_frames", str(design_run["T"]), "--num_batches", "1",
+        "--batch_size", str(BATCH), "--tica_lag", str(TICA_LAG), "--msm_lag", str(MSM_LAG),
+        "--fused_block", "--device", "cpu", "--dp_size", "2"])
+    assert records[0]["aa_out"] == one_records[0]["aa_out"]
+    assert np.array_equal(records[0]["start_idx"], one_records[0]["start_idx"])
+    assert records[0]["solves"] == one_records[0]["solves"]
+    for a, b in zip(one_records[0]["paths"], records[0]["paths"]):
+        assert open(a).read() == open(b).read()
     from mdgen_tpu.analysis.msm import TICA
 
     import pickle

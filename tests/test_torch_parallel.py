@@ -260,24 +260,19 @@ def test_two_rank_cli_logs_the_one_rank_run_and_stops_on_stop(tmp_path):
         ["step_1"]
 
 
-@pytest.mark.parametrize("flag", ["--tp_size", "--sp_size"])
-def test_model_parallel_flags_are_refused_with_two_ranks(flag, tmp_path):
-    split = _dataset(tmp_path)
-    argv = _train_argv(tmp_path, split, "refused", ["--dp_size", "2", flag, "2"])[2:]
-    with pytest.raises(NotImplementedError, match=flag.lstrip("-")):
-        train.main(argv)
-    assert not (tmp_path / "workdir" / "refused").exists()
-
-
 def test_rank_plan():
     """--dp_size, --num_processes and --process_id -> ranks and devices, as
     JAX's mesh lays them out: process p holds ranks p * local + i."""
     from mdgen_tpu_torch.config import config_from_args
+    from mdgen_tpu_torch.parallel import plan_ranks
 
     def plan(*flags):
         args = train.parse_args(["--train_split", "s", "--val_split", "s", "--data_dir", "d",
                                  *flags])
-        return train.plan_ranks(args, config_from_args(args))
+        cfg = config_from_args(args)
+        return plan_ranks(cfg.dp_size, args.device, cfg.sp_size, cfg.tp_size,
+                          args.num_processes, args.process_id, args.coordinator_address,
+                          args.dist_backend)
 
     one = plan("--device", "cpu")
     assert (one.world, one.local, one.base, one.address) == (1, 1, 0, None)

@@ -131,6 +131,8 @@ SLICE11 = ["mdgen_tpu_torch.interop", "mdgen_tpu_torch.port_checkpoint",
            "mdgen_tpu_torch.prep_sims", "mdgen_tpu_torch.parallel",
            "mdgen_tpu_torch.parallel.distributed", "mdgen_tpu_torch.noise_floor",
            "mdgen_tpu_torch.eval_protocol"]
+# and tensor and sequence parallelism
+SLICE12 = ["mdgen_tpu_torch.parallel.mesh"]
 
 
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
@@ -138,7 +140,7 @@ def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
     if which == "package":
-        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS + SLICE11)
+        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS + SLICE11 + SLICE12)
         assert want <= set(names), want - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr

@@ -23,12 +23,13 @@
   the JAX package is refused.
 * ``python -m mdgen_tpu_torch.analyze_peptide_tps`` against
   ``scripts/analyze_peptide_tps.py`` run in a subprocess on the same files.
-* The TPS CLI needs a card unless ``--device cpu`` is given, and refuses
-  ``--dp_size``.
+* The TPS CLI needs a card unless ``--device cpu`` is given; with
+  ``--dp_size 2`` two gloo ranks on the CPU write the one-rank paths.
 """
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 
@@ -291,5 +292,22 @@ def test_tps_cli_needs_cuda_unless_cpu_is_asked_for(tps_run):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tps_inference.main(["--sim_ckpt", str(tps_run["work"] / "ckpt"), "--data_dir", "."])
-    with pytest.raises(NotImplementedError, match="dp_size"):
-        tps_inference.main(["--sim_ckpt", ".", "--data_dir", ".", "--dp_size", "2"])
+    # --dp_size 2: each rank samples 2 of the 3 paths (one a pad of path 0);
+    # rank 0 writes the one-rank run's first batch (Euler: the same sums)
+    work, out = tps_run["work"], tps_run["work"] / "dp2"
+    out.mkdir()
+    shutil.copy(tps_run["out"] / f"{tps_run['seq']}_metadata.pkl", out)
+    records = tps_inference.main([
+        "--sim_ckpt", str(work / "ckpt"), "--data_dir", str(work), "--split",
+        str(work / "split.csv"), "--out_dir", str(out), "--num_batches", "1", "--batch_size",
+        str(BATCH), "--tica_lag", str(TICA_LAG), "--msm_lag", str(MSM_LAG), "--xtc",
+        "--fused_block", "--device", "cpu", "--dp_size", "2"])
+    one = tps_run["records"][0]
+    assert np.array_equal(records[0]["start_idx"], one["start_idx"])
+    assert records[0]["solves"] == one["solves"]
+    from mdgen_tpu_torch.protein import load_trajectory
+
+    for j in range(BATCH):
+        a, _ = load_trajectory(one["paths"][j])
+        b, _ = load_trajectory(records[0]["paths"][j])
+        np.testing.assert_allclose(b, a, atol=2e-2)  # the XTC's 0.01 A grid
