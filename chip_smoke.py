@@ -164,6 +164,22 @@ Phases, in order; any failure raises and the exit code is not 0:
      run's model against the seeded one (f32 forward, PORT_CKPT_TOL); one
      `sim_inference --fused_block` rollout from the run (kernels 1-3 at 5 x
      99 launches);
+  11f. the native writers (`[native-io]`): the g++ version and a build of
+     mdgen_tpu_torch/native/*.cpp; the main path's 500-frame PDB, the
+     upsampling path's 3000-frame XTC and frame-0 PDB and the design batch's
+     32 PDBs, as those phases' CLIs wrote them, written again by the C++ and
+     by the Python writers: the PDBs byte-equal, the XTC byte-equal except at
+     coordinates where float32 and float64 quantization round apart (each
+     file then holds its own encoder's integers); each writer's seconds and
+     its share of the path's wall time;
+  11g. `[micro-fwd]`: `mdgen_tpu_torch.micro_fwd` at the 4AA sampling shape
+     (B = 8, bf16-mixed, seeded weights), MICRO_STEPS chained forwards, fused
+     and dense: kernels 1-3 at 5 launches each a step, the forwards' summed
+     drift (out - x0) within MICRO_TOL x its own max, ms a step eagerly and
+     as CUDA-graph replays;
+  11h. `[e2e]`: `mdgen_tpu_torch.e2e_smoke` at E2E_STEPS steps (dataset,
+     training with a falling fixed-draw loss, checkpoint round trip, 3
+     rollouts, PDB, torsion JSDs);
   12. profiles, last because a torch.profiler session slows the host work
       of the rest of the process: each launch's device µs of the fused
       kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
@@ -181,7 +197,7 @@ Phases, in order; any failure raises and the exit code is not 0:
       upsampling, design and mpnn paths, and on the Hyena, SDE, likelihood,
       options, ATLAS training, ATLAS residue-attention and checkpointed 4AA
       runs, on each rank of `[dp]`, `[mp]` and `[dp-infer]`, and on
-      `[port-ckpt]` and `[eval-protocol]`),
+      `[port-ckpt]`, `[eval-protocol]` and `[micro-fwd]`),
       the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -285,6 +301,14 @@ DESIGN_BATCH, DESIGN_MD_FRAMES = 32, 2000
 # dense one, max |difference|: the channels lie in [0, 1] and the dopri5
 # solve carries f32 rounding as the atoms do (DOPRI5_TOL)
 SIMPLEX_TOL = 1e-2
+# [micro-fwd]: chained denoiser forwards a run; [e2e]: train steps
+MICRO_STEPS, E2E_STEPS = 10, 40
+# [micro-fwd]: fused against dense drift, relative to the dense drift's max.
+# On the seeded weights (5 x 384, B = 2, the plain twins on the CPU) a
+# sublayer that drops its residual branch in every layer moves the drift by
+# 0.9% (the MLP) to 1.5% (the frame attention) of that max, one that halves
+# it by 0.4% to 0.7%; fused and dense differ by 1e-4
+MICRO_TOL = 2e-3
 # the card's published peaks (H100 SXM, at 700 W): memory, and operations
 # by type (f32 outside the tensor cores; split TF32, three TF32 products per
 # f32 product, shown beside it)
@@ -843,17 +867,9 @@ def bench_config(**kw):
 def seeded_model(torch, cfg):
     """Seeded weights; the zero-init adaLN producers and output head get
     N(0, 0.05) noise so every trunk sublayer and the head contribute."""
-    from mdgen_tpu_torch.models import LatentMDGenModel
+    from mdgen_tpu_torch.micro_fwd import seeded_model
 
-    g = torch.Generator().manual_seed(0)
-    model = LatentMDGenModel(cfg, cfg.latent_dim).reset_parameters(g)
-    lins = [model.trunk_adaln] + ([model.ipa_adaln] if cfg.prepend_ipa else [])
-    if hasattr(model, "emb_to_latent"):  # the mpnn modes have no latent head
-        lins += [model.emb_to_latent.dense_0, model.emb_to_latent.dense_1]
-    with torch.no_grad():
-        for lin in lins:
-            lin.weight.add_(torch.randn(lin.weight.shape, generator=g) * 0.05)
-    return model
+    return seeded_model(cfg)
 
 
 def _start(torch):
@@ -972,6 +988,7 @@ def _main_path(state_dict, smi, work):
 
     from mdgen_tpu_torch import ops, sim_inference
     from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
     from mdgen_tpu_torch.runtime import checkpoint
 
     np.save(os.path.join(work, "ACDE.npy"), synthetic_trajectory(SEQ, NUM_FRAMES, seed=0))
@@ -985,7 +1002,7 @@ def _main_path(state_dict, smi, work):
 
     sim_inference.main(argv + ["--num_rollouts", "1"])  # warm-up (allocator, caches)
     ops.reset_launch_counts()
-    rec = sim_inference.main(argv + ["--num_rollouts", str(ROLLOUTS)])[0]
+    rec = sim_inference.main(argv + ["--num_rollouts", str(ROLLOUTS)], keep_trajectories=True)[0]
     counts = ops.launch_counts()
 
     want = 5 * (EULER_STEPS - 1) * ROLLOUTS
@@ -1005,7 +1022,16 @@ def _main_path(state_dict, smi, work):
     if bad:
         raise AssertionError(f"launch counts {bad}, expected {want} for each fused kernel "
                              "and 0 for the flash kernels (T=100: 101 keys, dense)")
-    return counts, rec["seconds"] / ROLLOUTS
+    aatype = rc.str_sequence_to_aatype(SEQ)
+    writes = _writes(rec, [(rec["traj"][0], aatype, f"{SEQ}.pdb", None)])
+    return counts, rec["seconds"] / ROLLOUTS, writes
+
+
+def _writes(rec, items):
+    """What [native-io] writes again: the path's trajectories as its CLI
+    wrote them (atom14, aatype, PDB name, XTC name or None), the path's
+    seconds and its CLI's writer seconds."""
+    return {"items": items, "solve_s": rec["seconds"], "cli_write_s": rec["write_seconds"]}
 
 
 def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
@@ -1308,7 +1334,8 @@ def _upsampling(torch, smi, work):
     try:
         ops.reset_launch_counts()
         rec = upsampling_inference.main(argv + ["--split", splits[SEQ], "--out_dir",
-                                                os.path.join(work, "out")])[0]
+                                                os.path.join(work, "out")],
+                                        keep_trajectories=True)[0]
         counts = ops.launch_counts()
     finally:
         ops.fused_t_sublayer = kernel_2
@@ -1364,8 +1391,10 @@ def _upsampling(torch, smi, work):
     err = _check_fused_vs_dense(torch, "upsampling",
                                 _fused_vs_dense(torch, cfg, state_dict, window, noise), 5)
     torch.cuda.empty_cache()
+    writes = _writes(rec, [(rec["traj"], rc.str_sequence_to_aatype(SEQ), f"{SEQ}.pdb",
+                            f"{SEQ}.xtc")])
     return counts, {"frames_per_s": fps, "ms_per_eval": ms_eval, "evals": evals,
-                    "fused_vs_dense_A": err}, (cfg, state_dict, window)
+                    "fused_vs_dense_A": err, "writes": writes}, (cfg, state_dict, window)
 
 
 def design_config(**kw):
@@ -1439,7 +1468,7 @@ def _design(torch, smi, work):
     os.makedirs(out)
     shutil.copy(os.path.join(warm, f"{SEQ}_metadata.pkl"), out)
     ops.reset_launch_counts()
-    rec = design_inference.main(argv + ["--out_dir", out])[0]
+    rec = design_inference.main(argv + ["--out_dir", out], keep_trajectories=True)[0]
     counts = ops.launch_counts()
 
     st = rec["solves"][0]
@@ -1508,7 +1537,9 @@ def _design(torch, smi, work):
     torch.cuda.empty_cache()
     return counts, {"samples_per_s": samples_s, "ms_per_eval": ms_eval, "evals": st["evals"],
                     "fused_vs_dense_A": err, "simplex_err": serr, "sequence_agreement": agree,
-                    "table_s": table_s}
+                    "table_s": table_s,
+                    "writes": _writes(rec, [(rec["traj"][j], rec["aatype"][j], f"{SEQ}_{j}.pdb",
+                                             None) for j in range(len(rec["traj"]))])}
 
 
 def phase_mpnn(torch, smi):
@@ -2911,6 +2942,140 @@ def _eval_protocol(smi, work, res):
     return launches
 
 
+def phase_native_io(smi, writes):
+    """[native-io]: the g++ version and a build of the C++ writers
+    (``mdgen_tpu_torch/native.py``) from the checkout's sources; then each
+    path's trajectories as its CLI wrote them (the main path's 500-frame
+    PDB, the upsampling path's 3000-frame XTC with its frame-0 PDB, the
+    design batch's 32 PDBs) written again by the native and by the Python
+    writers: the PDBs byte-equal, the XTC byte-equal or, at a coordinate
+    whose product with the precision rounds to another integer in float32
+    (the C++ encoder) than in float64 (the Python one), each file holding
+    its own encoder's integers; the seconds of each writer and their share
+    of the path's wall time (its solve plus that writer)."""
+    import numpy as np
+
+    from mdgen_tpu_torch import native, xtc
+    from mdgen_tpu_torch.protein import save_trajectory
+
+    cxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    with tempfile.TemporaryDirectory(prefix="mdgen_native_") as d:
+        t0 = time.perf_counter()
+        native.build(build_dir=d)
+        build_s = time.perf_counter() - t0
+    log(f"[native-io] {cxx.stdout.splitlines()[0]}; the writers built from "
+        f"mdgen_tpu_torch/native/*.cpp ({' '.join(native.CXX_FLAGS)}) in {build_s:.2f} s")
+    for path, w in writes.items():
+        secs, files, coords = {}, {}, []
+        write_xtc = xtc.write_xtc
+
+        def recording(path_, coords_nm, *a, **kw):
+            coords.append(np.array(coords_nm, np.float32))
+            return write_xtc(path_, coords_nm, *a, **kw)
+
+        with tempfile.TemporaryDirectory(prefix="mdgen_io_") as d:
+            for use_native in (True, False):
+                out = os.path.join(d, str(use_native))
+                os.makedirs(out)
+                xtc.write_xtc = recording if use_native else write_xtc
+                try:
+                    t0 = time.perf_counter()
+                    for atom14, aatype, pdb, xtc_name in w["items"]:
+                        save_trajectory(atom14, aatype, os.path.join(out, pdb),
+                                        os.path.join(out, xtc_name) if xtc_name else None,
+                                        use_native=use_native)
+                    secs[use_native] = time.perf_counter() - t0
+                finally:
+                    xtc.write_xtc = write_xtc
+                files[use_native] = {f: os.path.join(out, f) for f in sorted(os.listdir(out))}
+            equal = {f: open(files[True][f], "rb").read() == open(files[False][f], "rb").read()
+                     for f in files[True]}
+            ok = files[True].keys() == files[False].keys() and all(
+                v for f, v in equal.items() if f.endswith(".pdb"))
+            ties = 0
+            for f, c in zip([f for f in files[True] if f.endswith(".xtc")], coords):
+                q = {}
+                for dt in (np.float32, np.float64):
+                    lf = c.astype(dt) * dt(1000.0)
+                    q[dt] = np.where(lf >= 0, lf + dt(0.5), lf - dt(0.5)).astype(np.int64)
+                ties += int((q[np.float32] != q[np.float64]).sum())
+                got = {n: np.rint(xtc.read_xtc(files[n][f])[0].astype(np.float64) * 1000)
+                       .astype(np.int64) for n in (True, False)}
+                ok &= (np.array_equal(got[True], q[np.float32])
+                       and np.array_equal(got[False], q[np.float64])
+                       and equal[f] == (q[np.float32] == q[np.float64]).all())
+        frames = sum(len(item[0]) for item in w["items"])
+        share = {n: secs[n] / (w["solve_s"] + secs[n]) for n in (True, False)}
+        log(f"[native-io] {path}: {len(w['items'])} trajectories, {frames} frames "
+            f"({', '.join(sorted({os.path.splitext(f)[1] for f in files[True]}))}): native "
+            f"{secs[True]:.4f} s, Python {secs[False]:.4f} s ({secs[False] / secs[True]:.1f}x); "
+            f"the path's solve {w['solve_s']:.3f} s, the writers' share of its wall native "
+            f"{share[True]:.2%}, Python {share[False]:.2%} (the CLI's own native write "
+            f"{w['cli_write_s']:.4f} s); files byte-equal {sum(equal.values())} of {len(equal)}, "
+            f"float32/float64 rounding ties in the XTC {ties}, each file holding its own "
+            f"encoder's integers ({smi}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[native-io] {path}: the native and Python writers disagree: "
+                                 f"{equal}, ties {ties}")
+
+
+def phase_micro_fwd(torch, smi):
+    """[micro-fwd]: ``python -m mdgen_tpu_torch.micro_fwd`` (its ``main``) at
+    the 4AA sampling shape (B = 8, T = 100, bf16-mixed, seeded weights),
+    MICRO_STEPS chained forwards, fused and dense: kernels 1-3 at 5 launches
+    each a step (the dense run none); the forwards' own contribution, the
+    drift out - x0 = 0.01 * sum of the forwards, nonzero and within
+    MICRO_TOL x the dense drift's max (x0 itself is left out: its N(0, 1)
+    draws would swamp the forwards); ms a step eagerly and as CUDA-graph
+    replays."""
+    from mdgen_tpu_torch import micro_fwd
+
+    runs = {fused: micro_fwd.main(["--steps", str(MICRO_STEPS)]
+                                  + (["--fused_block"] if fused else []))
+            for fused in (True, False)}
+    launches, dense = runs[True]["launches"], runs[False]["drift"]
+    err = (runs[True]["drift"] - dense).abs().max().item()
+    scale = dense.abs().max().item()
+    want = 5 * MICRO_STEPS
+    ok = (bool(torch.isfinite(runs[True]["out"]).all()) and 0 < scale
+          and err <= MICRO_TOL * scale
+          and all(launches[k] == want for k in FUSED_KERNELS)
+          and not any(launches[k] for k in FLASH_KERNELS)
+          and not any(runs[False]["launches"].values()))
+    log(f"[micro-fwd] micro_fwd --steps {MICRO_STEPS} (5x384x16, B=8, T=100, bf16-mixed): fused "
+        f"{runs[True]['eager_ms']:.3f} ms a step eagerly, {runs[True]['graph_ms']:.3f} ms as a "
+        f"CUDA graph; dense {runs[False]['eager_ms']:.3f} / {runs[False]['graph_ms']:.3f} ms; "
+        f"drift (out - x0) fused vs dense max_abs_err {err:.3e}, the dense drift's max "
+        f"{scale:.4e}, tol {MICRO_TOL:g} x that; launches a run {launches}, want {want} of "
+        f"each fused kernel ({smi}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[micro-fwd]: err {err}, launches {launches}")
+    return launches
+
+
+def phase_e2e(smi):
+    """[e2e]: ``python -m mdgen_tpu_torch.e2e_smoke`` (its ``main``) at
+    E2E_STEPS steps: the synthetic dataset, training (the fixed-draw loss
+    falls), the checkpoint round trip, 3 rollouts, the PDB and its torsion
+    JSDs, all finite."""
+    import numpy as np
+
+    from mdgen_tpu_torch import e2e_smoke
+
+    with tempfile.TemporaryDirectory(prefix="mdgen_e2e_") as work:
+        t0 = time.perf_counter()
+        res = e2e_smoke.main(["--steps", str(E2E_STEPS), "--out", work, "--device", "cuda"])
+        sec = time.perf_counter() - t0
+    ok = res["loss1"] < res["loss0"] and bool(np.isfinite(res["jsds"]).all())
+    log(f"[e2e] e2e_smoke --steps {E2E_STEPS}: {sec:.1f} s; {res['steps_per_s']:.2f} steps/s, "
+        f"fixed-draw loss {res['loss0']:.4f} -> {res['loss1']:.4f}; rollout "
+        f"{res['frames_per_s']:.1f} frames/s; torsion JSDs mean {np.mean(res['jsds']):.4f} "
+        f"({smi}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[e2e]: {res}")
+
+
 def main(argv=None):
     import argparse
 
@@ -2952,14 +3117,14 @@ def main(argv=None):
     parity = phase_kernel_parity(torch)
     state_dict = seeded_model(torch, bench_config()).state_dict()
     phase_model_parity(torch, state_dict)
-    counts, rollout_s = phase_main_path(state_dict, smi)
+    counts, rollout_s, main_writes = phase_main_path(state_dict, smi)
     phase_dopri5(torch, state_dict, rollout_s, smi)
     t_new = time.perf_counter()
     eval_counts = phase_quality(torch, smi, eval_protocol=True)
     quality_s = time.perf_counter() - t_new
     tps_counts, _ = phase_tps(torch, smi)
-    ups_counts, _, upsampling = phase_upsampling(torch, smi)
-    design_counts, _ = phase_design(torch, smi)
+    ups_counts, ups, upsampling = phase_upsampling(torch, smi)
+    design_counts, design = phase_design(torch, smi)
     mpnn_counts = phase_mpnn(torch, smi)
     for task in ("tps", "upsampling", "design"):
         phase_quality_task(torch, smi, task)
@@ -2988,9 +3153,15 @@ def main(argv=None):
     t_new = time.perf_counter()
     port_counts = phase_port_ckpt(torch, smi)
     slice_s = time.perf_counter() - t_new + dp_s
+    t_new = time.perf_counter()
+    phase_native_io(smi, {"main": main_writes, "upsampling": ups["writes"],
+                          "design": design["writes"]})
+    micro_counts = phase_micro_fwd(torch, smi)
+    phase_e2e(smi)
+    slice13_s = time.perf_counter() - t_new
     log(f"[phases] [hyena] to [quality-hyena] {new_s:.1f} s, [atlas] {atlas_s:.1f} s, "
         f"[quality] with [eval-protocol] {quality_s:.1f} s, [dp] and [port-ckpt] {slice_s:.1f} s, "
-        f"[mp] {mp_s:.1f} s, [dp-infer] {infer_s:.1f} s")
+        f"[mp] {mp_s:.1f} s, [dp-infer] {infer_s:.1f} s, [native-io] to [e2e] {slice13_s:.1f} s")
     frame_us = phase_profiles(torch, state_dict, rollout_s, smi, upsampling)
     parity["fused_t_sublayer"]["upsampling_t1000_us_per_launch"] = frame_us
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -3011,6 +3182,7 @@ def main(argv=None):
          "dp_infer_launches_per_rank": {p: [c[k] for c in cs]
                                         for p, cs in infer_launches.items()},
          "port_ckpt_launches": port_counts[k], "eval_protocol_launches": eval_counts[k],
+         "micro_fwd_launches": micro_counts[k],
          **{key: parity[k][key] for key in keys}, "library_ms": parity[k].get("library_ms"),
          **{key: v for key, v in parity[k].items() if key not in keys + ("library_ms",)}}
         for k, (src, rep) in KERNELS.items()

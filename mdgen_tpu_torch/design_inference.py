@@ -65,14 +65,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, keep_trajectories: bool = False):
     """Returns one record per sampled batch: {name, batch, paths (the PDBs),
     start_idx, aa_out (the designed sequences), seconds, solves (the
-    solver's counts)}."""
-    return run_ranks(parse_args(argv), _sample)
+    solver's counts), write_seconds (the PDB writer's)}, and with
+    ``keep_trajectories`` the sampled atom14 [B, T, L, 14, 3] as "traj" and
+    the designed aatypes [B, L] as "aatype"."""
+    return run_ranks(parse_args(argv), _sample, keep_trajectories)
 
 
-def _sample(rank, device, grid, args):
+def _sample(rank, device, grid, args, keep_trajectories):
     from .analysis.reference_msm import JaxCacheError, highest_flux_states, load_or_build_msm
     from .data import read_split
     from .geometry import constants as rc
@@ -161,6 +163,7 @@ def _sample(rank, device, grid, args):
                 + (solve_line(cfg.sampling_method, [solve]) if solve else
                    "one forward at t = 1 (mpnn)"))
             paths, designed = [], []
+            t0 = time.perf_counter()
             for j in range(B):
                 path = os.path.join(args.out_dir, f"{name}_{i * B + j}.pdb")
                 if rank == 0:
@@ -173,7 +176,10 @@ def _sample(rank, device, grid, args):
                                  "seqres": seq, "path": path})
             records.append({"name": name, "batch": i, "paths": paths, "start_idx": si,
                             "aa_out": designed, "seconds": dur,
-                            "solves": [solve] if solve else []})
+                            "solves": [solve] if solve else [],
+                            "write_seconds": time.perf_counter() - t0})
+            if keep_trajectories:
+                records[-1]["traj"], records[-1]["aatype"] = atom14s, aa_out[:, 0]
         if rank == 0:
             with open(f"{args.out_dir}/{name}_metadata.json", "w") as fh:
                 json.dump(metadata, fh)

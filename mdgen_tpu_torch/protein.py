@@ -1,8 +1,8 @@
-"""PDB and trajectory I/O (port of the pure-Python side of
-``mdgen_tpu/protein.py``): the multi-MODEL PDB writer and reader, and the
-frame-0 PDB + XTC pair that ``save_trajectory`` writes and
-``load_trajectory`` reads. The files are the JAX package's, byte for byte,
-so either package's analysis reads the other's output."""
+"""PDB and trajectory I/O (port of ``mdgen_tpu/protein.py``): the
+multi-MODEL PDB writer (the C++ writer of ``native.py``, or the Python one)
+and reader, and the frame-0 PDB + XTC pair that ``save_trajectory`` writes
+and ``load_trajectory`` reads. The files are the JAX package's, byte for
+byte, so either package's analysis reads the other's output."""
 from __future__ import annotations
 
 import dataclasses
@@ -185,26 +185,47 @@ def load_pdb_trajectory(path: str):
     return np.stack(frames).astype(np.float32), aatype
 
 
-def atom14_to_pdb(atom14, aatype, path: str):
-    """[T, L, 14, 3] trajectory (numpy or tensor) -> multi-MODEL PDB file."""
+def atom14_to_pdb(atom14, aatype, path: str, use_native: bool = True):
+    """[T, L, 14, 3] trajectory (numpy or tensor) -> multi-MODEL PDB file.
+
+    Written by the C++ writer (``native.py``) unless ``use_native`` is False,
+    which takes the Python writer. The two write the same bytes except where
+    the atom selection differs: the native writer keeps the residue type's
+    atoms that are nonzero in any frame, the Python writer each frame's
+    nonzero atoms."""
     aatype = np.asarray(aatype)
     atom37 = _to37(atom14, aatype)
-    prots = [create_full_prot(pos37, aatype=aatype) for pos37 in atom37]
+    if use_native:
+        from . import native
+
+        mask = rc.RESTYPE_ATOM37_MASK[aatype]
+        # per-atom existence refined by nonzero coordinates (padding residues)
+        mask = mask * (np.abs(atom37).sum(-1) > 1e-7).any(0)
+        names4 = b"".join((f" {n:<3}" if len(n) < 4 else n).encode() for n in rc.atom_types)
+        elems = bytes(ord(_atom_element(n)) for n in rc.atom_types)
+        res3 = b"".join((rc.restype_1to3[rc.restypes[int(a)]] if int(a) < 20 else "UNK").encode()
+                        for a in aatype)
+        text = native.write_pdb_models(atom37, mask, names4, elems, res3,
+                                       np.arange(len(aatype), dtype=np.int32))
+    else:
+        text = prots_to_pdb([create_full_prot(pos37, aatype=aatype) for pos37 in atom37])
     with open(path, "w") as fh:
-        fh.write(prots_to_pdb(prots))
+        fh.write(text)
 
 
-def save_trajectory(atom14, aatype, pdb_path: str, xtc_path: Optional[str] = None):
+def save_trajectory(atom14, aatype, pdb_path: str, xtc_path: Optional[str] = None,
+                    use_native: bool = True):
     """Write a sampled trajectory. Without ``xtc_path``: a multi-MODEL PDB of
     all frames. With it: every frame superposed onto frame 0 (Kabsch over
     the atoms present at frame 0), written as an XTC (nm), and the PDB holds
-    frame 0 alone, the topology the XTC is read with."""
+    frame 0 alone, the topology the XTC is read with. ``use_native``: the
+    C++ writers or the Python ones (:func:`atom14_to_pdb`)."""
     from .xtc import superpose, write_xtc_angstrom
 
     atom14 = np.asarray(atom14, np.float32)
     aatype = np.asarray(aatype)
     if xtc_path is None:
-        atom14_to_pdb(atom14, aatype, pdb_path)
+        atom14_to_pdb(atom14, aatype, pdb_path, use_native)
         return
 
     T, L = atom14.shape[:2]
@@ -215,11 +236,11 @@ def save_trajectory(atom14, aatype, pdb_path: str, xtc_path: Optional[str] = Non
     flat = atom14.reshape(T, L * 14, 3)
     aligned = superpose(flat, mask14.reshape(-1)).reshape(T, L, 14, 3)
 
-    atom14_to_pdb(aligned[:1], aatype, pdb_path)
+    atom14_to_pdb(aligned[:1], aatype, pdb_path, use_native)
     atom37 = _to37(aligned, aatype)
     mask37 = rc.RESTYPE_ATOM37_MASK[aatype].astype(bool)
     mask37 &= np.abs(atom37[0]).sum(-1) > 1e-7
-    write_xtc_angstrom(xtc_path, atom37[:, mask37])
+    write_xtc_angstrom(xtc_path, atom37[:, mask37], use_native=use_native)
 
 
 def load_trajectory(pdb_path: str):

@@ -99,7 +99,8 @@ def _on_grid(rank, device, world, fn, args, *extra):
 
 def main(argv=None, keep_trajectories: bool = False):
     """Returns one record per sampled batch: {names, frames, seconds, paths
-    (the PDBs), solves (the solver's counts, one dict per rollout)}, and with
+    (the PDBs), solves (the solver's counts, one dict per rollout),
+    write_seconds (the PDB and XTC writers')}, and with
     ``keep_trajectories`` the sampled atom14 [B, R*T, L, 14, 3] as "traj"."""
     return run_ranks(parse_args(argv), _sample, keep_trajectories)
 
@@ -158,11 +159,12 @@ def _sample(rank, device, grid, args, keep_trajectories):
             say(f"{','.join(chunk)}: {frames} frames in {dur:.2f}s "
                 f"({frames / dur:.1f} frames/s); {solve_line(cfg.sampling_method, solves)}")
             paths = [os.path.join(args.out_dir, f"{name}.pdb") for name in chunk]
+            t0 = time.perf_counter()
             for j, path in enumerate(paths if rank == 0 else []):
                 save_trajectory(traj[j], seqres[j], path,
                                 xtc_path=os.path.splitext(path)[0] + ".xtc" if args.xtc else None)
             records.append({"names": chunk, "frames": frames, "seconds": dur, "paths": paths,
-                            "solves": solves})
+                            "solves": solves, "write_seconds": time.perf_counter() - t0})
             if keep_trajectories:
                 records[-1]["traj"] = traj
     return records

@@ -63,7 +63,8 @@ def parse_args(argv=None):
 
 def main(argv=None, keep_trajectories: bool = False):
     """Returns one record per sampled batch: {name, batch, paths (the PDBs),
-    start_idx, end_idx, seconds, solves (the solver's counts)}, and with
+    start_idx, end_idx, seconds, solves (the solver's counts), write_seconds
+    (the PDB and XTC writers')}, and with
     ``keep_trajectories`` the sampled atom14 [B, T, L, 14, 3] as "traj"."""
     return run_ranks(parse_args(argv), _sample, keep_trajectories)
 
@@ -138,6 +139,7 @@ def _sample(rank, device, grid, args, keep_trajectories):
             say(f"{name} batch {i}: {B} paths x {T} frames in {dur:.2f}s "
                 f"({B / dur:.2f} paths/s); {solve_line(cfg.sampling_method, [solve])}")
             paths = []
+            t0 = time.perf_counter()
             for j in range(B):
                 idx = i * B + j
                 path = os.path.join(args.out_dir, f"{name}_{idx}.pdb")
@@ -150,7 +152,8 @@ def _sample(rank, device, grid, args, keep_trajectories):
                                  "start_state": int(start_state), "end_state": int(end_state),
                                  "path": path})
             records.append({"name": name, "batch": i, "paths": paths, "start_idx": si,
-                            "end_idx": ei, "seconds": dur, "solves": [solve]})
+                            "end_idx": ei, "seconds": dur, "solves": [solve],
+                            "write_seconds": time.perf_counter() - t0})
             if keep_trajectories:
                 records[-1]["traj"] = paths_atom14
         if rank == 0:

@@ -53,14 +53,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, keep_trajectories: bool = False):
     """Returns one record per peptide: {name, frames, windows, seconds, path,
     solves (the solver's counts, one dict per window group), kept_err (max
-    and mean |sampled - kept| over the kept frames' backbone atoms, A)}."""
-    return run_ranks(parse_args(argv), _sample)
+    and mean |sampled - kept| over the kept frames' backbone atoms, A),
+    write_seconds (the PDB and XTC writers')}, and with ``keep_trajectories``
+    the sampled atom14 [frames, L, 14, 3] as "traj"."""
+    return run_ranks(parse_args(argv), _sample, keep_trajectories)
 
 
-def _sample(rank, device, grid, args):
+def _sample(rank, device, grid, args, keep_trajectories):
     from .data import read_split
     from .geometry import constants as rc
     from .parallel import pad_batch_to_dp, shard_batch
@@ -118,16 +120,21 @@ def _sample(rank, device, grid, args):
         kept = np.abs(traj[::ci, :, :3] - arr[: len(traj) // ci, :, :3])
         kept_err = (float(kept.max()), float(kept.mean()))
         path = os.path.join(args.out_dir, f"{name}.pdb")
+        t0 = time.perf_counter()
         if rank == 0:
             save_trajectory(traj, aatype, path,
                             xtc_path=os.path.join(args.out_dir, f"{name}.xtc") if args.xtc
                             else None)
+        write_s = time.perf_counter() - t0
         say(f"{name}: wrote {len(traj)} frames ({len(windows)} windows) to {path} in "
               f"{dur:.2f}s ({len(traj) / dur:.1f} frames/s); "
               f"{solve_line(cfg.sampling_method, solves)}; kept frames: backbone max "
               f"{kept_err[0]:.3f} A, mean {kept_err[1]:.3f} A from their inputs")
         records.append({"name": name, "frames": len(traj), "windows": len(windows),
-                        "seconds": dur, "path": path, "solves": solves, "kept_err": kept_err})
+                        "seconds": dur, "path": path, "solves": solves, "kept_err": kept_err,
+                        "write_seconds": write_s})
+        if keep_trajectories:
+            records[-1]["traj"] = traj
     return records
 
 

@@ -1,8 +1,9 @@
 """GROMACS XTC trajectory I/O + Kabsch superposition (host-side).
 
-A copy of ``mdgen_tpu/xtc.py`` without its native C++ writer: the pure
-NumPy/Python encoder, which writes the same bytes as the native one, and the
-Python reader. Both implement the classic xdrfile ``xdr3dfcoord``
+A copy of ``mdgen_tpu/xtc.py``: the writer goes through the C++ encoder of
+``native.py`` (``native/xtc_writer.cpp``), or, with ``use_native=False``,
+through the pure NumPy/Python encoder, which writes the same bytes; and the
+Python reader. Both encoders implement the classic xdrfile ``xdr3dfcoord``
 compressed-coordinate algorithm.
 
 Coordinates are in NANOMETERS on disk (GROMACS convention); helpers below
@@ -428,10 +429,18 @@ def write_xtc(
     steps=None,
     times=None,
     precision: float = 1000.0,
+    use_native: bool = True,
 ) -> None:
-    """Write [T, N, 3] nm coordinates as an XTC file (no unit cell)."""
+    """Write [T, N, 3] nm coordinates as an XTC file (no unit cell): with the
+    C++ encoder of ``native.py``, or the Python one if ``use_native`` is
+    False (the same bytes)."""
     coords_nm = np.ascontiguousarray(coords_nm, np.float32)
     T, N = coords_nm.shape[:2]
+    if use_native:
+        from . import native
+
+        native.write_xtc(coords_nm, steps, times, precision, path)
+        return
     with open(path, "wb") as fh:
         for t in range(T):
             step = int(steps[t]) if steps is not None else t

@@ -78,7 +78,7 @@ def test_xtc_bytes_match_jax_python_encoder(tmp_path):
     coords[3, 5:9] = coords[3, 4]  # runs of nearby atoms (the run-length path)
     for precision in (1000.0, 100.0):
         a, b = tmp_path / f"port{precision}.xtc", tmp_path / f"jax{precision}.xtc"
-        xtc.write_xtc(str(a), coords, precision=precision)
+        xtc.write_xtc(str(a), coords, precision=precision, use_native=False)
         jax_xtc.write_xtc(str(b), coords, precision=precision, use_native=False)
         assert a.read_bytes() == b.read_bytes()
         got, steps, times = xtc.read_xtc(str(a))
@@ -228,6 +228,7 @@ def test_quality_run_without_jax(tmp_path):
     pandas and matplotlib unimportable: prints the original script's JSON."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes; the suite's other workers hold the cores
     proc = subprocess.run([sys.executable, "-c", _QUALITY_NO_JAX], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -97,6 +97,7 @@ _EVAL_NO_JAX = textwrap.dedent("""
 def test_eval_protocol_runs_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes; the suite's other workers hold the cores
     r = subprocess.run([sys.executable, "-c", _EVAL_NO_JAX], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]

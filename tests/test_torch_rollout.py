@@ -159,6 +159,7 @@ def test_port_runs_without_jax(tmp_path):
     orbax and pandas cannot be imported."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes; the suite's other workers hold the cores
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

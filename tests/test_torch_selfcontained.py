@@ -15,6 +15,7 @@ import ast
 import dataclasses
 import importlib.util
 import inspect
+import json
 import os
 import pickle
 import pkgutil
@@ -50,17 +51,25 @@ from mdgen_tpu_torch.runtime.preempt import GracefulStop as TorchGracefulStop
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Imports the given modules with an audit hook that refuses any open of a
-# file under mdgen_tpu/ (a .py or its cached .pyc), then checks that neither
-# jax nor any mdgen_tpu module was imported.
-_PROBE = textwrap.dedent("""
-    import importlib, os, sys
+# file under mdgen_tpu/ (a .py or its cached .pyc) or native/ (the JAX
+# package's C++ writers and their library), a dlopen of one, or a
+# subprocess handed one, then checks that neither jax nor any mdgen_tpu
+# module was imported.
+_HOOK = """
+import os, sys
+jax_dirs = tuple(os.path.join(sys.argv[1], d) + os.sep for d in ("mdgen_tpu", "native"))
+def _jax_path(p):
+    return isinstance(p, (str, bytes, os.PathLike)) and \
+        os.path.abspath(os.fsdecode(p)).startswith(jax_dirs)
+def hook(event, args):
+    if event in ("open", "ctypes.dlopen") and _jax_path(args[0]):
+        raise RuntimeError(f"{event} of a file of the JAX package: {args[0]}")
+    if event == "subprocess.Popen" and any(_jax_path(a) for a in (args[0], *(args[1] or ()))):
+        raise RuntimeError(f"a subprocess handed a file of the JAX package: {args[1]}")
+"""
+_PROBE = _HOOK + textwrap.dedent("""
+    import importlib
     repo, names = sys.argv[1], sys.argv[2:]
-    jax_pkg = os.path.join(repo, "mdgen_tpu") + os.sep
-    def hook(event, args):
-        if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
-            path = os.path.abspath(os.fsdecode(args[0]))
-            if path.startswith(jax_pkg):
-                raise RuntimeError(f"opened a file of the JAX package: {path}")
     sys.path.insert(0, repo)
     sys.addaudithook(hook)
     for name in names:
@@ -133,6 +142,10 @@ SLICE11 = ["mdgen_tpu_torch.interop", "mdgen_tpu_torch.port_checkpoint",
            "mdgen_tpu_torch.eval_protocol"]
 # and tensor and sequence parallelism
 SLICE12 = ["mdgen_tpu_torch.parallel.mesh"]
+# and the native writers and the last scripts
+SLICE13 = ["mdgen_tpu_torch.native", "mdgen_tpu_torch.persist_results",
+           "mdgen_tpu_torch.micro_fwd", "mdgen_tpu_torch.e2e_smoke",
+           "mdgen_tpu_torch.design_temp_sweep", "mdgen_tpu_torch.design_ceiling_probe"]
 
 
 @pytest.mark.parametrize("which", ["package", "chip_smoke"])
@@ -140,7 +153,8 @@ def test_nothing_opens_a_file_of_the_jax_package(which):
     names = _port_modules() if which == "package" else _chip_smoke_imports()
     assert len(names) > (30 if which == "package" else 10)
     if which == "package":
-        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS + SLICE11 + SLICE12)
+        want = set(QUALITY_CHAIN + TPS_UPSAMPLING + DESIGN + OPTIONS + SLICE11 + SLICE12 +
+                   SLICE13)
         assert want <= set(names), want - set(names)
     r = _probe(names)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -345,7 +359,8 @@ def test_xtc_copy_gives_the_same_outputs(tmp_path):
                                        jax_xtc.kabsch(coords[1], coords[0]))}.items():
         assert all(np.array_equal(g, w) for g, w in zip(got, want)), fn
     a, b = str(tmp_path / "a.xtc"), str(tmp_path / "b.xtc")
-    torch_xtc.write_xtc_angstrom(a, coords * 10, steps=np.arange(5) * 7, times=np.arange(5) * 0.5)
+    torch_xtc.write_xtc_angstrom(a, coords * 10, steps=np.arange(5) * 7, times=np.arange(5) * 0.5,
+                                 use_native=False)
     jax_xtc.write_xtc_angstrom(b, coords * 10, steps=np.arange(5) * 7, times=np.arange(5) * 0.5,
                                use_native=False)
     assert open(a, "rb").read() == open(b, "rb").read()
@@ -469,6 +484,7 @@ def test_task_chain_runs_without_jax(task, frames, tmp_path):
     matplotlib unimportable."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes; the suite's other workers hold the cores
     proc = subprocess.run([sys.executable, "-c", _TASK_NO_JAX, task, frames], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -550,3 +566,80 @@ def test_slice11_copies_match_originals(copy, tmp_path):
         assert inspect.getsource(eval_protocol.summarize) == inspect.getsource(original.summarize)
         pkl = _eval_pickle(str(tmp_path / "out.pkl"))
         assert eval_protocol.summarize(pkl) == original.summarize(pkl)
+
+
+@pytest.mark.parametrize("copy", ["pdb_writer.cpp", "xtc_writer.cpp", "persist_results"])
+def test_slice13_copies_match_originals(copy, tmp_path, monkeypatch):
+    """The C++ writers byte for byte; the results persister copies the same
+    files and writes the same summary as ``scripts/persist_results.py`` for
+    the same arguments (its ``--name`` names the directory instead)."""
+    if copy.endswith(".cpp"):
+        with open(os.path.join(REPO, "native", copy), "rb") as a, \
+                open(os.path.join(REPO, "mdgen_tpu_torch", "native", copy), "rb") as b:
+            assert b.read() == a.read()
+        return
+    from mdgen_tpu_torch import persist_results
+
+    original = _load_original("scripts/persist_results.py", "persist_results_original")
+    assert (persist_results.KEEP_EXT, persist_results.MAX_BYTES) == \
+        (original.KEEP_EXT, original.MAX_BYTES)
+    src = tmp_path / "src"
+    src.mkdir()
+    for f, n in (("a.pkl", 10), ("b.json", 3), ("c.npy", 5), ("d.txt", 0), ("big.csv", 0)):
+        (src / f).write_bytes(b"x" * n)
+    (src / "sub").mkdir()
+    with open(src / "big.csv", "wb") as fh:
+        fh.truncate(original.MAX_BYTES + 1)
+    argv = ["--round", "7", "--task", "design", "--src", str(src), "--note", "n", "--cmd", "c"]
+    for name, mod in (("jax", original), ("port", persist_results)):
+        monkeypatch.setattr(mod, "REPO", str(tmp_path / name))
+    monkeypatch.setattr(sys, "argv", ["persist_results.py", *argv])
+    original.main()
+    persist_results.main(argv)
+    persist_results.main(["--name", "port_named", *argv[2:]])
+    want_dir = tmp_path / "jax" / "results" / "r7_design"
+    for got_dir in (tmp_path / "port" / "results" / "r7_design",
+                    tmp_path / "port" / "results" / "port_named"):
+        assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir)) == \
+            ["a.pkl", "b.json", "d.txt", "summary.json"]
+        for f in ("a.pkl", "b.json", "d.txt"):
+            assert (got_dir / f).read_bytes() == (want_dir / f).read_bytes()
+    want = json.loads((want_dir / "summary.json").read_text())
+    assert json.loads((tmp_path / "port" / "results" / "r7_design" / "summary.json")
+                      .read_text()) == want
+    assert want["skipped_oversize"] == ["big.csv"]
+    named = json.loads((tmp_path / "port" / "results" / "port_named" / "summary.json").read_text())
+    assert named == dict(want, round=None)
+
+
+_NATIVE_NO_JAX = _HOOK + textwrap.dedent("""
+    sys.addaudithook(hook)
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    from mdgen_tpu_torch import native, protein, xtc
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+
+    out = sys.argv[2]
+    atom14 = synthetic_trajectory("ACDE", 5, seed=0)
+    protein.save_trajectory(atom14, rc.str_sequence_to_aatype("ACDE"), out + "/a.pdb",
+                            out + "/a.xtc")
+    lib = native._load()._name
+    assert lib.startswith(os.path.join(sys.argv[1], "build", "mdgen_tpu_torch") + os.sep), lib
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mdgen_tpu"))
+    assert not bad, bad
+    print("NATIVE_NO_JAX_OK", lib)
+""")
+
+
+def test_native_writers_never_open_the_jax_library(tmp_path):
+    """``mdgen_tpu_torch/native.py`` builds its own library from its own
+    sources into build/mdgen_tpu_torch/: a process that refuses any open,
+    dlopen or compiler argument under native/ or mdgen_tpu/ writes a PDB
+    and an XTC through it."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_NO_JAX, REPO, str(tmp_path)],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NATIVE_NO_JAX_OK" in proc.stdout
+    assert (tmp_path / "a.pdb").exists() and (tmp_path / "a.xtc").exists()
