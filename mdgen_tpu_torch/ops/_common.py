@@ -149,5 +149,12 @@ def same_device(x, *ts):
             raise ValueError(f"all operands must be on {x.device}, got {t.device}")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn_name`` with ``args`` and the stream of
+    ``device``, with ``device`` current: the kernels launch on the CUDA
+    runtime's current device, which need not be the operands' (a process on
+    ``cuda:1`` that never set its device runs with ``cuda:0`` current)."""
+    from . import _build
+
+    with torch.cuda.device(device):
+        _build.call(fn_name, *args, torch.cuda.current_stream(device).cuda_stream)

@@ -29,8 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
-from ._common import exact_f32, refuse_tangent, stream_ptr
+from ._common import exact_f32, launch, refuse_tangent
 
 NEG_INF = torch.finfo(torch.float32).min
 MAX_HEAD_DIM = 64
@@ -171,10 +170,10 @@ def _fwd(fn, q, k, v, bias, with_lse: bool):
     o = torch.empty_like(q)
     lse = torch.empty((N, Tq), dtype=torch.float32, device=q.device) if with_lse else None
     if N and Tq:
-        _build.call(
-            "mdgen_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr() if with_lse else None, N, Tq, Tk, d, _is_bf16(q),
-            stream_ptr(),
+        launch(
+            "mdgen_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), o.data_ptr(), lse.data_ptr() if with_lse else None, N, Tq, Tk, d,
+            _is_bf16(q),
         )
         fn.launches += 1
     return o, lse
@@ -204,10 +203,10 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta):
     N, Tq, Tk, d = _check(q, k, v, bias, do, lse, delta)
     dq = torch.empty_like(q)
     if N and Tq:
-        _build.call(
-            "mdgen_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), N, Tq, Tk, d,
-            _is_bf16(q), stream_ptr(),
+        launch(
+            "mdgen_flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), N,
+            Tq, Tk, d, _is_bf16(q),
         )
         flash_bwd_dq.launches += 1
     return dq
@@ -222,11 +221,10 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((N, Tk), dtype=torch.float32, device=q.device)
     if N and Tk:
-        _build.call(
-            "mdgen_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        launch(
+            "mdgen_flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), N, Tq, Tk, d, _is_bf16(q),
-            stream_ptr(),
         )
         flash_bwd_dkv.launches += 1
     return dk, dv, dbias

@@ -11,10 +11,9 @@ from __future__ import annotations
 import torch
 
 from ..models.attention import NEG_INF, rotate_half
-from . import _build
 from ._common import (
-    check_aligned16, check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rope_tables,
-    same_device, stream_ptr, vectors, weights,
+    check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad,
+    rope_tables, same_device, vectors, weights,
 )
 
 
@@ -88,13 +87,13 @@ def fused_l_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
     y = torch.empty_like(x)
     ao = torch.empty((B * T * L, C), dtype=compute_dtype, device=x.device)  # attention out
     if x.numel():
-        _build.call(
-            "mdgen_fused_l_sublayer",
+        launch(
+            "mdgen_fused_l_sublayer", x.device,
             x.data_ptr(), y.data_ptr(), sh.data_ptr(), sc.data_ptr(), g.data_ptr(),
             mask.data_ptr(), qkv_wc.data_ptr(), qb.data_ptr(), bk.data_ptr(),
             bv.data_ptr(), out_wc.data_ptr(), ob.data_ptr(), sin.data_ptr(),
             cos.data_ptr(), ao.data_ptr(), B, T, L, C, H, int(use_rope), float(hd**-0.5),
-            int(compute_dtype == torch.bfloat16), v_bf16, stream_ptr(),
+            int(compute_dtype == torch.bfloat16), v_bf16,
         )
         fused_l_sublayer.launches += 1
     return y

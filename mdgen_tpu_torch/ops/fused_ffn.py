@@ -9,10 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
 from ._common import (
-    check_aligned16, check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, same_device,
-    stream_ptr, vectors, weights,
+    check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad,
+    same_device, vectors, weights,
 )
 
 
@@ -52,12 +51,11 @@ def fused_ffn_sublayer(x, shift, scale, gate, w1, b1, w2, b2, *,
     y = torch.empty_like(x)
     hid = torch.empty((B * T * L, Hd), dtype=compute_dtype, device=x.device)  # gelu(fc1)
     if x.numel():
-        _build.call(
-            "mdgen_fused_ffn_sublayer",
+        launch(
+            "mdgen_fused_ffn_sublayer", x.device,
             x.data_ptr(), y.data_ptr(), sh.data_ptr(), sc.data_ptr(), g.data_ptr(),
             w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(), hid.data_ptr(),
             B * T * L, T * L, C, Hd, int(compute_dtype == torch.bfloat16), v_bf16,
-            stream_ptr(),
         )
         fused_ffn_sublayer.launches += 1
     return y

@@ -13,10 +13,9 @@ from __future__ import annotations
 import torch
 
 from ..models.attention import NEG_INF, rotate_half
-from . import _build
 from ._common import (
-    check_aligned16, check_x, exact_f32, ln_modulate, mm, on_cpu, refuse_grad, rnd, rope_tables,
-    same_device, stream_ptr, vectors, weights,
+    check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad, rnd,
+    rope_tables, same_device, vectors, weights,
 )
 
 
@@ -90,14 +89,14 @@ def fused_t_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
     qkv = torch.empty((3, B * L * H, T, hd), dtype=compute_dtype, device=x.device)
     ao = torch.empty((B * T * L, C), dtype=compute_dtype, device=x.device)
     if x.numel():
-        _build.call(
-            "mdgen_fused_t_sublayer",
+        launch(
+            "mdgen_fused_t_sublayer", x.device,
             x.data_ptr(), y.data_ptr(), sh.data_ptr(), sc.data_ptr(), g.data_ptr(),
             mask.data_ptr(), qkv_wc.data_ptr(), qb.data_ptr(), bk.data_ptr(),
             bv.data_ptr(), out_wc.data_ptr(), ob.data_ptr(), sin.data_ptr(),
             cos.data_ptr(), qkv.data_ptr(), ao.data_ptr(), B, T, L, C, H,
             int(use_rope), float(hd**-0.5), int(compute_dtype == torch.bfloat16),
-            v_bf16, stream_ptr(),
+            v_bf16,
         )
         fused_t_sublayer.launches += 1
     return y

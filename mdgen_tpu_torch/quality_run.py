@@ -39,7 +39,7 @@ solve), then the JSON summary.
 from __future__ import annotations
 
 import argparse
-import functools
+import importlib
 import json
 import os
 import shlex
@@ -136,12 +136,11 @@ def summarize_tps(out: dict) -> dict:
 
 def main(argv=None, keep_trajectories: bool = False) -> dict:
     """Returns {"summary" (the printed JSON), "train" (train.main's record or
-    None), "ms_per_step", "samples" (the inference CLI's records; for the sim
-    task with the trajectories if ``keep_trajectories``), "analysis" ({name:
+    None), "ms_per_step", "samples" (the inference CLI's records, with the
+    trajectories if ``keep_trajectories``), "analysis" ({name:
     metrics}), "samp_dir", "data_dir", "run_dir"}."""
     args = parse_args(argv)
     from . import train
-    from .data import write_synthetic_dataset
     from .runtime.checkpoint import latest_step
 
     data_dir = os.path.join(args.out, "data")
@@ -156,9 +155,7 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
     if args.skip_data and os.path.exists(split):
         print("reusing the dataset in", data_dir, flush=True)
     else:
-        split = write_synthetic_dataset(data_dir, [(s, s) for s in PEPTIDES],
-                                        num_frames=args.md_frames, seed=0,
-                                        rotamers=not args.rigid_data)
+        split = write_dataset(args, data_dir)
     if args.task == "upsampling":
         import numpy as np
 
@@ -195,9 +192,15 @@ def main(argv=None, keep_trajectories: bool = False) -> dict:
         ms_per_step = statistics.median(gaps) * 1e3 if gaps else None
 
     # 3. sample and 4. analyse
-    sample_and_score = {"sim": functools.partial(_sim, keep=keep_trajectories), "tps": _tps,
-                        "upsampling": _upsampling, "design": _design}[args.task]
-    samples, analysis, summary = sample_and_score(args, run_dir, data_dir, samp_dir, split)
+    sample = importlib.import_module(f".{SAMPLE_CLI[args.task]}", __package__)
+    argv = sample_argv(args, run_dir, data_dir, samp_dir, split)
+    print("+", SAMPLE_CLI[args.task], " ".join(argv), flush=True)
+    samples = sample.main(argv, keep_trajectories=keep_trajectories)
+    analyze = importlib.import_module(f".{ANALYSIS_CLI[args.task]}", __package__)
+    argv = analyze_argv(args, data_dir, samp_dir, split)
+    print("+", ANALYSIS_CLI[args.task], " ".join(argv), flush=True)
+    analysis = analyze.main(argv)
+    summary = summarize_task(args.task, analysis, samp_dir)
     if args.task == "design" and rec and rec["val"]:
         summary["val_recovery"] = {k[4:]: v for k, v in rec["val"][-1].items()
                                    if k.endswith("aa_recovery")}
@@ -223,70 +226,67 @@ def _sampled(task, samples) -> str:
     return f"{sum(r['frames'] for r in samples)} frames"
 
 
-def _common(args, data_dir, samp_dir, split, xtc=True):
-    """The flags every inference CLI takes here."""
-    return ["--data_dir", data_dir, "--split", split, "--out_dir", samp_dir,
-            *(["--xtc"] if xtc else []), "--seed", str(args.seed), "--device", args.device]
+def write_dataset(args, data_dir) -> str:
+    """The synthetic MD of PEPTIDES (seed 0) in ``data_dir``; returns the
+    split CSV."""
+    from .data import write_synthetic_dataset
+
+    return write_synthetic_dataset(data_dir, [(s, s) for s in PEPTIDES],
+                                   num_frames=args.md_frames, seed=0,
+                                   rotamers=not args.rigid_data)
 
 
-def _sim(args, run_dir, data_dir, samp_dir, split, keep=False):
-    from . import analyze_peptide_sim, sim_inference
-
-    argv = ["--sim_ckpt", run_dir, "--num_rollouts", str(args.num_rollouts),
-            *_common(args, data_dir, samp_dir, split)]
-    print("+ sim_inference", " ".join(argv), flush=True)
-    samples = sim_inference.main(argv, keep_trajectories=keep)
-    argv = ["--mddir", data_dir, "--pdbdir", samp_dir, "--save", "--no_msm", "--no_decorr",
-            "--tica_lag", "100", "--save_name", "out.pkl", "--split", split,
-            *shlex.split(args.analyze_extra)]
-    print("+ analyze_peptide_sim", " ".join(argv), flush=True)
-    analysis = analyze_peptide_sim.main(argv)
-    return samples, analysis, summarize(analysis)
+# each task's inference and analysis CLIs (modules of this package)
+SAMPLE_CLI = {"sim": "sim_inference", "tps": "tps_inference",
+              "upsampling": "upsampling_inference", "design": "design_inference"}
+ANALYSIS_CLI = {"sim": "analyze_peptide_sim", "tps": "analyze_peptide_tps",
+                "upsampling": "analyze_upsampling", "design": "analyze_peptide_design"}
 
 
-def _tps(args, run_dir, data_dir, samp_dir, split):
-    from . import analyze_peptide_tps, tps_inference
-
-    argv = ["--sim_ckpt", run_dir, "--num_batches", "2", "--batch_size", "8", "--tica_lag",
-            "100", "--msm_lag", "10", *_common(args, data_dir, samp_dir, split)]
-    print("+ tps_inference", " ".join(argv), flush=True)
-    samples = tps_inference.main(argv)
-    argv = ["--mddir", data_dir, "--pdbdir", samp_dir, "--save",
-            *shlex.split(args.analyze_extra)]
-    print("+ analyze_peptide_tps", " ".join(argv), flush=True)
-    analysis = analyze_peptide_tps.main(argv)
-    return samples, analysis, summarize_tps(analysis)
-
-
-def _upsampling(args, run_dir, data_dir, samp_dir, split):
-    from . import analyze_upsampling, summarize_upsampling, upsampling_inference
-
-    argv = ["--ckpt", run_dir, "--suffix", "_i10", *_common(args, data_dir, samp_dir, split)]
-    print("+ upsampling_inference", " ".join(argv), flush=True)
-    samples = upsampling_inference.main(argv)
-    argv = ["--mddir", data_dir, "--pdbdir", samp_dir, "--cond_interval", "10", "--nlag",
-            "100", "--save", *shlex.split(args.analyze_extra)]
-    print("+ analyze_upsampling", " ".join(argv), flush=True)
-    analysis = analyze_upsampling.main(argv)
-    summary = summarize_upsampling.summarize(os.path.join(samp_dir, "upsampling_out.pkl"))
-    return samples, analysis, summary
+def sample_argv(args, run_dir, data_dir, samp_dir, split) -> list:
+    """The flags of the task's inference CLI (SAMPLE_CLI): ``args.seed`` and
+    ``args.device`` sample the run in ``run_dir`` into ``samp_dir``."""
+    task = {
+        "sim": ["--sim_ckpt", run_dir, "--num_rollouts", str(args.num_rollouts)],
+        "tps": ["--sim_ckpt", run_dir, "--num_batches", "2", "--batch_size", "8", "--tica_lag",
+                "100", "--msm_lag", "10"],
+        "upsampling": ["--ckpt", run_dir, "--suffix", "_i10"],
+        "design": ["--sim_ckpt", run_dir, "--num_frames", str(args.num_frames), "--num_batches",
+                   "2", "--batch_size", "16", "--tica_lag", "100", "--msm_lag", "10",
+                   "--random_start_idx"],
+    }[args.task]
+    return [*task, "--data_dir", data_dir, "--split", split, "--out_dir", samp_dir,
+            *(["--xtc"] if args.task != "design" else []), "--seed", str(args.seed),
+            "--device", args.device]
 
 
-def _design(args, run_dir, data_dir, samp_dir, split):
-    from . import analyze_peptide_design, design_inference
+def analyze_argv(args, data_dir, samp_dir, split) -> list:
+    """The flags of the task's analysis CLI (ANALYSIS_CLI) on ``samp_dir``."""
+    task = {
+        "sim": ["--mddir", data_dir, "--pdbdir", samp_dir, "--save", "--no_msm", "--no_decorr",
+                "--tica_lag", "100", "--save_name", "out.pkl", "--split", split],
+        "tps": ["--mddir", data_dir, "--pdbdir", samp_dir, "--save"],
+        "upsampling": ["--mddir", data_dir, "--pdbdir", samp_dir, "--cond_interval", "10",
+                       "--nlag", "100", "--save"],
+        "design": ["--pdbdir", samp_dir],
+    }[args.task]
+    return [*task, *shlex.split(args.analyze_extra)]
 
-    argv = ["--sim_ckpt", run_dir, "--num_frames", str(args.num_frames), "--num_batches", "2",
-            "--batch_size", "16", "--tica_lag", "100", "--msm_lag", "10", "--random_start_idx",
-            *_common(args, data_dir, samp_dir, split, xtc=False)]
-    print("+ design_inference", " ".join(argv), flush=True)
-    samples = design_inference.main(argv)
-    argv = ["--pdbdir", samp_dir, *shlex.split(args.analyze_extra)]
-    print("+ analyze_peptide_design", " ".join(argv), flush=True)
-    analysis = analyze_peptide_design.main(argv)
+
+def summarize_task(task, analysis, samp_dir) -> dict:
+    """The printed summary of the analysis CLI's result."""
+    if task == "sim":
+        return summarize(analysis)
+    if task == "tps":
+        return summarize_tps(analysis)
+    if task == "upsampling":
+        from . import summarize_upsampling
+
+        return summarize_upsampling.summarize(os.path.join(samp_dir, "upsampling_out.pkl"))
     summary = {k: round(v, 4) for k, v in analysis.items() if k != "per_peptide"}
     summary["per_peptide"] = {name: {k: round(v, 4) for k, v in r.items()}
                               for name, r in analysis["per_peptide"].items()}
-    return samples, analysis, summary
+    return summary
 
 
 if __name__ == "__main__":

@@ -512,3 +512,62 @@ def test_two_gloo_ranks_on_one_card_train_as_one_rank(grid, tmp_path):
         flash = 2 * 2 if grid == "tp" else 0  # layers x steps
         assert rec["launches"]["flash_fwd_lse"] == rec["launches"]["flash_bwd_dkv"] == flash
     assert one["launches"]["flash_fwd_lse"] == 2 * 2
+
+
+_OTHER_CARD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as t
+from mdgen_tpu_torch import ops
+from mdgen_tpu_torch.ops import flash_attention as fa
+
+dev, dt = torch.device("cuda:1"), torch.float32
+a = {k: v.to(dev) for k, v in t._inputs(*t.SHAPES["main"], dt).items()}
+errs = {}
+for name, (fn, plain) in t.ATTN.items():
+    args = [a[n] for n in t.ATTN_ARGS]
+    errs[name] = (fn(*args, num_heads=t.H, compute_dtype=dt)
+                  - plain(*args, num_heads=t.H, compute_dtype=dt)).abs().max().item()
+args = [a[n] for n in t.FFN_ARGS]
+errs["ffn"] = (ops.fused_ffn_sublayer(*args, compute_dtype=dt)
+               - ops.fused_ffn_sublayer_plain(*args, compute_dtype=dt)).abs().max().item()
+q, k, v, bias, do = [x.to(dev) for x in t._flash_inputs(*t.FLASH_SHAPES["recipe"], dt)]
+o_ref, lse_ref = fa.flash_attention_plain(q, k, v, bias)
+bwd = (q, k, v, bias, do, lse_ref, fa.attention_delta(o_ref, do))
+errs["flash_fwd"] = (fa.flash_fwd(q, k, v, bias) - o_ref).abs().max().item()
+errs["flash_fwd_lse"] = (fa.flash_fwd_lse(q, k, v, bias)[1] - lse_ref).abs().max().item()
+errs["flash_bwd_dq"] = t._rel_max(fa.flash_bwd_dq(*bwd), fa.flash_bwd_dq_plain(*bwd))
+errs["flash_bwd_dkv"] = t._rel_max(fa.flash_bwd_dkv(*bwd)[0], fa.flash_bwd_dkv_plain(*bwd)[0])
+torch.cuda.synchronize(dev)
+print(json.dumps({"current": torch.cuda.current_device(), "errs": errs,
+                  "launches": ops.launch_counts()}))
+"""
+
+
+def test_kernels_run_on_the_card_of_their_operands():
+    """A process whose tensors live on ``cuda:1`` and which never set its
+    device (``tps_inference --device cuda:1``: ``cuda:0`` stays current):
+    each of the seven kernels, first launched there, matches its plain twin
+    at the main path's and the training recipe's shapes, once each, and the
+    current device stays ``cuda:0``. Before the wrappers made the operands'
+    card current, the kernels launched on ``cuda:0`` and the fused sampling
+    of a checkpoint on ``cuda:1-3`` failed."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+    proc = subprocess.run([sys.executable, "-c", _OTHER_CARD, here], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["current"] == 0
+    assert all(n == 1 for n in out["launches"].values()), out["launches"]
+    for name, err in out["errs"].items():  # f32: TOL and FLASH_TOL are both 1e-4
+        assert err <= TOL[torch.float32], (name, err)
