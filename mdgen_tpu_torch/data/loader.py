@@ -8,6 +8,9 @@ yields numpy batches {atom14, seqres, mask, name} from a prefetch thread.
 With ``drop_last`` a split smaller than one batch gives no batch at all.
 Tokenization runs on the device, so the host side is memmap window reads
 and ``np.stack``, which one prefetch thread overlaps with device compute.
+Each batch's reads and stack are a ``data.load`` span on that thread, and
+the consumer's wait for it a ``data.wait`` span (``tracing``), both with the
+batch's index in the epoch.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import queue
 import threading
 
 import numpy as np
+
+from .. import tracing
 
 _STACK_KEYS = ("atom14", "seqres", "mask")
 
@@ -61,18 +66,19 @@ class Loader:
         per = self.batch_size // self.num_shards
         skip = getattr(self.dataset, "skip", self.dataset.__getitem__)
         for b in range(nb):
-            idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
-            lo, hi = self.shard_id * per, (self.shard_id + 1) * per
-            items = []
-            for j, i in enumerate(idxs):
-                if lo <= j < hi:
-                    items.append(self.dataset[int(i)])
-                else:
-                    skip(int(i))
-            batch = {
-                k: np.stack([it[k] for it in items]) for k in _STACK_KEYS
-            }
-            batch["name"] = [it["name"] for it in items]
+            with tracing.span("data.load", b):
+                idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+                lo, hi = self.shard_id * per, (self.shard_id + 1) * per
+                items = []
+                for j, i in enumerate(idxs):
+                    if lo <= j < hi:
+                        items.append(self.dataset[int(i)])
+                    else:
+                        skip(int(i))
+                batch = {
+                    k: np.stack([it[k] for it in items]) for k in _STACK_KEYS
+                }
+                batch["name"] = [it["name"] for it in items]
             yield batch
 
     def __iter__(self):
@@ -88,8 +94,11 @@ class Loader:
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
+        b = 0
         while True:
-            item = q.get()
+            with tracing.span("data.wait", b):
+                item = q.get()
             if item is DONE:
                 break
             yield item
+            b += 1

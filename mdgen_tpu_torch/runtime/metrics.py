@@ -13,7 +13,6 @@ from __future__ import annotations
 import csv
 import logging
 import os
-import time
 from collections import defaultdict
 
 import numpy as np
@@ -51,7 +50,6 @@ class MetricLogger:
     def __init__(self, model_dir=None):
         self._log = defaultdict(list)
         self.model_dir = model_dir
-        self.last_time = time.time()
         self.iter_step = 0
         self.logger = get_logger("mdgen_tpu")
 

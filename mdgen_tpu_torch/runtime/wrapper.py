@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..geometry import (
     atom14_to_atom37,
     atom14_to_frames,
@@ -239,11 +240,12 @@ class MDGenRuntime:
 
 def batch_to_device(batch: dict, device) -> dict:
     """A loader batch (numpy) -> {atom14 f32, seqres long, mask f32} tensors."""
-    return {
-        "atom14": torch.as_tensor(batch["atom14"], dtype=torch.float32, device=device),
-        "seqres": torch.as_tensor(batch["seqres"], device=device).long(),
-        "mask": torch.as_tensor(batch["mask"], dtype=torch.float32, device=device),
-    }
+    with tracing.span("data.to_device"):
+        return {
+            "atom14": torch.as_tensor(batch["atom14"], dtype=torch.float32, device=device),
+            "seqres": torch.as_tensor(batch["seqres"], device=device).long(),
+            "mask": torch.as_tensor(batch["mask"], dtype=torch.float32, device=device),
+        }
 
 
 @dataclass
@@ -323,7 +325,8 @@ class TrainRuntime:
         T; the draws are the global batch's (``_global_draws``; a given
         x0 is this rank's frames) and the metrics this rank's means."""
         cfg, grid = self.cfg, self.grid
-        tok = tokenize(cfg, batch)
+        with tracing.span("train.tokenize"):
+            tok = tokenize(cfg, batch)
         prep = prep_batch(cfg, tok)
         x1, loss_mask, kwargs = prep.latents, prep.loss_mask, prep.model_kwargs
         if grid.sp.size > 1:
@@ -391,26 +394,33 @@ class TrainRuntime:
     def _grads(self, model, batch, generator=None, t=None, x0=None, x_d=None,
                dropout_seed=None):
         params = list(model.parameters())
-        loss, metrics = self.loss_fn(model, batch, generator, t, x0, x_d,
-                                     dropout_seed=dropout_seed)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        return params, self.grid.data.mean(grads), self._mean_over_ranks(metrics)
+        with tracing.span("train.forward"):
+            loss, metrics = self.loss_fn(model, batch, generator, t, x0, x_d,
+                                         dropout_seed=dropout_seed)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with tracing.span("train.grad_mean"):
+            grads = self.grid.data.mean(grads)
+        return params, grads, self._mean_over_ranks(metrics)
 
     def train_step(self, state: TrainState, batch: dict, generator=None, t=None, x0=None):
         """One micro-step: gradient, optimizer (which applies an update on
         every ``accumulate_grad``-th call), EMA and the step counter, which
         both advance on every call. ``grad_norm`` is this micro-batch's
-        (the global batch's, averaged over ranks)."""
-        params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
-        metrics["grad_norm"] = self._global_norm(grads)
-        self.tx.step(params, grads, state.opt_state)
-        if state.ema is not None:
-            d = self.cfg.ema_decay
-            with torch.no_grad():
-                for e, p in zip(state.ema.parameters(), params):
-                    e.copy_(e * d + (1 - d) * p)
-        state.step += 1
+        (the global batch's, averaged over ranks). Its phases are spans
+        (``tracing``) that share ``state.step`` on entry."""
+        with tracing.span("train.step", state.step):
+            params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
+            with tracing.span("train.optimizer"):
+                metrics["grad_norm"] = self._global_norm(grads)
+                self.tx.step(params, grads, state.opt_state)
+            if state.ema is not None:
+                d = self.cfg.ema_decay
+                with tracing.span("train.ema"), torch.no_grad():
+                    for e, p in zip(state.ema.parameters(), params):
+                        e.copy_(e * d + (1 - d) * p)
+            state.step += 1
         return state, metrics
 
     @torch.no_grad()

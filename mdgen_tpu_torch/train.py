@@ -9,8 +9,10 @@ The same flags and loop as the JAX trainer: epochs of shuffled batches
 weights every ``--val_epoch_freq`` epochs, ``--ckpt RUN`` resumes at epoch
 step // steps per epoch, a SIGTERM or a ``RUN/STOP`` file ends the run with a
 checkpoint, ``--keep_ckpts`` rotates ``RUN/step_*``, ``--check_grad`` reports
-parameters without gradient. The run lives in ``WORKDIR/RUN_NAME``
-(``config.json``, ``step_N/model.pt``, ``log.out`` and metric CSVs). It
+parameters without gradient. Every ``--print_freq`` steps the log gets the
+metrics' means and each span's host ms a step (``tracing``). The run lives
+in ``WORKDIR/RUN_NAME`` (``config.json``, ``step_N/model.pt``, ``log.out``
+and metric CSVs). It
 needs a CUDA device unless ``--device cpu`` is given; ``--seed`` drives the
 initialization, the window draws, the shuffles and the loss's noise.
 Design runs log the argmax recoveries and both loss terms; the
@@ -48,6 +50,8 @@ import time
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 def parse_args(argv=None):
@@ -238,6 +242,7 @@ def _train(args, cfg, device, rank, grid) -> dict:
     profiler = None
     losses, grad_norms, step_end = [], [], []
     stopped = False
+    spans_since = (time.perf_counter_ns(), state.step)
     try:
         for epoch in range(start_epoch, cfg.epochs):
             for batch in train_loader:
@@ -267,6 +272,7 @@ def _train(args, cfg, device, rank, grid) -> dict:
                 if state.step % args.print_freq == 0:
                     logger.log("dur", step_end[-1] - t0, "train")
                     logger.flush("iter", epoch=epoch, step=state.step)
+                    spans_since = _log_spans(log, spans_since, state.step)
                 if args.val_freq and state.step % args.val_freq == 0:
                     run_validation(epoch)
                 if stop_requested(state.step):
@@ -320,6 +326,21 @@ def _designability_probe(cfg, model, batch, generator, logger, pdb_path, rank=0,
     logger.logger.info("seq_pred=" + ",".join(aatype_to_str_sequence(a) for a in aa_out[:, 0])
                        + " seq_true=" + ",".join(aatype_to_str_sequence(a) for a in seq))
     atom14_to_pdb(atom14[0].cpu().numpy(), seq[0], pdb_path)
+
+
+def _log_spans(log, since, step):
+    """Log each span's mean host ms a step (``tracing``) over the steps
+    since ``since`` = (host clock in ns, step), in the order the spans
+    first started; returns the new mark."""
+    t_ns, step0 = since
+    now = time.perf_counter_ns()
+    took: dict = {}
+    for name, _, _, _, t0, t1 in tracing.records():
+        if t0 >= t_ns:
+            took[name] = took.get(name, 0) + t1 - t0
+    log.info(f"host ms a step, steps {step0}-{step}: "
+             + ", ".join(f"{k} {v / 1e6 / (step - step0):.3f}" for k, v in took.items()))
+    return now, step
 
 
 def _start_profiler(device):
