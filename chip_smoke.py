@@ -19,6 +19,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      and around a CUDA graph of 20 calls (`device_ms`: the wrappers' host
      time is not counted), and the wrapper's host time per call; kernel 2
      also at T = 1000, where the sampling path of phase 11 calls it;
+  3a. `[optim]`: the optimizer pass (kernel 8: `sum_of_squares`, then
+     `fused_adam`) against its plain twins at the 4AA model's 193
+     parameter tensors (34.15M f32), a state some steps in, with an EMA and
+     the clip engaged and without either: p, mu, nu and the EMA bit-equal to
+     the eager loop given the kernel's norm, the norm within OPT_NORM_TOL
+     relative of the loop's and bit-equal twice; each wrapper's eager ms,
+     device ms (a CUDA graph of 20 calls), host µs and bound (bytes), the
+     twins' eager ms, and the library calls beside them (the norm by
+     `torch._foreach_norm`; `torch.optim.Adam(fused=True)`, which neither
+     clips nor keeps an EMA);
   4. model parity: one 5 x 384 x 16 LatentMDGenModel forward with the fused
      kernels against the dense plain path, and a short fused-vs-dense
      rollout (each fused rollout from the dense one's start), on seeded
@@ -120,14 +130,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      (batch 8, T=1000, crop 4, Adam 1e-4, clip 1, EMA) on 8 synthetic
      tetrapeptides of 1100 frames, 20 epochs of one step; checks 20 finite
      losses, each of kernels 5-7 launched exactly 5 layers x 20 steps = 100
-     times and kernel 4 5 times (one validation batch), and the step_20
-     checkpoint; prints ms per train step over steps 5-20;
+     times, kernel 4 5 times (one validation batch) and the optimizer's two
+     (norm; clip, Adam and EMA) once a step, and the step_20 checkpoint;
+     prints ms per train step over steps 5-20;
   11. sampling from that run: `sim_inference --fused_block` restores the run
      directory and rolls out once at T=1000 with 2 Euler steps;
   11a. the ATLAS recipe (`[atlas]`): `mdgen_tpu_torch.train --atlas` at crop
      256, T = 250, B = 1, bf16-mixed, grad_checkpointing, dropout 0.1 on
      7lao_A's 271-residue sequence (synthetic replicas; ms a step, peak
-     device memory; all dense, no kernel); one Euler solve of an ATLAS item
+     device memory; all dense, no model kernel, the optimizer's two once a
+     step); one Euler solve of an ATLAS item
      with the trained weights; the residue-axis attention at 6sms_A's 724
      residues (T = 250) through kernel 4 against dense; REMAT_STEPS steps of
      the 4AA recipe (T = 1000) with grad_checkpointing against the same
@@ -185,6 +197,7 @@ Phases, in order; any failure raises and the exit code is not 0:
       kernels (one CUDA-graph replay under torch.profiler; kernel 2 also at
       T = 1000), then one more
       main-path rollout under torch.profiler: device ms per kernel name,
+      the optimizer's eager loop (kernel 8's plain twin) in device ms,
       the device's busy share, launches per evaluation, frames/s; and one
       upsampling window of 7b (T=1000): the same, and kernel 2's device µs
       per launch there;
@@ -241,6 +254,7 @@ B_TRAIN, TRAIN_FRAMES, TRAIN_EPOCHS = 8, 1000, 20
 # outputs are rounded to bf16 (one ulp is 2^-8)
 FLASH_TOL = {"f32": {"abs": 1e-4, "rel": 1e-4}, "bf16": {"abs": 1e-2, "rel": 1e-2}}
 FLASH_SRC = "mdgen_tpu_torch/csrc/flash_attention.cu"
+OPT_SRC = "mdgen_tpu_torch/csrc/fused_adam.cu"
 # the tensor-core flash kernels (4-7): (N, Tq, Tk, d) at their tile edges,
 # Tq below one 16-row MMA tile, one past two 64-row tiles, N = 1, the widths
 # they pad to a whole MMA step, and d = 7 (rows of no whole 16 bytes, loaded
@@ -256,9 +270,11 @@ KERNELS = {
     "flash_fwd_lse": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:284"),
     "flash_bwd_dq": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:329"),
     "flash_bwd_dkv": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:346"),
+    "sum_of_squares": (OPT_SRC, "none (optax)"),
+    "fused_adam": (OPT_SRC, "none (optax)"),
 }
 FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
-FUSED_KERNELS = tuple(k for k in KERNELS if k.startswith("fused_"))
+FUSED_KERNELS = tuple(k for k in KERNELS if k.endswith("_sublayer"))
 # the fused kernels (1-3): edge shapes (B, T, L), token counts no multiple of
 # their 32-token tiles
 EDGE_SHAPES = {"tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1), "L7": (2, 19, 7),
@@ -278,6 +294,10 @@ FRAME_EDGE_SHAPES = {"T1": (2, 1, 4, H), "T63": (1, 63, 4, H), "T64": (1, 64, 4,
 # evaluations each, PERF.md), held with margin; Euler's 4 steps in phase 4
 # read 6e-6 A
 DOPRI5_TOL = 1e-2
+# the optimizer pass (kernel 8) against its eager loop: the norm in f64
+# across blocks against f32 sums in another order (the card tests read
+# under 1e-7); p, mu, nu and the EMA are held bit-equal
+OPT_NORM_TOL = 1e-6
 # the quality chain at a small budget (its JSDs mean nothing)
 QUALITY_MD_FRAMES, QUALITY_EPOCHS, QUALITY_ROLLOUTS = 300, 40, 2
 # the TPS path: one batch of TPS_PATHS endpoint-conditioned paths (T = 100)
@@ -541,6 +561,7 @@ def phase_kernel_parity(torch):
                 f"of it reached eagerly, {res['bound_ms'] / device_ms:.2%} in device time")
         results[name] = res
     results["fused_t_sublayer"].update(_time_frame_long(torch))
+    results.update(phase_optimizer_parity(torch))
     for name, dname, err in _check_tensor_core_edges(torch):
         worst = results[name].setdefault("edge_err", {})
         worst[dname] = max(worst.get(dname, 0.0), err)
@@ -623,6 +644,131 @@ def _launch_split(torch):
         per_launch = ", ".join(f"{n} {us:.2f} us" for n, us in split.items())
         log(f"[profile] {name} {dname} T={t} (CUDA graph replay of 20 calls): per launch "
             f"{per_launch or 'not measured: the profiler saw no device activity'}")
+
+
+def _optimizer_rows(torch, ema, seed=0):
+    """[params, grads, mu, nu, ema or None] at the 4AA model's parameter
+    shapes on the card, a state some steps in: random p, g, mu and EMA, a
+    positive nu."""
+    from mdgen_tpu_torch.models import LatentMDGenModel
+
+    cfg = bench_config(num_frames=TRAIN_FRAMES)
+    shapes = [p.shape for p in LatentMDGenModel(cfg, cfg.latent_dim).parameters()]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    row = lambda sc: [torch.randn(s, generator=g, device="cuda") * sc for s in shapes]  # noqa: E731
+    p = row(0.05)
+    e = [x + y for x, y in zip(p, row(1e-3))] if ema else None
+    return [p, row(1e-3), row(1e-3), [t.abs() for t in row(1e-6)], e]
+
+
+def _optimizer_kw(count, clip):
+    """The 4AA recipe's Adam (lr 1e-4, no weight decay, EMA 0.999)."""
+    return dict(count=count, lr=1e-4, grad_clip=clip, b1=0.9, b2=0.999, eps=1e-8,
+                weight_decay=0.0, ema_decay=0.999)
+
+
+def phase_optimizer_parity(torch):
+    """[optim]: kernel 8 against its plain twins, with an EMA and the clip
+    engaged (the 4AA path) and with neither; times and bounds. Returns its
+    numbers for the kernels line (the EMA case; the other under
+    ``no_ema``)."""
+    from mdgen_tpu_torch import ops
+
+    res = {"sum_of_squares": {}, "fused_adam": {}}
+    for ema in (True, False):
+        rows = _optimizer_rows(torch, ema)
+        n = sum(t.numel() for t in rows[0])
+        ref = [None if r is None else [t.clone() for t in r] for r in rows]
+        norm = ops.sum_of_squares(rows[1], root=True)
+        again = ops.sum_of_squares(rows[1], root=True)
+        plain_norm = ops.sum_of_squares_plain(rows[1], root=True)
+        torch.cuda.synchronize()
+        norm_err = abs(norm.item() - plain_norm.item())
+        clip = norm.item() / 2 if ema else norm.item() * 2
+        kw = _optimizer_kw(10, clip)
+        ops.fused_adam(*rows, norm, **kw)
+        ops.fused_adam_plain(*ref, norm, **kw)
+        torch.cuda.synchronize()
+        names = ("p", "g", "mu", "nu", "ema")
+        err = max(_abs_err(a, b) for r, q in zip(rows, ref) if r is not None
+                  for a, b in zip(r, q))
+        differ = [nm for nm, r, q in zip(names, rows, ref) if r is not None
+                  and not all(torch.equal(a, b) for a, b in zip(r, q))]
+        ok = (torch.equal(norm, again) and bool(torch.isfinite(norm))
+              and norm_err <= OPT_NORM_TOL * plain_norm.item() and not differ)
+        what = "EMA, clip engaged" if ema else "no EMA, clip not engaged"
+        log(f"[optim] {len(rows[0])} tensors, {n:,} f32 ({what}): norm {norm.item():.9e}, plain "
+            f"{plain_norm.item():.9e}, rel err {norm_err / plain_norm.item():.3e} (tol "
+            f"{OPT_NORM_TOL:g}), bit-equal twice {torch.equal(norm, again)}; fused_adam vs the "
+            f"eager loop given that norm: max_abs_err {err:.3e}, rows not bit-equal {differ} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"optimizer pass ({what}): norm err {norm_err}, rows {differ}")
+        del ref
+        grads = rows[1]
+        sq = lambda: ops.sum_of_squares(grads, root=True)  # noqa: E731
+        sq_plain = lambda: ops.sum_of_squares_plain(grads, root=True)  # noqa: E731
+        sq_lib = lambda: torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))  # noqa: E731
+        adam = lambda: ops.fused_adam(*rows, norm, **kw)  # noqa: E731
+        adam_plain = lambda: ops.fused_adam_plain(*rows, norm, **kw)  # noqa: E731
+        leaves = [t.clone().requires_grad_() for t in rows[0]]
+        for q, g in zip(leaves, grads):
+            q.grad = g
+        adam_lib = torch.optim.Adam(leaves, lr=1e-4, fused=True).step
+        n_adam = n * 4 * (1 + 2 * (4 if ema else 3))  # g read; p, mu, nu (EMA) read and written
+        out = {}
+        for name, call, twin, lib, nbytes, e in (
+                ("sum_of_squares", sq, sq_plain, sq_lib, n * 4, norm_err),
+                ("fused_adam", adam, adam_plain, adam_lib, n_adam, err)):
+            t = {"max_abs_err": e, "ms": _time_ms(torch, call), "device_ms": _graph_ms(torch, call),
+                 "host_us": _host_us(torch, call, iters=50),
+                 "plain_ms": _time_ms(torch, twin, iters=5), "library_ms": _time_ms(torch, lib)}
+            t["bound_ms"], t["bound_by"] = _bound(nbytes, 0, "f32")
+            out[name] = t
+        pass_bound = out["sum_of_squares"]["bound_ms"] + out["fused_adam"]["bound_ms"]
+        pass_ms = out["sum_of_squares"]["device_ms"] + out["fused_adam"]["device_ms"]
+        log(f"[time] optimizer pass ({what}): " + "; ".join(
+            f"{k} eager {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms (CUDA graph of 20 "
+            f"calls), the wrapper's host time {v['host_us']:.1f} us, bound {v['bound_ms']:.4f} "
+            f"ms (bytes), plain {v['plain_ms']:.3f} ms eager, library {v['library_ms']:.4f} ms"
+            for k, v in out.items())
+            + f"; the pass {pass_ms:.4f} device ms against a bound of {pass_bound:.4f} "
+            f"({pass_bound / pass_ms:.1%}) (library: the norm by torch._foreach_norm; "
+            f"torch.optim.Adam(fused=True), no clip, no EMA)")
+        for name, t in out.items():
+            if ema:
+                res[name].update(t)
+            else:
+                res[name]["no_ema"] = t
+        del rows, grads, leaves, adam_lib
+        torch.cuda.empty_cache()
+    return res
+
+
+def _profile_optimizer(torch):
+    """The optimizer's eager loop (kernel 8's plain twins) with an EMA:
+    device ms a pass, the profiler's sum over its kernels and copies."""
+    from mdgen_tpu_torch import ops
+
+    rows = _optimizer_rows(torch, True)
+    kw = _optimizer_kw(10, 1.0)
+
+    def plain():
+        ops.fused_adam_plain(*rows, ops.sum_of_squares_plain(rows[1], root=True), **kw)
+
+    plain()
+    torch.cuda.synchronize()
+    res = _profiled(torch, plain)
+    if res is None:
+        log("[profile] optimizer eager loop: torch.profiler saw no device activity: not measured")
+        return {}
+    per, spans, _ = res
+    ms = sum(v for v, _ in per.values())
+    log(f"[profile] the optimizer's eager loop (kernel 8's plain twins, EMA, 193 tensors): "
+        f"device {ms:.3f} ms a pass in {len(spans)} launches")
+    del rows
+    torch.cuda.empty_cache()
+    return {"plain_device_ms": ms, "plain_launches": len(spans)}
 
 
 def _abs_err(a, ref):
@@ -1018,7 +1164,7 @@ def _main_path(state_dict, smi, work):
         f"launches {counts}")
     if models != ROLLOUTS * NUM_FRAMES or len(residues) != L or not np.isfinite(coords).all():
         raise AssertionError(f"bad trajectory PDB: {models} models, {len(residues)} residues")
-    bad = {k: v for k, v in counts.items() if v != (0 if k.startswith("flash_") else want)}
+    bad = {k: v for k, v in counts.items() if v != (want if k in FUSED_KERNELS else 0)}
     if bad:
         raise AssertionError(f"launch counts {bad}, expected {want} for each fused kernel "
                              "and 0 for the flash kernels (T=100: 101 keys, dense)")
@@ -1865,6 +2011,13 @@ def phase_grad_parity(torch, state_dict):
     torch.cuda.empty_cache()
 
 
+def _optimizer_launches(steps, tp):
+    """The optimizer kernels' launches in ``steps`` train steps: one pass a
+    step, and one sum of squares, or two under tp (replicated and sharded
+    parameters)."""
+    return {"sum_of_squares": steps * (2 if tp > 1 else 1), "fused_adam": steps}
+
+
 def phase_training(torch, smi):
     with tempfile.TemporaryDirectory(prefix="mdgen_train_") as work:
         return _training(torch, smi, work)
@@ -1909,7 +2062,8 @@ def _training(torch, smi, work):
         f"{ms:.1f} ms per train step over steps 5-{steps} ({smi}); launches {counts}")
     want = {"flash_fwd_lse": 5 * TRAIN_EPOCHS, "flash_bwd_dq": 5 * TRAIN_EPOCHS,
             "flash_bwd_dkv": 5 * TRAIN_EPOCHS, "flash_fwd": 5, "fused_l_sublayer": 0,
-            "fused_t_sublayer": 0, "fused_ffn_sublayer": 0}
+            "fused_t_sublayer": 0, "fused_ffn_sublayer": 0, "sum_of_squares": TRAIN_EPOCHS,
+            "fused_adam": TRAIN_EPOCHS}
     if steps != TRAIN_EPOCHS or rec["step"] != TRAIN_EPOCHS or not np.isfinite(rec["losses"]).all():
         raise AssertionError(f"expected {TRAIN_EPOCHS} finite steps, got {rec['losses']}")
     if counts != want:
@@ -1932,9 +2086,8 @@ def _training(torch, smi, work):
                        for line in text.splitlines() if line.startswith("ATOM")])
     log(f"[sample] sim_inference --fused_block from {os.path.basename(run)}/step_{TRAIN_EPOCHS} "
         f"(EMA): {models} frames in {out['seconds']:.3f} s; launches {sample_counts}")
-    fused = {k: v for k, v in sample_counts.items() if k.startswith("fused_")}
-    if models != TRAIN_FRAMES or not np.isfinite(coords).all() or set(fused.values()) != {5} \
-            or any(v for k, v in sample_counts.items() if k.startswith("flash_")):
+    if models != TRAIN_FRAMES or not np.isfinite(coords).all() \
+            or {k: v for k, v in sample_counts.items() if v} != dict.fromkeys(FUSED_KERNELS, 5):
         raise AssertionError(f"bad rollout from the trained run: {models} models, {sample_counts}")
     return counts, ms
 
@@ -2221,7 +2374,9 @@ def _atlas(torch, smi, work):
     n_params = sum(v.numel() for v in torch.load(
         os.path.join(rec["model_dir"], f"step_{ATLAS_STEPS}", "model.pt"),
         weights_only=True)["model"].values())
-    ok = (steps == ATLAS_STEPS and np.isfinite(rec["losses"]).all() and not any(counts.values()))
+    ok = (steps == ATLAS_STEPS and np.isfinite(rec["losses"]).all()
+          and not any(counts[k] for k in FLASH_KERNELS + FUSED_KERNELS)
+          and counts["sum_of_squares"] == counts["fused_adam"] == steps)
     log(f"[atlas] python -m mdgen_tpu_torch.train --atlas (5x384x16, {n_params:,} parameters; "
         f"{ATLAS_TRAIN}, {len(seq)} residues cropped to {ATLAS_CROP}, T={ATLAS_FRAMES}, B=1, "
         f"bf16-mixed, grad_checkpointing, dropout {ATLAS_DROPOUT}): {steps} steps, loss "
@@ -2521,7 +2676,7 @@ def _dp(torch, smi, work, world, backend, steps):
     worst = _rel_worst(many, one)
     want = {"flash_fwd_lse": 5 * steps, "flash_bwd_dq": 5 * steps, "flash_bwd_dkv": 5 * steps,
             "flash_fwd": 5, "fused_l_sublayer": 0, "fused_t_sublayer": 0,
-            "fused_ffn_sublayer": 0}
+            "fused_ffn_sublayer": 0, **_optimizer_launches(steps, 1)}
     launches = [one["launches"]] + [rec["launches"] for rec in many]
     ok = worst <= DP_TOL and all(c == want for c in launches) and \
         os.listdir(os.path.join(work, "many")).count(f"step_{steps}") == 1
@@ -2622,7 +2777,8 @@ def _mp(torch, smi, work, one, meshes, backend, steps, atlas_one):
         flash = mesh[1] == 1
         want = {"flash_fwd_lse": 5 * steps * flash, "flash_bwd_dq": 5 * steps * flash,
                 "flash_bwd_dkv": 5 * steps * flash, "flash_fwd": 5 * flash,
-                "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0}
+                "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0,
+                **_optimizer_launches(steps, mesh[2])}
         launches = [r["launches"] for r in ranks]
         ok = (worst <= DP_TOL and ckpt <= _adam_bound(steps)
               and all(c == want for c in launches))
@@ -2685,7 +2841,8 @@ def _mp_atlas(torch, smi, work, mesh, backend, one):
     worst = _rel_worst(ranks, head, val=False)
     launches = [r["launches"] for r in ranks]
     gib = 2**30
-    ok = worst <= TOL["bf16"] and not any(v for c in launches for v in c.values())
+    want = {**dict.fromkeys(KERNELS, 0), **_optimizer_launches(ATLAS_MP_STEPS, mesh[2])}
+    ok = worst <= TOL["bf16"] and all(c == want for c in launches)
     mems = " / ".join(f"{r['peak_device_bytes'] / gib:.2f}" for r in ranks)
     step_ms = " / ".join(f"{_ms_a_step(r):.1f}" for r in ranks)
     log(f"[mp] python -m mdgen_tpu_torch.train --atlas ({ATLAS_TRAIN} cropped to {ATLAS_CROP}, "
@@ -2887,7 +3044,7 @@ def _port_ckpt(torch, smi, work):
                               "--out_dir", os.path.join(work, "samples"), "--num_rollouts", "1",
                               "--fused_block", "--device", "cuda"])[0]
     counts = ops.launch_counts()
-    want_counts = {k: 0 if k.startswith("flash_") else 5 * (EULER_STEPS - 1) for k in counts}
+    want_counts = {k: 5 * (EULER_STEPS - 1) if k in FUSED_KERNELS else 0 for k in counts}
     with open(rec["paths"][0]) as fh:
         pdb = fh.read()
     coords = np.array([float(line[30:38]) for line in pdb.splitlines() if line.startswith("ATOM")])
@@ -3164,11 +3321,12 @@ def main(argv=None):
         f"[mp] {mp_s:.1f} s, [dp-infer] {infer_s:.1f} s, [native-io] to [e2e] {slice13_s:.1f} s")
     frame_us = phase_profiles(torch, state_dict, rollout_s, smi, upsampling)
     parity["fused_t_sublayer"]["upsampling_t1000_us_per_launch"] = frame_us
+    parity["fused_adam"].update(_profile_optimizer(torch))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (train_counts if k in FLASH_KERNELS else counts)[k],
+         "launches": (counts if k in FUSED_KERNELS else train_counts)[k],
          "tps_launches": tps_counts[k], "upsampling_launches": ups_counts[k],
          "design_launches": design_counts[k],
          "mpnn_launches": mpnn_counts["mpnn"][k] + mpnn_counts["dynamic_mpnn"][k],

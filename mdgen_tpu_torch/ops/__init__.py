@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels with plain twins: the three fused serving
-sublayers and the four flash-attention kernels.
+sublayers, the four flash-attention kernels and the train step's optimizer
+pass (the gradients' sum of squares, the fused clip, Adam and EMA).
 
 Each public function takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors; each counts its kernel launches in a
@@ -15,12 +16,18 @@ from .flash_attention import (  # noqa: F401
     flash_fwd,
     flash_fwd_lse,
 )
+from .fused_optim import (  # noqa: F401
+    fused_adam,
+    fused_adam_plain,
+    sum_of_squares,
+    sum_of_squares_plain,
+)
 from .fused_block import fused_l_sublayer, fused_l_sublayer_plain  # noqa: F401
 from .fused_ffn import fused_ffn_sublayer, fused_ffn_sublayer_plain  # noqa: F401
 from .fused_t_block import fused_t_sublayer, fused_t_sublayer_plain  # noqa: F401
 
 KERNELS = (fused_l_sublayer, fused_t_sublayer, fused_ffn_sublayer,
-           flash_fwd, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
+           flash_fwd, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, sum_of_squares, fused_adam)
 
 
 def reset_launch_counts() -> None:

@@ -38,6 +38,9 @@ SIGNATURES = {
     "mdgen_flash_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "mdgen_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
     "mdgen_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_P],
+    "mdgen_opt_max_tensors": [],
+    "mdgen_sum_squares": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+    "mdgen_fused_adam": [_P, _P, _I, _I, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -53,7 +53,7 @@ def on_cpu(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
-        raise ValueError(f"fused sublayers run on CPU (plain) or CUDA, not {x.device}")
+        raise ValueError(f"the kernels run on CPU (plain) or CUDA, not {x.device}")
     return False
 
 

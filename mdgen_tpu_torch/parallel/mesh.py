@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import sum_of_squares
 from .distributed import _gather, _sum, all_reduce_mean, barrier, process_allgather
 from .distributed import rank as _rank, world_size
 
@@ -282,8 +283,10 @@ def shard_tensors(named: dict, specs: dict, tp: Axis) -> dict:
 def global_sq_norm(tensors: list, sharded: list, tp: Axis) -> torch.Tensor:
     """The squared global norm of tensors of which ``sharded[i]`` says
     whether tensor i is a tp shard: each shard counted once (an all-reduce
-    over tp), each replicated tensor once."""
+    over tp), each replicated tensor once; each part's sum of squares in one
+    launch on the card (``ops.sum_of_squares``)."""
     zero = tensors[0].new_zeros((), dtype=torch.float32)
-    rep = sum(((t.float() ** 2).sum() for t, s in zip(tensors, sharded) if not s), zero)
-    part = sum(((t.float() ** 2).sum() for t, s in zip(tensors, sharded) if s), zero)
+    rep, part = ([t for t, s in zip(tensors, sharded) if s == which] for which in (False, True))
+    rep = sum_of_squares(rep) if rep else zero
+    part = sum_of_squares(part) if part else zero
     return rep + _sum(part, tp.group) if tp.size > 1 else rep + part

@@ -18,16 +18,26 @@ The state is a dict of tensors and ints, saved with the checkpoint. Under
 tensor parallelism the parameters, gradients and moments are this rank's
 shards; ``norm`` is then the global norm over every shard
 (``TrainRuntime``), so every rank clips by the one-process norm.
+
+A step that applies an update clips, runs Adam and moves the EMA copy (the
+train step's, when it keeps one) in one pass over every tensor
+(``ops.fused_adam``: one kernel on the card, the eager loop on the CPU); the
+global norm is ``ops.sum_of_squares``, one more kernel. MultiSteps' other
+calls move only the EMA, with the eager loop.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import ops
+from ..ops.fused_optim import ema_update_plain
+
 
 class Optimizer:
     def __init__(self, lr: float, grad_clip: float, adamw: bool = False,
                  accumulate_grad: int = 1, weight_decay: float = 1e-4,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, norm=None):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, norm=None,
+                 ema_decay: float = 0.999):
         if accumulate_grad < 1:
             raise ValueError(f"accumulate_grad must be >= 1, got {accumulate_grad}")
         self.lr, self.grad_clip = lr, grad_clip
@@ -35,11 +45,12 @@ class Optimizer:
         self.k = accumulate_grad
         self.b1, self.b2, self.eps = b1, b2, eps
         self.norm = norm or global_norm  # gradients -> their global norm
+        self.ema_decay = ema_decay
 
     @classmethod
     def from_config(cls, cfg, norm=None) -> "Optimizer":
         return cls(cfg.lr, cfg.grad_clip, adamw=cfg.adamW, accumulate_grad=cfg.accumulate_grad,
-                   norm=norm)
+                   norm=norm, ema_decay=cfg.ema_decay)
 
     def init(self, params: list[torch.Tensor]) -> dict:
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
@@ -49,41 +60,38 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict) -> None:
-        """Update ``params`` and ``state`` in place from one micro-batch's
-        gradients."""
+    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict,
+             norm=None, ema=None) -> None:
+        """Update ``params``, ``state`` and the EMA copy ``ema`` (tensors like
+        ``params``, or None) in place from one micro-batch's gradients.
+        ``norm``: their global norm where the caller has it (else
+        ``self.norm(grads)``); the k-th call of MultiSteps clips by the norm
+        of the running mean instead. The EMA follows the parameters on every
+        call."""
         if self.k == 1:
-            self._clip_adam(params, grads, state)
+            self._apply(params, grads, state, self.norm(grads) if norm is None else norm, ema)
             return
         n = state["mini_step"]
         for acc, g in zip(state["acc"], grads):
             acc.add_((g - acc) / (n + 1))
         if n == self.k - 1:
-            self._clip_adam(params, state["acc"], state)
+            self._apply(params, state["acc"], state, self.norm(state["acc"]), ema)
             for acc in state["acc"]:
                 acc.zero_()
             state["gradient_step"] += 1
+        elif ema is not None:
+            ema_update_plain(ema, params, self.ema_decay)
         state["mini_step"] = (n + 1) % self.k
 
-    def _clip_adam(self, params, grads, state) -> None:
-        norm = self.norm(grads)
-        keep = norm < self.grad_clip
+    def _apply(self, params, grads, state, norm, ema) -> None:
+        """Clip, Adam and the EMA in one pass (``ops.fused_adam``)."""
         count = state["count"] + 1
-        # the bias corrections in f32, as optax computes them
-        dev = params[0].device
-        bc1 = (1 - torch.tensor(self.b1) ** count).to(dev)
-        bc2 = (1 - torch.tensor(self.b2) ** count).to(dev)
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            g = torch.where(keep, g, (g / norm) * self.grad_clip)
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * g**2 + self.b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(-self.lr * u)
+        ops.fused_adam(params, grads, state["mu"], state["nu"], ema, norm, count=count,
+                       lr=self.lr, grad_clip=self.grad_clip, b1=self.b1, b2=self.b2,
+                       eps=self.eps, weight_decay=self.weight_decay, ema_decay=self.ema_decay)
         state["count"] = count
 
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    return ops.sum_of_squares(tensors, root=True)

@@ -386,7 +386,8 @@ class TrainRuntime:
         return dict(zip(metrics, means))
 
     def _global_norm(self, grads) -> torch.Tensor:
-        """The one-process gradients' global norm: each tp shard once."""
+        """The one-process gradients' global norm: each tp shard once. A
+        device tensor on the card, which the host does not read."""
         if self.grid.tp.size == 1:
             return global_norm(grads)
         return torch.sqrt(global_sq_norm(grads, self.sharded, self.grid.tp))
@@ -399,7 +400,9 @@ class TrainRuntime:
                                          dropout_seed=dropout_seed)
         with tracing.span("train.backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            # contiguous, as the optimizer's kernels take them
+            grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                     for p, g in zip(params, grads)]
         with tracing.span("train.grad_mean"):
             grads = self.grid.data.mean(grads)
         return params, grads, self._mean_over_ranks(metrics)
@@ -408,18 +411,16 @@ class TrainRuntime:
         """One micro-step: gradient, optimizer (which applies an update on
         every ``accumulate_grad``-th call), EMA and the step counter, which
         both advance on every call. ``grad_norm`` is this micro-batch's
-        (the global batch's, averaged over ranks). Its phases are spans
-        (``tracing``) that share ``state.step`` on entry."""
+        (the global batch's, averaged over ranks), and the norm the clip
+        uses when every call applies. The optimizer moves the EMA in the
+        same pass. Its phases are spans (``tracing``) that share
+        ``state.step`` on entry."""
         with tracing.span("train.step", state.step):
             params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
             with tracing.span("train.optimizer"):
-                metrics["grad_norm"] = self._global_norm(grads)
-                self.tx.step(params, grads, state.opt_state)
-            if state.ema is not None:
-                d = self.cfg.ema_decay
-                with tracing.span("train.ema"), torch.no_grad():
-                    for e, p in zip(state.ema.parameters(), params):
-                        e.copy_(e * d + (1 - d) * p)
+                norm = metrics["grad_norm"] = self._global_norm(grads)
+                ema = None if state.ema is None else list(state.ema.parameters())
+                self.tx.step(params, grads, state.opt_state, norm, ema)
             state.step += 1
         return state, metrics
 

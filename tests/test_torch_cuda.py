@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card: the three fused serving sublayers and the four flash-attention
-kernels (at the end of the file). Run there with
+card: the three fused serving sublayers, the four flash-attention kernels
+and, at the end of the file, the train step's optimizer pass (the
+gradients' sum of squares and the fused clip, Adam and EMA: bit-equal to
+the eager loop given the same norm). Run there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -22,8 +24,11 @@ round the same values to bf16, but a value that lands next to a rounding
 boundary can round the other way in one of them: one bf16 ulp of an
 operand is 2^-8 of it).
 """
+import functools
 import importlib
+import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -515,12 +520,12 @@ def test_two_gloo_ranks_on_one_card_train_as_one_rank(grid, tmp_path):
 
 
 _OTHER_CARD = r"""
-import json, sys
+import importlib, json, sys
 import torch
 sys.path.insert(0, sys.argv[1])
 import test_torch_cuda as t
 from mdgen_tpu_torch import ops
-from mdgen_tpu_torch.ops import flash_attention as fa
+fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
 
 dev, dt = torch.device("cuda:1"), torch.float32
 a = {k: v.to(dev) for k, v in t._inputs(*t.SHAPES["main"], dt).items()}
@@ -539,6 +544,14 @@ errs["flash_fwd"] = (fa.flash_fwd(q, k, v, bias) - o_ref).abs().max().item()
 errs["flash_fwd_lse"] = (fa.flash_fwd_lse(q, k, v, bias)[1] - lse_ref).abs().max().item()
 errs["flash_bwd_dq"] = t._rel_max(fa.flash_bwd_dq(*bwd), fa.flash_bwd_dq_plain(*bwd))
 errs["flash_bwd_dkv"] = t._rel_max(fa.flash_bwd_dkv(*bwd)[0], fa.flash_bwd_dkv_plain(*bwd)[0])
+rows = t._opt_rows([(384, 384), (4097,), (3,)], True, dev)
+ref = [[x.clone() for x in r] for r in rows]
+norm = ops.sum_of_squares(rows[1], root=True)
+ops.fused_adam(*rows, norm, **t._opt_kw(1, 1.0, True))
+ops.fused_adam_plain(*ref, norm, **t._opt_kw(1, 1.0, True))
+errs["sum_of_squares"] = abs(norm.item() / ops.sum_of_squares_plain(rows[1], True).item() - 1)
+errs["fused_adam"] = max((x - y).abs().max().item() for got, want in zip(rows, ref)
+                         for x, y in zip(got, want))
 torch.cuda.synchronize(dev)
 print(json.dumps({"current": torch.cuda.current_device(), "errs": errs,
                   "launches": ops.launch_counts()}))
@@ -548,9 +561,9 @@ print(json.dumps({"current": torch.cuda.current_device(), "errs": errs,
 def test_kernels_run_on_the_card_of_their_operands():
     """A process whose tensors live on ``cuda:1`` and which never set its
     device (``tps_inference --device cuda:1``: ``cuda:0`` stays current):
-    each of the seven kernels, first launched there, matches its plain twin
-    at the main path's and the training recipe's shapes, once each, and the
-    current device stays ``cuda:0``. Before the wrappers made the operands'
+    each of the nine kernels, first launched there, matches its plain twin
+    at the main path's and the training recipe's shapes (the optimizer's on
+    three tensors), once each, and the current device stays ``cuda:0``. Before the wrappers made the operands'
     card current, the kernels launched on ``cuda:0`` and the fused sampling
     of a checkpoint on ``cuda:1-3`` failed."""
     _need_cuda()
@@ -571,3 +584,172 @@ def test_kernels_run_on_the_card_of_their_operands():
     assert all(n == 1 for n in out["launches"].values()), out["launches"]
     for name, err in out["errs"].items():  # f32: TOL and FLASH_TOL are both 1e-4
         assert err <= TOL[torch.float32], (name, err)
+
+
+# -- the optimizer pass (csrc/fused_adam.cu) -----------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _model_shapes():
+    """The 4AA model's parameter shapes (193 tensors, 34.15M elements), then
+    tensors of 1, 3 and 4097 elements (off the 16-byte vectors)."""
+    from mdgen_tpu_torch.config import MDGenConfig
+    from mdgen_tpu_torch.models import LatentMDGenModel
+
+    cfg = MDGenConfig(sim_condition=True, prepend_ipa=True, abs_pos_emb=True,
+                      abs_time_emb=True, crop=4)
+    model = LatentMDGenModel(cfg, cfg.latent_dim)
+    return [tuple(p.shape) for p in model.parameters()] + [(1,), (3,), (4097,)]
+
+
+def _opt_rows(shapes, ema, dev="cuda", seed=0, views=False):
+    """[params, grads, mu, nu, ema or None] on the card, a state some steps
+    in: random p, g, mu and EMA, a positive nu. With ``views`` each tensor
+    of a row is a view at an odd offset of one buffer (4-byte aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizes = [math.prod(s) for s in shapes]
+
+    def row(scale, positive=False):
+        if not views:
+            ts = [torch.randn(s, generator=gen, device=dev) * scale for s in shapes]
+            return [t.abs() for t in ts] if positive else ts
+        buf = torch.randn(sum(sizes) + 2 * len(sizes), generator=gen, device=dev) * scale
+        buf = buf.abs() if positive else buf
+        offsets = np.cumsum([1] + [n + 2 for n in sizes[:-1]])
+        return [buf[o:o + n].view(s) for o, n, s in zip(offsets, sizes, shapes)]
+
+    p = row(0.05)
+    e = [x + y for x, y in zip(p, row(1e-3))] if ema else None
+    return [p, row(1e-3), row(1e-3), row(1e-6, positive=True), e]
+
+
+def _opt_kw(count, clip, adamw, ema_decay=0.999):
+    return dict(count=count, lr=1e-4, grad_clip=clip, b1=0.9, b2=0.999, eps=1e-8,
+                weight_decay=1e-4 if adamw else 0.0, ema_decay=ema_decay)
+
+
+def _opt_launches():
+    return ops.sum_of_squares.launches, ops.fused_adam.launches
+
+
+def _same(rows, ref):
+    """Names of the rows (p, g, mu, nu, ema) where a tensor differs in a bit."""
+    names = ("p", "g", "mu", "nu", "ema")
+    return [n for n, r, q in zip(names, rows, ref) if r is not None
+            and not all(torch.equal(a, b) for a, b in zip(r, q))]
+
+
+def _check_opt_steps(rows, clipped, adamw, per_step):
+    """Two steps of the kernels against the eager loop from copies of the
+    same state: given the kernel's norm, every p, mu, nu and EMA bit-equal;
+    the norm within 1e-6 of the loop's and equal to itself bit for bit;
+    ``per_step`` launches of each kernel a step."""
+    ref = [None if r is None else [t.clone() for t in r] for r in rows]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for count in (1, 2):
+        if count == 2:  # new gradients
+            for g, h in zip(rows[1], ref[1]):
+                h.copy_(g.copy_(torch.randn(g.shape, generator=gen, device="cuda") * 1e-3))
+        before = _opt_launches()
+        norm = ops.sum_of_squares(rows[1], root=True)
+        again = ops.sum_of_squares(rows[1], root=True)
+        plain = ops.sum_of_squares_plain(rows[1], root=True)
+        torch.cuda.synchronize()
+        assert torch.equal(norm, again), (norm.item(), again.item())
+        assert abs(norm.item() - plain.item()) <= 1e-6 * plain.item(), (norm.item(), plain.item())
+        clip = norm.item() / 2 if clipped else norm.item() * 2
+        ops.fused_adam(*rows, norm, **_opt_kw(count, clip, adamw))
+        ops.fused_adam_plain(*ref, norm, **_opt_kw(count, clip, adamw))
+        torch.cuda.synchronize()
+        assert _opt_launches() == (before[0] + 2 * per_step, before[1] + per_step)
+        assert not _same(rows, ref), f"step {count}: {_same(rows, ref)} differ"
+
+
+@pytest.mark.parametrize("ema", [True, False], ids=["ema", "no_ema"])
+@pytest.mark.parametrize("adamw", [False, True], ids=["adam", "adamw"])
+@pytest.mark.parametrize("clipped", [True, False], ids=["clipped", "unclipped"])
+def test_optimizer_kernels_match_plain(clipped, adamw, ema):
+    """At the 4AA model's 193 tensors and 1, 3 and 4097 elements: the clip
+    engaged (norm twice the clip) or not, Adam or AdamW, with an EMA or
+    without; one launch of each kernel a step (``_check_opt_steps``)."""
+    _need_cuda()
+    _check_opt_steps(_opt_rows(_model_shapes(), ema), clipped, adamw, per_step=1)
+
+
+@pytest.mark.parametrize("case", ["views", "many"])
+def test_optimizer_kernels_off_the_vectors_and_past_one_table(case):
+    """``views``: the model's tensors at odd offsets of one buffer, so no
+    tensor takes the 16-byte path; ``many``: 600 tensors of 1 to 5000
+    elements and some of none, three tables of at most 256 (CUDA 12.1's
+    kernel parameters): three launches of each kernel a step."""
+    _need_cuda()
+    if case == "views":
+        rows, per_step = _opt_rows(_model_shapes(), True, views=True), 1
+    else:
+        sizes = np.random.default_rng(0).integers(0, 5000, 600)
+        rows = _opt_rows([(int(n),) for n in sizes], True)
+        per_step = -(-int((sizes > 0).sum()) // ops.fused_optim.max_tensors())
+        assert per_step >= 3 or ops.fused_optim.max_tensors() < 256
+    _check_opt_steps(rows, True, True, per_step)
+
+
+def test_optimizer_kernels_refuse_what_they_do_not_take():
+    """A CUDA tensor that is not float32, not contiguous or on another
+    device raises; nothing falls back to the eager loop."""
+    _need_cuda()
+    rows = _opt_rows([(64, 64), (5,)], True)
+    norm = ops.sum_of_squares(rows[1], root=True)
+    kw = _opt_kw(1, 1.0, False)
+    before = _opt_launches()
+    bad = {"bf16 grad": lambda r: r[1].__setitem__(0, r[1][0].bfloat16()),
+           "strided grad": lambda r: r[1].__setitem__(0, r[1][0].t()),
+           "cpu mu": lambda r: r[2].__setitem__(1, r[2][1].cpu())}
+    for name, spoil in bad.items():
+        r = [list(x) for x in rows]
+        spoil(r)
+        with pytest.raises(ValueError):
+            ops.fused_adam(*r, norm, **kw)
+        if name != "cpu mu":
+            with pytest.raises(ValueError):
+                ops.sum_of_squares(r[1])
+    with pytest.raises(ValueError):
+        ops.fused_adam(*rows, norm.cpu(), **kw)
+    assert _opt_launches() == before
+
+
+def test_optimizer_phase_never_waits_for_the_card(monkeypatch):
+    """A train step's optimizer phase (span ``train.optimizer``: the norm,
+    the clip, Adam and the EMA) under ``set_sync_debug_mode("error")``: no
+    host read of the card and no synchronous copy, one launch of each
+    kernel, and ``grad_norm`` a device tensor."""
+    _need_cuda()
+    from mdgen_tpu_torch.config import MDGenConfig
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import TrainRuntime, batch_to_device
+
+    seqs = ("ACDE", "KLMW")
+    cfg = MDGenConfig(num_layers=1, embed_dim=32, mha_heads=4, ipa_heads=2, ipa_head_dim=8,
+                      ipa_qk=2, ipa_v=2, crop=4, batch_size=2, num_frames=6, sim_condition=True,
+                      prepend_ipa=True, abs_pos_emb=True, abs_time_emb=True, ema=True)
+    rt = TrainRuntime(cfg, "cuda")
+    state = rt.init(torch.Generator().manual_seed(0))
+    atom14 = np.stack([synthetic_trajectory(s, 6, seed=i) for i, s in enumerate(seqs)])
+    batch = batch_to_device({"atom14": atom14.astype(np.float32),
+                             "seqres": np.stack([rc.str_sequence_to_aatype(s) for s in seqs]),
+                             "mask": np.ones((2, 4), np.float32)}, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state, _ = rt.train_step(state, batch, gen)  # builds the kernels
+    params, grads, metrics = rt._grads(state.model, batch, gen)
+    monkeypatch.setattr(rt, "_grads", lambda *a, **k: (params, grads, dict(metrics)))
+    ema_before = [e.clone() for e in state.ema.parameters()]
+    before = _opt_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = rt.train_step(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _opt_launches() == (before[0] + 1, before[1] + 1)
+    assert m["grad_norm"].device.type == "cuda" and state.opt_state["count"] == 2
+    assert any(not torch.equal(a, b) for a, b in zip(state.ema.parameters(), ema_before))

@@ -137,7 +137,13 @@ def test_cpu_tensors_do_not_count_launches():
     ops.fused_ffn_sublayer(*[_torch(a[n], transpose=n in ("w1", "w2")) for n in names])
     q = torch.randn(2, 5, 8)
     ops.flash_attention(q, q, q, torch.zeros(2, 5))
+    p = [torch.randn(3), torch.randn(2, 2)]
+    norm = ops.sum_of_squares(p, root=True)
+    ops.fused_adam(p, [t.clone() for t in p], [torch.zeros_like(t) for t in p],
+                   [torch.zeros_like(t) for t in p], None, norm, count=1, lr=1e-3, grad_clip=1.0,
+                   b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, ema_decay=0.999)
     assert ops.launch_counts() == {
         "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0,
         "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "sum_of_squares": 0, "fused_adam": 0,
     }

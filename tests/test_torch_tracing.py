@@ -90,20 +90,18 @@ def test_spans_of_one_train_step():
     assert state.step == 42
     recs = sorted(_mine(), key=lambda r: r[4])
     assert [r[0] for r in recs] == ["train.step", "train.forward", "train.tokenize",
-                                    "train.backward", "train.grad_mean", "train.optimizer",
-                                    "train.ema"]
+                                    "train.backward", "train.grad_mean", "train.optimizer"]
     by = {r[0]: r for r in recs}
     parents = {"train.step": None, "train.forward": "train.step",
                "train.tokenize": "train.forward", "train.backward": "train.step",
-               "train.grad_mean": "train.step", "train.optimizer": "train.step",
-               "train.ema": "train.step"}
+               "train.grad_mean": "train.step", "train.optimizer": "train.step"}
     for name, _, parent, _, t0, t1 in recs:
         assert parent == parents[name] and t0 <= t1
         if parent is not None:
             assert by[parent][4] <= t0 and t1 <= by[parent][5], name
     assert {r[1] for r in recs} == {41}
     phases = [by[n] for n in ("train.forward", "train.backward", "train.grad_mean",
-                              "train.optimizer", "train.ema")]
+                              "train.optimizer")]
     assert all(a[5] <= b[4] for a, b in zip(phases, phases[1:]))
 
 

@@ -5,7 +5,10 @@
   regenerated from the key as ``transport.py:115-120`` splits it and passed
   in. Tolerance 1e-5 relative (f32).
 * ``runtime/optim.py`` against optax itself (clip_by_global_norm, then adam
-  or adamw, in MultiSteps), step by step, 1e-6 relative.
+  or adamw, in MultiSteps), step by step, 1e-6 relative; a train step's one
+  global norm, the one the clip uses; ``opt_state``'s layout through a
+  checkpoint; the optimizer pass's plain loop on the CPU and the pointer
+  table of its kernels' launches.
 * Two train steps of the port's ``TrainRuntime`` against the JAX runtime's
   jitted ``train_step`` from the same parameters (seeded, noised so that
   the adaLN-zero gates are open), the same tokenized batch (the port's
@@ -42,11 +45,13 @@ from mdgen_tpu.tasks import prep_batch as jax_prep
 from mdgen_tpu.transport import Transport as JaxTransport
 from mdgen_tpu.transport import TransportConfig as JaxTransportConfig
 from mdgen_tpu_torch import ops
+from mdgen_tpu_torch.config import MDGenConfig as PortConfig
 from mdgen_tpu_torch.data import synthetic_trajectory
 from mdgen_tpu_torch.geometry import constants as rc
 from mdgen_tpu_torch.interop import _rename, jax_params_to_state_dict
 from mdgen_tpu_torch.models import LatentMDGenModel
 from mdgen_tpu_torch.runtime import TrainRuntime, batch_to_device, tokenize_atom14
+from mdgen_tpu_torch.runtime.checkpoint import load_train_checkpoint, save_train_checkpoint
 from mdgen_tpu_torch.runtime.optim import Optimizer
 from mdgen_tpu_torch.tasks import prep_batch
 from mdgen_tpu_torch.transport import Transport, TransportConfig
@@ -127,6 +132,121 @@ def test_optimizer_matches_optax(adamw, k):
         for n, tp in zip(shapes, tparams):
             np.testing.assert_allclose(tp.numpy(), np.asarray(params[n]), rtol=1e-6, atol=1e-7,
                                        err_msg=f"step {step}, {n}")
+
+
+@pytest.mark.parametrize("ema", [True, False], ids=["ema", "no_ema"])
+def test_train_step_takes_one_global_norm(monkeypatch, ema):
+    """A train step sums the gradients' squares once; the clip (engaged:
+    grad_clip 1e-3) uses that norm, the one ``grad_norm`` reports; and the
+    same pass moves the EMA copy where the state keeps one."""
+    cfg = PortConfig(**TINY, num_frames=6, ema=ema, grad_clip=1e-3)
+    rt = TrainRuntime(cfg)
+    state = rt.init(torch.Generator().manual_seed(0))
+    sums, applied = [], []
+    sum_of_squares, fused_adam = ops.sum_of_squares, ops.fused_adam
+
+    def counted(tensors, root=False):
+        sums.append(root)
+        return sum_of_squares(tensors, root)
+
+    def seen(params, grads, mu, nu, ema_copy, norm, **kw):
+        applied.append((norm, ema_copy))
+        fused_adam(params, grads, mu, nu, ema_copy, norm, **kw)
+
+    monkeypatch.setattr(ops, "sum_of_squares", counted)
+    monkeypatch.setattr(ops, "fused_adam", seen)
+    state, m = rt.train_step(state, batch_to_device(_raw_batch(6), "cpu"),
+                             generator=torch.Generator().manual_seed(1))
+    assert sums == [True] and len(applied) == 1
+    norm, ema_copy = applied[0]
+    assert norm is m["grad_norm"] and float(norm) > cfg.grad_clip
+    if ema:
+        assert [e is p for e, p in zip(ema_copy, state.ema.parameters())] == \
+            [True] * len(list(state.model.parameters()))
+    else:
+        assert ema_copy is None
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["adam", "multisteps2"])
+def test_opt_state_layout_survives_a_checkpoint(tmp_path, k):
+    """``opt_state`` keeps its keys, its per-parameter lists (one tensor of
+    each parameter's shape) and its counters through three train steps and
+    a checkpoint's save and load, and the loaded state trains on as the
+    saved one does."""
+    cfg = PortConfig(**TINY, num_frames=6, ema=True, accumulate_grad=k)
+    rt = TrainRuntime(cfg)
+    state = rt.init(torch.Generator().manual_seed(0))
+    keys = set(state.opt_state)
+    shapes = [p.shape for p in state.model.parameters()]
+    lists = [key for key, v in state.opt_state.items() if isinstance(v, list)]
+    assert lists == (["mu", "nu"] if k == 1 else ["mu", "nu", "acc"])
+    batch = batch_to_device(_raw_batch(6), "cpu")
+    for i in range(3):
+        state, _ = rt.train_step(state, batch, generator=torch.Generator().manual_seed(i))
+    assert state.opt_state["count"] == 3 // k
+    save_train_checkpoint(str(tmp_path), cfg, state)
+    loaded, step = load_train_checkpoint(str(tmp_path), rt.init(torch.Generator().manual_seed(5)))
+    assert step == 3 and set(loaded.opt_state) == keys
+    for key, v in state.opt_state.items():
+        got = loaded.opt_state[key]
+        if key in lists:
+            assert [t.shape for t in got] == [t.shape for t in v] == shapes, key
+            assert all(torch.equal(a, b) for a, b in zip(got, v)), key
+        else:
+            assert got == v, key
+    for s in (state, loaded):
+        rt.train_step(s, batch, generator=torch.Generator().manual_seed(9))
+    for a, b in zip(loaded.model.parameters(), state.model.parameters()):
+        assert torch.equal(a, b)
+    assert loaded.opt_state["count"] == state.opt_state["count"] == 4 // k
+    assert [t.shape for t in loaded.opt_state["mu"]] == shapes
+
+
+def test_optimizer_pass_takes_the_plain_loop_on_the_cpu(monkeypatch):
+    """CPU tensors take the eager loop and never the kernel library; a
+    device the kernels do not run on is refused."""
+    from mdgen_tpu_torch.ops import _build
+
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path built the kernels")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    g = torch.Generator().manual_seed(0)
+    p = [torch.randn(s, generator=g) for s in ((5, 3), (1,), (4097,))]
+    grads = [torch.randn(t.shape, generator=g) for t in p]
+    rows = {n: [t.clone() for t in p] for n in ("p", "ref")}
+    moments = {n: ([torch.zeros_like(t) for t in p], [torch.zeros_like(t) for t in p])
+               for n in rows}
+    ema = {n: [t.clone() for t in p] for n in rows}
+    kw = dict(count=1, lr=1e-2, grad_clip=1.0, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4,
+              ema_decay=0.99)
+    norm = ops.sum_of_squares(grads, root=True)
+    assert torch.equal(norm, ops.sum_of_squares_plain(grads, root=True))
+    ops.fused_adam(rows["p"], grads, *moments["p"], ema["p"], norm, **kw)
+    ops.fused_adam_plain(rows["ref"], grads, *moments["ref"], ema["ref"], norm, **kw)
+    for n in range(len(p)):
+        for a, b in ((rows["p"], rows["ref"]), (ema["p"], ema["ref"]),
+                     (moments["p"][0], moments["ref"][0]), (moments["p"][1], moments["ref"][1])):
+            assert torch.equal(a[n], b[n])
+    with pytest.raises(ValueError, match="CPU \\(plain\\) or CUDA"):
+        ops.sum_of_squares([torch.zeros(3, device="meta")])
+
+
+def test_optimizer_launches_pack_the_tensor_table(monkeypatch):
+    """The pointer table of the optimizer's launches: tensors without
+    elements are left out, at most ``max_tensors()`` a launch, one row of
+    pointers after another (p, g, mu, nu, ema) and each tensor's size."""
+    from mdgen_tpu_torch.ops import fused_optim as fa
+
+    monkeypatch.setattr(fa, "max_tensors", lambda: 2)
+    sizes = [3, 0, 4097, 1, 8192, 0]
+    rows = [[torch.zeros(n) for n in sizes] for _ in range(5)]
+    groups = list(fa._launch_groups(rows))
+    assert [n for _, _, n in groups] == [2, 2]
+    assert [s.tolist() for _, s, _ in groups] == [[3, 4097], [1, 8192]]
+    for (ptrs, _, n), idx in zip(groups, ([0, 2], [3, 4])):
+        assert ptrs.tolist() == [row[i].data_ptr() for row in rows for i in idx]
+        assert ptrs.dtype == np.int64 and len(ptrs) == 5 * n
 
 
 # -- train steps ---------------------------------------------------------------
