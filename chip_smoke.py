@@ -1114,7 +1114,8 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
             "fused_ffn_sublayer": n}
     ok = (bool(torch.isfinite(fused).all()) and err <= 1e-3
           and all(counts[k] == v for k, v in want.items())
-          and not any(counts[k] for k in FLASH_KERNELS) and not any(dense_counts.values()))
+          and not any(counts[k] for k in FLASH_KERNELS)
+          and not any(dense_counts[k] for k in KERNELS))
     log(f"[{tag}] rollout {rollouts} x {T} frames, 4 Euler steps, f32, each fused rollout from "
         f"the dense one's start: fused vs dense max_abs_err {err:.3e} A, tol 1e-3 A; launches "
         f"fused {counts} (want {want}), dense {dense_counts} -> {'ok' if ok else 'FAIL'}{chained}")
@@ -1223,7 +1224,7 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     want = 5 * st["evals"]
     ok = (st["reached_t1"] and err <= DOPRI5_TOL and all(
         counts[k] == want for k in ("fused_l_sublayer", "fused_t_sublayer", "fused_ffn_sublayer"))
-        and not any(dense_counts.values()))
+        and not any(dense_counts[k] for k in KERNELS))
     log(f"[dopri5] f32 fused vs dense, same start and noise: max_abs_err {err:.3e} A, tol "
         f"{DOPRI5_TOL:g} A; dense {runs['f32 dense'][1]['evals']} evaluations; each fused "
         f"kernel {want} launches expected -> {'ok' if ok else 'FAIL'}")
@@ -1735,7 +1736,7 @@ def phase_mpnn(torch, smi):
         ok = (tuple(outs[True].shape) == (DESIGN_BATCH, 1, L, 20)
               and bool(torch.isfinite(outs[True]).all()) and scale > 1e-2
               and err <= TOL["f32"] * max(scale, 1.0) and ft == [frames]
-              and all(fc[k] == 5 for k in FUSED_KERNELS) and not any(dc.values()))
+              and all(fc[k] == 5 for k in FUSED_KERNELS) and not any(dc[k] for k in KERNELS))
         log(f"[mpnn] {mode} (5x384x16, latent {cfg.latent_dim}, {DESIGN_BATCH} windows of "
             f"{NUM_FRAMES} frames, t = 1), one forward, 32-true: logits {tuple(outs[True].shape)}, "
             f"fused vs dense max_abs_err {err:.3e} (|logits| max {scale:.3f}), tol "
@@ -2197,7 +2198,7 @@ def phase_sde(torch, smi, state_dict):
         evals = stats["evals"] + 1
         ok = (bool(torch.isfinite(atoms).all()) and err <= SDE_TOL
               and all(counts[k] == cfg.num_layers * evals for k in FUSED_KERNELS)
-              and not any(counts_d.values()))
+              and not any(counts_d[k] for k in KERNELS))
         log(f"[sde] sample_sde {method} (SBDM, {SDE_STEPS} grid points, Mean last step; the "
             f"bench sim model, T={NUM_FRAMES}, 32-true): {evals} model evaluations; fused "
             f"{sec * 1e3:.1f} ms, dense {sec_d * 1e3:.1f} ms a solve ({smi}); fused vs dense, same "
@@ -2301,7 +2302,7 @@ def phase_likelihood(torch, smi, state_dict):
                 refused.append("no forward-mode derivative" in str(e))
     torch.cuda.synchronize()
     ok = (bool(torch.isfinite(logp).all()) and torch.equal(logp, logp2)
-          and not any(counts.values()) and stats["evals"] == LIK_STEPS - 1
+          and not any(counts[k] for k in KERNELS) and stats["evals"] == LIK_STEPS - 1
           and div_rel <= LIK_TOL and all(refused) and len(refused) == 8)
     log(f"[likelihood] sample_ode_likelihood euler ({LIK_STEPS} grid points; the bench sim "
         f"model, T={NUM_FRAMES}, 32-true, dense route): log p {logp.tolist()} (|z| max "
@@ -3198,7 +3199,7 @@ def phase_micro_fwd(torch, smi):
           and err <= MICRO_TOL * scale
           and all(launches[k] == want for k in FUSED_KERNELS)
           and not any(launches[k] for k in FLASH_KERNELS)
-          and not any(runs[False]["launches"].values()))
+          and not any(runs[False]["launches"][k] for k in KERNELS))
     log(f"[micro-fwd] micro_fwd --steps {MICRO_STEPS} (5x384x16, B=8, T=100, bf16-mixed): fused "
         f"{runs[True]['eager_ms']:.3f} ms a step eagerly, {runs[True]['graph_ms']:.3f} ms as a "
         f"CUDA graph; dense {runs[False]['eager_ms']:.3f} / {runs[False]['graph_ms']:.3f} ms; "

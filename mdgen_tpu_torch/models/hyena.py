@@ -19,6 +19,12 @@ dtype. Parameter names are the flax tree's (``in_proj``, ``short_filter``,
 ``filter_fn.{mlp_0..2, mlp_out, sin_freq_0..2, bias}``, ``out_proj``), so
 ``interop.jax_params_to_state_dict`` converts them by its generic rules
 (the Conv kernel [3, 1, D] transposes to conv1d's [D, 1, 3]).
+
+Each ``HyenaOperator.forward`` is a ``tracing`` span ``model.hyena``, and
+``fftconv`` counts its calls in ``fftconv.launches`` (``ops.launch_counts``
+reports it under ``fftconv``): one a forward at order 2, none in the
+backward, which autograd runs without calling it (a checkpointed layer's
+recompute calls it again).
 """
 from __future__ import annotations
 
@@ -29,17 +35,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from .layers import xavier_
 
 
 def fftconv(u, k, D):
     """u [B, D, L]; k [D, L]; D (the bias) [D] -> [B, D, L] in u.dtype."""
+    fftconv.launches += 1
     L = u.shape[-1]
     fft_size = 2 * L
     k_f = torch.fft.rfft(k.float(), n=fft_size) / fft_size
     u_f = torch.fft.rfft(u.float(), n=fft_size)
     y = torch.fft.irfft(u_f * k_f, n=fft_size, norm="forward")[..., L - 1:2 * L - 1]
     return (y + u * D[..., None]).to(u.dtype)
+
+
+fftconv.launches = 0
 
 
 def positional_embedding(emb_dim: int, seq_len: int):
@@ -133,6 +144,10 @@ class HyenaOperator(nn.Module):
         xavier_(self.out_proj, generator)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
+        with tracing.span("model.hyena"):
+            return self._forward(u)
+
+    def _forward(self, u: torch.Tensor) -> torch.Tensor:
         B, T, C = u.shape
         l_filter = min(T, self.l_max)
         u = _dense(u, self.in_proj).transpose(1, 2)  # B, D, T

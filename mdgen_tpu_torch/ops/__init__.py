@@ -4,7 +4,9 @@ pass (the gradients' sum of squares, the fused clip, Adam and EMA).
 
 Each public function takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors; each counts its kernel launches in a
-plain integer attribute ``launches``.
+plain integer attribute ``launches``. ``launch_counts`` reports them, and
+beside them the calls of the Hyena operator's ``fftconv`` (``torch.fft``,
+cuFFT on the card, no kernel of this package) under ``fftconv``.
 """
 from .flash_attention import (  # noqa: F401
     chunked_attention,
@@ -25,15 +27,17 @@ from .fused_optim import (  # noqa: F401
 from .fused_block import fused_l_sublayer, fused_l_sublayer_plain  # noqa: F401
 from .fused_ffn import fused_ffn_sublayer, fused_ffn_sublayer_plain  # noqa: F401
 from .fused_t_block import fused_t_sublayer, fused_t_sublayer_plain  # noqa: F401
+from ..models.hyena import fftconv
 
 KERNELS = (fused_l_sublayer, fused_t_sublayer, fused_ffn_sublayer,
            flash_fwd, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, sum_of_squares, fused_adam)
+COUNTED = KERNELS + (fftconv,)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: fn.launches for fn in COUNTED}

@@ -26,7 +26,9 @@ Spans: ``train.step`` (``TrainRuntime.train_step``) and inside it
 ``train.grad_mean`` and ``train.optimizer`` (norm, clip, Adam and EMA); ``data.wait``
 (the consumer's wait on ``Loader``'s queue), ``data.load`` (a batch's reads
 and stack on the loader's thread) and ``data.to_device``
-(``runtime.batch_to_device``).
+(``runtime.batch_to_device``); ``model.hyena`` (each
+``HyenaOperator.forward``, one a trunk layer a forward of a ``--hyena``
+model, under ``train.forward`` in a train step).
 """
 from __future__ import annotations
 

@@ -145,5 +145,5 @@ def test_cpu_tensors_do_not_count_launches():
     assert ops.launch_counts() == {
         "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0,
         "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "sum_of_squares": 0, "fused_adam": 0,
+        "sum_of_squares": 0, "fused_adam": 0, "fftconv": 0,
     }

@@ -105,6 +105,35 @@ def test_spans_of_one_train_step():
     assert all(a[5] <= b[4] for a, b in zip(phases, phases[1:]))
 
 
+def test_hyena_spans_and_fftconv_calls_of_train_steps():
+    """``model.hyena`` once a trunk layer a forward, under ``train.forward``
+    at the step's number; ``fftconv`` counts layers x steps (none in the
+    backward)."""
+    from mdgen_tpu_torch import ops
+
+    cfg = MDGenConfig(**dict(TINY, num_layers=2, hyena=True))
+    rt = TrainRuntime(cfg)
+    state = rt.init(torch.Generator().manual_seed(0))
+    atom14 = np.stack([synthetic_trajectory(s, 6, seed=i) for i, s in enumerate(SEQS)])
+    batch = batch_to_device({"atom14": atom14.astype(np.float32),
+                             "seqres": np.stack([rc.str_sequence_to_aatype(s) for s in SEQS]),
+                             "mask": np.ones((2, 4), np.float32)}, "cpu")
+    tracing._RING.clear()
+    ops.reset_launch_counts()
+    steps = 3
+    for _ in range(steps):
+        state, _ = rt.train_step(state, batch, generator=torch.Generator().manual_seed(1))
+    assert ops.launch_counts()["fftconv"] == cfg.num_layers * steps
+    recs = _mine()
+    forwards = [r for r in recs if r[0] == "train.forward"]
+    hyena = [r for r in recs if r[0] == "model.hyena"]
+    assert len(forwards) == steps and len(hyena) == cfg.num_layers * steps
+    for f in forwards:
+        inside = [r for r in hyena if f[4] <= r[4] and r[5] <= f[5]]
+        assert len(inside) == cfg.num_layers
+        assert all(r[2] == "train.forward" and r[1] == f[1] for r in inside)
+
+
 class _Items:
     def __init__(self, n):
         self.n = n
