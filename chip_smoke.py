@@ -117,7 +117,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      a masked residue, f32 and bf16 operands, each twice on the same inputs
      (bit-equal); all four (tensor cores) also at edge shapes (Tq below one
      MMA tile, one past two 64-row tiles, N=1, d = 7, 8, 40, 64), twice
-     (bit-equal, `[edge]` lines); times kernel, plain twin and the library
+     (bit-equal, `[edge]` lines); kernels 5-7 also at ATLAS's calls in bf16
+     (`[edge]` lines: the trunk's residue attention, N=4000, Tq=256,
+     Tk=257, its 40 padded keys before the bias key; its frame attention,
+     N=4096, Tq=250, Tk=251, the padded residues' 640 rows on the bias key
+     alone; the IPA tower's residue attention, N=16, as the trunk's), twice
+     (bit-equal); times kernel, plain twin and the library
      call (PyTorch's memory-efficient attention: forward, forward with
      logsumexp, and its backward, one call for kernels 6 and 7) with CUDA
      events, in both dtypes, and kernel and library device time around a
@@ -138,10 +143,15 @@ Phases, in order; any failure raises and the exit code is not 0:
   11a. the ATLAS recipe (`[atlas]`): `mdgen_tpu_torch.train --atlas` at crop
      256, T = 250, B = 1, bf16-mixed, grad_checkpointing, dropout 0.1 on
      7lao_A's 271-residue sequence (synthetic replicas; ms a step, peak
-     device memory; all dense, no model kernel, the optimizer's two once a
-     step); one Euler solve of an ATLAS item
-     with the trained weights; the residue-axis attention at 6sms_A's 724
-     residues (T = 250) through kernel 4 against dense; REMAT_STEPS steps of
+     device memory; all dense, as dropout forces, no model kernel, the
+     optimizer's two once a step); one checkpointed step without dropout on
+     seeded weights, where the trunk's residue and frame attentions (257 and
+     251 keys) and the IPA tower's take kernels 5-7 (25 / 15 / 15 launches),
+     against the same step with every attention dense (loss and each
+     gradient's norm within the ATLAS cell's limits); one Euler solve of an
+     ATLAS item with the trained weights (kernel 4 at 3 x 5 launches an
+     evaluation); the residue-axis attention at 6sms_A's 724 residues (T =
+     250) through kernel 4 against dense; REMAT_STEPS steps of
      the 4AA recipe (T = 1000) with grad_checkpointing against the same
      steps without (losses, grad norms, gradients; kernel 5 launched again
      in each recompute);
@@ -205,12 +215,13 @@ Phases, in order; any failure raises and the exit code is not 0:
       bytes it must move over 3.35 TB/s and its operations over the peak of
       their type; each adds its worst `[edge]` error by dtype; kernel 2 its
       T = 1000 times and bound and its µs per launch on the upsampling path;
-      the flash kernels their bf16 device, library and bound times and the
-      f32 bound on CUDA cores; every kernel its launches on the TPS,
-      upsampling, design and mpnn paths, and on the Hyena, SDE, likelihood,
-      options, ATLAS training, ATLAS residue-attention and checkpointed 4AA
-      runs, on each rank of `[dp]`, `[mp]` and `[dp-infer]`, and on
-      `[port-ckpt]`, `[eval-protocol]` and `[micro-fwd]`),
+      the flash kernels their bf16 device, library and bound times, their
+      worst error at ATLAS's calls, and the f32 bound on CUDA cores; every
+      kernel its launches on the TPS, upsampling, design and mpnn paths,
+      and on the Hyena, SDE, likelihood, options, ATLAS training, ATLAS
+      flash step, ATLAS residue-attention and checkpointed 4AA runs, on
+      each rank of `[dp]`, `[mp]` and `[dp-infer]`, and on `[port-ckpt]`,
+      `[eval-protocol]` and `[micro-fwd]`),
       the nvidia-smi line, and the result line.
 Needs no network and one card. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -262,6 +273,15 @@ OPT_SRC = "mdgen_tpu_torch/csrc/fused_adam.cu"
 FLASH_EDGE_SHAPES = {"tq5": (2, 5, 6, 24), "tile_plus_one": (2, 129, 129, 24),
                      "n1": (1, 65, 200, 32), "d8": (2, 300, 301, 8), "d40": (2, 70, 65, 40),
                      "d64": (2, 64, 64, 64), "d7": (2, 33, 70, 7)}
+# ATLAS's calls of kernels 5-7 at crop 256 with 40 padded residues, T = 250,
+# 16 heads of 24: the trunk's residue attention (250 frames x 16 heads over
+# 256 residues and the bias key), its frame attention (256 residues x 16
+# heads over 250 frames and the bias key) and the IPA tower's residue
+# attention (16 heads); and their masks: (rows that see the bias key alone,
+# the padded residues' 40 x 16; keys masked just before the bias key)
+ATLAS_FLASH_SHAPES = {"atlas_residue": (4000, 256, 257, 24), "atlas_frame": (4096, 250, 251, 24),
+                      "atlas_tower": (16, 256, 257, 24)}
+ATLAS_FLASH_MASKS = {"atlas_residue": (0, 40), "atlas_frame": (640, 0), "atlas_tower": (0, 40)}
 KERNELS = {
     "fused_l_sublayer": ("mdgen_tpu_torch/csrc/fused_l_sublayer.cu", "mdgen_tpu/ops/fused_block.py:238"),
     "fused_t_sublayer": ("mdgen_tpu_torch/csrc/fused_t_sublayer.cu", "mdgen_tpu/ops/fused_t_block.py:201"),
@@ -275,6 +295,18 @@ KERNELS = {
 }
 FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
 FUSED_KERNELS = tuple(k for k in KERNELS if k.endswith("_sublayer"))
+
+
+def kernel_launches(counts):
+    """The launches of KERNELS in ``counts`` (``ops.launch_counts()`` also
+    reports the Hyena operator's ``fftconv`` calls)."""
+    return {k: counts[k] for k in KERNELS}
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 # the fused kernels (1-3): edge shapes (B, T, L), token counts no multiple of
 # their 32-token tiles
 EDGE_SHAPES = {"tokens4": (1, 1, 4), "batch3": (3, 37, 4), "L1": (2, 20, 1), "L7": (2, 19, 7),
@@ -888,14 +920,18 @@ def phase_flash_parity(torch):
     for name, dname, _, err, _, _ in _check_flash_edges(torch, fa):
         worst = results[name].setdefault("edge_err", {})
         worst[dname] = max(worst.get(dname, 0.0), err)
+    for name, _, _, err, _, _ in _check_flash_edges(torch, fa, ATLAS_FLASH_SHAPES, ("bf16",)):
+        if name != "flash_fwd":  # ATLAS's training calls; kernel 4 at them adds nothing
+            results[name]["atlas_bf16_err"] = max(results[name].get("atlas_bf16_err", 0.0), err)
     return results
 
 
 def _check_flash_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f32", "bf16"), strict=True):
     """Kernels 4-7 at ``shapes``, in ``dtypes`` (f32, bf16 operands), keys
     of the middle third masked (and, with N > 1, row 0 with its last key
-    alone); against the plain twins within FLASH_TOL (o and lse absolute,
-    the backward kernels' outputs relative to their largest entry, with the
+    alone), or for ATLAS's shapes the mask of ATLAS_FLASH_MASKS; against the
+    plain twins within FLASH_TOL (o and lse absolute, the backward
+    kernels' outputs relative to their largest entry, with the
     twin's o and lse as inputs), and twice bit-equal. Returns [(kernel,
     dtype, shape, err, bit-equal, ok)]; ``strict`` raises at the first that
     is not ok."""
@@ -906,9 +942,14 @@ def _check_flash_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f32", "bf16
         k, v = torch.randn(N, Tk, d, generator=g), torch.randn(N, Tk, d, generator=g)
         do = torch.randn(N, Tq, d, generator=g)
         mask = torch.ones(N, Tk)
-        mask[:, Tk // 3: Tk // 2] = 0.0
-        if N > 1:  # its dq, dk, dbias are 0 up to rounding: only beside other rows
-            mask[0, :-1] = 0.0
+        if shape in ATLAS_FLASH_MASKS:
+            alone, padded = ATLAS_FLASH_MASKS[shape]
+            mask[:, Tk - 1 - padded:Tk - 1] = 0.0
+            mask[N - alone:, :-1] = 0.0
+        else:
+            mask[:, Tk // 3: Tk // 2] = 0.0
+            if N > 1:  # its dq, dk, dbias are 0 up to rounding: only beside other rows
+                mask[0, :-1] = 0.0
         bias = torch.where(mask > 0, 0.0, fa.NEG_INF).cuda()
         for dname in dtypes:
             dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dname]
@@ -1048,8 +1089,9 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
     max(|out|, 1)), then ``rollouts`` f32 rollouts of 4 Euler steps (T = 100),
     each fused rollout from the dense one's start, within 1e-3 A; the fused
     rollouts launch kernels 1 and 3 (and 2 when ``frame_kernel``) once a layer
-    and an evaluation and no flash kernel, the dense ones nothing. Returns the
-    fused rollouts' launch counts."""
+    and an evaluation and no flash kernel, the dense ones (``attn_impl``
+    "dense", the plain reference) nothing. Returns the fused rollouts'
+    launch counts."""
     from mdgen_tpu_torch import ops
     from mdgen_tpu_torch.runtime import tokenize
     from mdgen_tpu_torch.tasks import prep_batch
@@ -1064,7 +1106,8 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
     for precision, tol in tols.items():
         outs = {}
         for fused in (False, True):
-            c = cfg.replace(precision=precision, fused_block=fused)
+            c = cfg.replace(precision=precision, fused_block=fused,
+                            attn_impl=cfg.attn_impl if fused else "dense")
             rt = _runtime(torch, c, state_dict)
             prep = prep_batch(c, tokenize(c, {"atom14": start[:, None].expand(B, T, L, 14, 3),
                                               "seqres": seqres, "mask": mask}))
@@ -1090,6 +1133,7 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
     noise = torch.randn(rollouts, B, T, L, cfg.latent_dim, device="cuda",
                         generator=g.manual_seed(2))
     rts = {fused: _runtime(torch, cfg.replace(precision="32-true", fused_block=fused,
+                                              attn_impl=cfg.attn_impl if fused else "dense",
                                               sampling_method="euler", inference_steps=4),
                            state_dict)
            for fused in (False, True)}
@@ -1194,7 +1238,8 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     runs = {}
     for name, precision, fused in (("f32 fused", "32-true", True), ("f32 dense", "32-true", False),
                                    ("bf16 fused", "bf16-mixed", True)):
-        cfg = bench_config(precision=precision, fused_block=fused, sampling_method="dopri5")
+        cfg = bench_config(precision=precision, fused_block=fused, sampling_method="dopri5",
+                           attn_impl="auto" if fused else "dense")
         rt = _runtime(torch, cfg, state_dict)
         solves = []
         torch.cuda.synchronize()
@@ -1424,8 +1469,9 @@ def _tps(torch, smi, work):
              "mask": torch.ones(TPS_PATHS, L, device="cuda")}
     noise = torch.randn(TPS_PATHS, NUM_FRAMES, L, cfg.latent_dim, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(11))
-    err = _check_fused_vs_dense(torch, "tps", _fused_vs_dense(torch, cfg, state_dict, batch, noise),
-                                0)
+    # the dense solve as the plain reference: attn_impl "dense" at T = 100's 101 keys
+    err = _check_fused_vs_dense(torch, "tps", _fused_vs_dense(
+        torch, cfg.replace(attn_impl="dense"), state_dict, batch, noise), 0)
     torch.cuda.empty_cache()
     return counts, {"paths_per_s": paths_s, "ms_per_eval": ms_eval, "evals": st["evals"],
                     "fused_vs_dense_A": err}
@@ -1652,7 +1698,8 @@ def _design(torch, smi, work):
                        .expand(DESIGN_BATCH, NUM_FRAMES, L, 20)], dim=-1)
     runs = {}
     for fused in (True, False):
-        c = cfg.replace(precision="32-true", fused_block=fused)
+        c = cfg.replace(precision="32-true", fused_block=fused,
+                        attn_impl=cfg.attn_impl if fused else "dense")
         rt = _runtime(torch, c, state_dict)
         prep = prep_batch(c, tokenize_atom14(batch))
         solve = {}
@@ -2067,7 +2114,7 @@ def _training(torch, smi, work):
             "fused_adam": TRAIN_EPOCHS}
     if steps != TRAIN_EPOCHS or rec["step"] != TRAIN_EPOCHS or not np.isfinite(rec["losses"]).all():
         raise AssertionError(f"expected {TRAIN_EPOCHS} finite steps, got {rec['losses']}")
-    if counts != want:
+    if kernel_launches(counts) != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     run = rec["model_dir"]
     blob = torch.load(os.path.join(run, f"step_{TRAIN_EPOCHS}", "model.pt"), weights_only=True)
@@ -2174,7 +2221,8 @@ def phase_sde(torch, smi, state_dict):
     for method in ("Euler", "Heun"):
         runs = {}
         for fused in (True, False):
-            cfg = bench_config(precision="32-true", fused_block=fused)
+            cfg = bench_config(precision="32-true", fused_block=fused,
+                               attn_impl="auto" if fused else "dense")
             rt = _runtime(torch, cfg, state_dict)
             prep = prep_batch(cfg, tokenize(cfg, {"atom14": start[:, None].expand(B, T, L, 14, 3),
                                                   "seqres": seqres, "mask": mask}))
@@ -2333,14 +2381,17 @@ def _atlas(torch, smi, work):
     """The ATLAS recipe: (1) `mdgen_tpu_torch.train` at crop 256, T = 250,
     B = 1, bf16-mixed, grad_checkpointing and dropout 0.1 on the 271-residue
     sequence of 7lao_A (three synthetic replicas): ATLAS_STEPS finite steps,
-    ms a step, peak device memory, no kernel (257 and 251 keys: dense; and
-    dropout forces dense); (2) one Euler solve (2 evaluations) of an ATLAS
+    ms a step, peak device memory, no flash kernel (dropout forces dense,
+    though 257 and 251 keys take flash without it); (1b) ``_atlas_flash_step``
+    on an item of its data; (2) one Euler solve (2 evaluations) of an ATLAS
     item (crop + 1 wide: the runtime drops the context column) with the
-    trained weights; (3) the residue-axis attention at 6sms_A's 724
-    residues, T = 250, through kernel 4 against dense (a masked residue);
+    trained weights, every attention on kernel 4; (3) the residue-axis
+    attention at 6sms_A's 724 residues, T = 250, through kernel 4 against
+    dense (a masked residue);
     (4) REMAT_STEPS 4AA recipe steps (T = 1000, B = 8) with
     grad_checkpointing against the same steps without. Returns {"train":
-    counts, "record": the train run's record, "residue": counts, "remat": counts}."""
+    counts, "record": the train run's record, "flash_step": counts, "residue": counts,
+    "remat": counts}."""
     import numpy as np
 
     from mdgen_tpu_torch import ops, train
@@ -2388,38 +2439,112 @@ def _atlas(torch, smi, work):
         raise AssertionError(f"atlas training: {rec['losses']}, {counts}")
 
     cfg = checkpoint.load_config(rec["model_dir"])
-    model, _ = checkpoint.load_model(rec["model_dir"], cfg, "cuda")
-    rt = MDGenRuntime(cfg, model)
     item = MDGenDataset(cfg, split, work, seed=0)[0]
     batch = batch_to_device({k: item[k][None] for k in ("atom14", "seqres", "mask")}, "cuda")
+    flash_step = _atlas_flash_step(torch, cfg, batch)
+    model, _ = checkpoint.load_model(rec["model_dir"], cfg, "cuda")
+    rt = MDGenRuntime(cfg, model)
     stats = {}
     rt.inference(batch, generator=torch.Generator(device="cuda").manual_seed(0))  # warm-up
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     atoms, _ = rt.inference(batch, generator=torch.Generator(device="cuda").manual_seed(0),
                             stats=stats)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    solve = kernel_launches(ops.launch_counts())
+    # each evaluation: the trunk's residue and frame attentions and the IPA
+    # tower's residue attention, a layer each, on kernel 4 (no grad)
+    want = {**dict.fromkeys(KERNELS, 0), "flash_fwd": 3 * cfg.num_layers * stats["evals"]}
     ok = (tuple(atoms.shape) == (1, ATLAS_FRAMES, ATLAS_CROP, 14, 3)
-          and bool(torch.isfinite(atoms).all()))
+          and bool(torch.isfinite(atoms).all()) and solve == want)
     log(f"[atlas] Euler solve of an ATLAS item ({item['atom14'].shape[1]} columns: the context "
         f"column dropped), {stats['evals']} evaluations, bf16-mixed: {sec * 1e3:.1f} ms, "
         f"{sec * 1e3 / stats['evals']:.1f} ms an evaluation ({smi}); atoms "
-        f"{tuple(atoms.shape)} -> {'ok' if ok else 'FAIL'}")
+        f"{tuple(atoms.shape)}; kernel 4 {solve['flash_fwd']} launches (want "
+        f"{want['flash_fwd']}), the others {sum(solve.values()) - solve['flash_fwd']} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"atlas sampling: {tuple(atoms.shape)}")
+        raise AssertionError(f"atlas sampling: {tuple(atoms.shape)}, launches {solve}")
     del model, rt, atoms
     torch.cuda.empty_cache()
     marks.append(time.perf_counter())
-    out = {"train": counts, "record": rec,
+    out = {"train": counts, "record": rec, "flash_step": flash_step,
            "residue": _atlas_residue_attention(torch, smi, len(seqs[ATLAS_LONG]))}
     marks.append(time.perf_counter())
     out["remat"] = _remat_4aa(torch, smi)
     marks.append(time.perf_counter())
     parts = [b - a for a, b in zip(marks, marks[1:])]
-    log(f"[atlas] seconds: train.main {parts[0]:.1f} (its steps and checkpoint), sampling "
-        f"{parts[1]:.1f}, residue attention {parts[2]:.1f}, checkpointed 4AA {parts[3]:.1f}")
+    log(f"[atlas] seconds: train.main {parts[0]:.1f} (its steps and checkpoint), flash step "
+        f"and sampling {parts[1]:.1f}, residue attention {parts[2]:.1f}, checkpointed 4AA "
+        f"{parts[3]:.1f}")
     return out
+
+
+# the ATLAS cell's limits of correct (portbench, calibrated on bf16 against
+# f32): the loss relative, and each gradient leaf's norm relative
+ATLAS_STEP_TOL = {"loss": 1e-3, "grad": 5.5e-3}
+
+
+def _atlas_flash_step(torch, cfg, batch):
+    """One checkpointed ATLAS train step without dropout on seeded weights
+    (adaLN gates open) and ``batch``: the trunk's residue and frame
+    attentions (257 and 251 keys) and the IPA tower's residue attention take
+    kernels 5-7, kernel 5 25 times (the trunk's 10 in the forward and again
+    in the recompute, the tower's 5), kernels 6 and 7 15 times. Against the
+    same step with every attention on the dense route (the plain reference;
+    ``attn_impl`` reaches the frame attentions alone, so each module's
+    ``impl`` is set): the loss and each gradient's norm (leaves of at least
+    a thousandth of the median's, as the benchmark counts them) within
+    ATLAS_STEP_TOL; the worst leaf's relative difference printed. Returns
+    the flash step's launch counts."""
+    import numpy as np
+
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.models.attention import RoPEAttention
+    from mdgen_tpu_torch.runtime import TrainRuntime
+
+    cfg = cfg.replace(dropout=0.0)
+    state_dict = seeded_model(torch, cfg).state_dict()
+    res = {}
+    for route in ("flash", "dense"):
+        rt = TrainRuntime(cfg, "cuda")
+        model = rt.init(state_dict=state_dict).model
+        if route == "dense":
+            for m in model.modules():
+                if isinstance(m, RoPEAttention):
+                    m.impl = "dense"
+        names = [n for n, _ in model.named_parameters()]
+        ops.reset_launch_counts()
+        _, grads, metrics = rt._grads(model, batch,
+                                      generator=torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        res[route] = (float(metrics["loss"]), grads, kernel_launches(ops.launch_counts()))
+        del model, rt
+    (loss_f, g_f, c_f), (loss_d, g_d, c_d) = res["flash"], res["dense"]
+    norms = np.array([float(b.float().norm()) for b in g_d])
+    counted = [i for i, n in enumerate(norms) if n >= 1e-3 * np.median(norms)]
+    gap = {i: abs(float(g_f[i].float().norm()) - norms[i]) / norms[i] for i in counted}
+    diff = {i: float((g_f[i].float() - g_d[i].float()).norm()) / norms[i] for i in counted}
+    worst, worst_diff = max(gap, key=gap.get), max(diff, key=diff.get)
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    want = {**dict.fromkeys(KERNELS, 0), "flash_fwd_lse": 25, "flash_bwd_dq": 15,
+            "flash_bwd_dkv": 15}
+    ok = (c_f == want and c_d == dict.fromkeys(KERNELS, 0)
+          and loss_rel <= ATLAS_STEP_TOL["loss"] and gap[worst] <= ATLAS_STEP_TOL["grad"]
+          and all(bool(torch.isfinite(x).all()) for x in g_f))
+    log(f"[atlas] checkpointed step without dropout (seeded weights, bf16-mixed, {len(counted)} "
+        f"of {len(names)} gradient leaves counted): flash vs dense loss {loss_f:.6f} vs "
+        f"{loss_d:.6f} (rel {loss_rel:.2e}, tol {ATLAS_STEP_TOL['loss']:g}); worst leaf norm "
+        f"gap {gap[worst]:.2e} ({names[worst]}, tol {ATLAS_STEP_TOL['grad']:g}); worst leaf "
+        f"difference {diff[worst_diff]:.2e} of its norm ({names[worst_diff]}, not held); "
+        f"launches flash {_nonzero(c_f)} (want {_nonzero(want)}), dense {_nonzero(c_d)} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"atlas flash step: loss {loss_rel}, grad {gap[worst]}, {c_f}, {c_d}")
+    torch.cuda.empty_cache()
+    return c_f
 
 
 def _atlas_residue_attention(torch, smi, n_res):
@@ -2679,7 +2804,7 @@ def _dp(torch, smi, work, world, backend, steps):
             "flash_fwd": 5, "fused_l_sublayer": 0, "fused_t_sublayer": 0,
             "fused_ffn_sublayer": 0, **_optimizer_launches(steps, 1)}
     launches = [one["launches"]] + [rec["launches"] for rec in many]
-    ok = worst <= DP_TOL and all(c == want for c in launches) and \
+    ok = worst <= DP_TOL and all(kernel_launches(c) == want for c in launches) and \
         os.listdir(os.path.join(work, "many")).count(f"step_{steps}") == 1
     where = "on the one card, the gradient all-reduce staged through the host" \
         if backend == "gloo" else "one card a rank"
@@ -2782,7 +2907,7 @@ def _mp(torch, smi, work, one, meshes, backend, steps, atlas_one):
                 **_optimizer_launches(steps, mesh[2])}
         launches = [r["launches"] for r in ranks]
         ok = (worst <= DP_TOL and ckpt <= _adam_bound(steps)
-              and all(c == want for c in launches))
+              and all(kernel_launches(c) == want for c in launches))
         mems = " / ".join(f"{r['peak_device_bytes'] / gib:.2f}" for r in ranks)
         step_ms = " / ".join(f"{_ms_a_step(r):.1f}" for r in ranks)
         log(f"[mp] python -m mdgen_tpu_torch.train, 4AA recipe (5x384x16, T={TRAIN_FRAMES}, "
@@ -2843,7 +2968,7 @@ def _mp_atlas(torch, smi, work, mesh, backend, one):
     launches = [r["launches"] for r in ranks]
     gib = 2**30
     want = {**dict.fromkeys(KERNELS, 0), **_optimizer_launches(ATLAS_MP_STEPS, mesh[2])}
-    ok = worst <= TOL["bf16"] and all(c == want for c in launches)
+    ok = worst <= TOL["bf16"] and all(kernel_launches(c) == want for c in launches)
     mems = " / ".join(f"{r['peak_device_bytes'] / gib:.2f}" for r in ranks)
     step_ms = " / ".join(f"{_ms_a_step(r):.1f}" for r in ranks)
     log(f"[mp] python -m mdgen_tpu_torch.train --atlas ({ATLAS_TRAIN} cropped to {ATLAS_CROP}, "
@@ -3181,15 +3306,15 @@ def phase_micro_fwd(torch, smi):
     """[micro-fwd]: ``python -m mdgen_tpu_torch.micro_fwd`` (its ``main``) at
     the 4AA sampling shape (B = 8, T = 100, bf16-mixed, seeded weights),
     MICRO_STEPS chained forwards, fused and dense: kernels 1-3 at 5 launches
-    each a step (the dense run none); the forwards' own contribution, the
-    drift out - x0 = 0.01 * sum of the forwards, nonzero and within
+    each a step (the dense run, ``--attn_impl dense``, none); the forwards'
+    own contribution, the drift out - x0 = 0.01 * sum of the forwards, nonzero and within
     MICRO_TOL x the dense drift's max (x0 itself is left out: its N(0, 1)
     draws would swamp the forwards); ms a step eagerly and as CUDA-graph
     replays."""
     from mdgen_tpu_torch import micro_fwd
 
     runs = {fused: micro_fwd.main(["--steps", str(MICRO_STEPS)]
-                                  + (["--fused_block"] if fused else []))
+                                  + (["--fused_block"] if fused else ["--attn_impl", "dense"]))
             for fused in (True, False)}
     launches, dense = runs[True]["launches"], runs[False]["drift"]
     err = (runs[True]["drift"] - dense).abs().max().item()
@@ -3334,6 +3459,7 @@ def main(argv=None):
          "hyena_launches": hyena_counts[k], "sde_launches": sde_counts[k],
          "likelihood_launches": lik_counts[k], "options_launches": option_counts[k],
          "atlas_train_launches": atlas_counts["train"][k],
+         "atlas_flash_step_launches": atlas_counts["flash_step"][k],
          "atlas_residue_launches": atlas_counts["residue"][k],
          "remat_launches": atlas_counts["remat"][k],
          "dp_launches_per_rank": [c[k] for c in dp_launches],

@@ -9,7 +9,8 @@ decode around a rollout. Timed with CUDA events eagerly (what the host
 loop costs) and as replays of a CUDA graph of one forward (the device time
 alone); on the CPU, eagerly with the host clock.
 
-    python -m mdgen_tpu_torch.micro_fwd --batch 8 [--fused_block] [--trace DIR]
+    python -m mdgen_tpu_torch.micro_fwd --batch 8 [--fused_block] [--attn_impl dense] \\
+        [--trace DIR]
     python -m mdgen_tpu_torch.micro_fwd --device cpu --num_layers 2 --embed_dim 32 \\
         --mha_heads 4 --steps 3 --batch 2
 
@@ -50,6 +51,8 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of one timed run into DIR")
     p.add_argument("--fused_block", action="store_true",
                    help="the fused sublayer kernels (1-3)")
+    p.add_argument("--attn_impl", default="auto", choices=("auto", "dense", "chunked", "flash"),
+                   help="the unfused attentions' inner loop (config.attn_impl)")
     p.add_argument("--num_layers", type=int, default=5)
     p.add_argument("--embed_dim", type=int, default=384)
     p.add_argument("--mha_heads", type=int, default=16)
@@ -78,6 +81,7 @@ def main(argv=None) -> dict:
         sim_condition=True, prepend_ipa=True, abs_pos_emb=True, abs_time_emb=True, crop=4,
         num_frames=100, sampling_method="euler", inference_steps=100,
         precision="bf16-mixed", batch_size=B, fused_block=args.fused_block,
+        attn_impl=args.attn_impl,
         num_layers=args.num_layers, embed_dim=args.embed_dim, mha_heads=args.mha_heads,
     )
     rt = MDGenRuntime(cfg, seeded_model(cfg).to(device))  # the bf16 serving cast

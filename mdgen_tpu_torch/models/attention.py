@@ -7,14 +7,22 @@ position S (always attendable) and roped there; ESM rotary tables
 with ``finfo(f32).min``; softmax in f32 with the probabilities cast back to
 the compute dtype before P·V.
 
-``impl`` picks the inner loop as the JAX module does: "dense" (einsum
-logits), "chunked" (blockwise online softmax, ``ops.chunked_attention``),
-"flash" (``ops.flash_attention``: the hand-written CUDA kernels on the GPU,
-differentiable through their backward kernels) and "auto" (dense up to 512
-keys, else flash). "flash" below 513 keys is dense too. The frame axis of
-the 4AA training recipe (T=1000 frames, 1001 keys) takes flash. Dropout on
-the probabilities (training with ``cfg.dropout > 0``: a ``layers.Dropout``
-passed in) forces the dense route, as in JAX.
+``impl`` picks the inner loop: "dense" (einsum logits), "chunked"
+(blockwise online softmax, ``ops.chunked_attention``), "flash"
+(``ops.flash_attention``: the hand-written CUDA kernels on the GPU,
+differentiable through their backward kernels) and "auto" (dense below a
+crossover in keys, else flash; "flash" below it is dense too). Off CUDA the
+crossover is the JAX module's, 513 keys, and the "flash" route is the
+kernels' plain twin. On CUDA it is the H100's own, ``CUDA_FLASH_MIN_KEYS``:
+there the frame axis of the 4AA training recipe (T=1000 frames, 1001 keys)
+and both axes of ATLAS (256 residues and 250 frames, 257 and 251 keys with
+the bias key) take flash, and the 4AA residue axis (5 keys) stays dense.
+Dropout on the probabilities (training with ``cfg.dropout > 0``: a
+``layers.Dropout`` passed in) and frame keys gathered over sp force the
+dense route on every device, as in JAX. So does forward-mode AD (a
+``torch.func.jvp`` through the model, as the likelihood runs it), which the
+kernels refuse, below the JAX module's 513 keys, where JAX is dense too;
+from 513 keys the flash route refuses the tangent, as before.
 """
 from __future__ import annotations
 
@@ -28,13 +36,24 @@ from .layers import dense
 
 NEG_INF = torch.finfo(torch.float32).min
 IMPLS = ("auto", "dense", "chunked", "flash")
-FLASH_MIN_KEYS = 513  # dense wins below the logit-memory crossover
+FLASH_MIN_KEYS = 513  # the JAX module's: dense wins below the TPU's logit-memory crossover
+# the H100's, from tools/attn_crossover.py (forward plus backward, N = 4,000
+# rows of d = 24): flash kernels 5-7 beat the dense chain at every key count
+# from 65 on in bf16 and f32 (0.9x of its time at 65, 0.2-0.4x at 257); at 33
+# keys f32 ties, and at 5 keys and 4AA's 128,000 f32 rows flash takes 2.8x
+CUDA_FLASH_MIN_KEYS = 65
 
 
-def resolve_impl(impl: str, num_keys: int) -> str:
-    """The JAX module's choice of inner loop for ``num_keys`` keys."""
+def resolve_impl(impl: str, num_keys: int, cuda: bool = False, dense_only: bool = False) -> str:
+    """The inner loop for ``num_keys`` keys (the bias key included): "auto"
+    and "flash" take flash from ``CUDA_FLASH_MIN_KEYS`` keys on a CUDA
+    device, from the JAX module's ``FLASH_MIN_KEYS`` elsewhere, and dense
+    below; ``dense_only`` (dropout, keys gathered over sp, a forward-mode
+    tangent below ``FLASH_MIN_KEYS`` keys) forces dense."""
+    if dense_only:
+        return "dense"
     if impl in ("auto", "flash"):
-        return "flash" if num_keys >= FLASH_MIN_KEYS else "dense"
+        return "flash" if num_keys >= (CUDA_FLASH_MIN_KEYS if cuda else FLASH_MIN_KEYS) else "dense"
     return impl
 
 
@@ -103,6 +122,7 @@ class RoPEAttention(nn.Module):
         this rank holds heads [i H/tp, (i + 1) H/tp) of ``qkv_proj``,
         ``bias_k`` and ``bias_v`` and the matching columns of ``out_proj``;
         the input's gradient and the output are all-reduced over tp."""
+        from ..ops._common import carries_tangent
         from ..parallel import copy_to, gather_along, reduce_from
 
         squeeze = False
@@ -158,7 +178,12 @@ class RoPEAttention(nn.Module):
             q = q * cos[tuple(sl)] + rotate_half(q) * sin[tuple(sl)]
             k = k * cos + rotate_half(k) * sin
 
-        impl = "dense" if drop is not None or gathered else resolve_impl(self.impl, S + 1)
+        # the kernels have no forward-mode derivative: below the JAX module's
+        # crossover a tangent takes the dense route; from it the kernels refuse it
+        dense_only = (drop is not None or gathered or (
+            S + 1 < FLASH_MIN_KEYS
+            and carries_tangent(x, self.qkv_proj.weight, self.bias_k, self.bias_v)))
+        impl = resolve_impl(self.impl, S + 1, x.device.type == "cuda", dense_only)
         if impl == "dense":
             out = self._dense_attention(q, k, v, mask, axis, drop, shards)
         else:

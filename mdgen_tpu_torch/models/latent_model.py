@@ -23,10 +23,12 @@ serving sublayers (``ops/``): hand-written CUDA kernels on the GPU, their
 plain twins on the CPU; they are forward-only, and the training model is
 built with ``fused_block=False``. Under ``hyena`` the frame sublayer is the
 Hyena operator, unfused. The IPA tower's residue attention stays unfused, as
-in the JAX package. The unfused frame attention takes ``cfg.attn_impl``: at
-the training recipe's T=1000 "auto" picks the flash kernels
-(``ops/flash_attention.py``), forward and backward; the residue attention
-takes "auto" too (flash above 512 residues, when sampling a long protein).
+in the JAX package. The unfused frame attention takes ``cfg.attn_impl``, the
+residue attentions (trunk and tower) "auto": on a CUDA device either picks
+the flash kernels (``ops/flash_attention.py``), forward and backward, from
+``attention.CUDA_FLASH_MIN_KEYS`` keys, so the 4AA recipe's T=1000 frames
+and both axes of an ATLAS crop (256 residues, 250 frames) take them and the
+4AA residue axis stays dense; on the CPU from the JAX package's 513 keys.
 
 Training options: ``dropout`` (on the attention probabilities of every
 attention and IPA, dense route; active only when the caller passes

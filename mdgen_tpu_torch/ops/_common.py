@@ -79,23 +79,28 @@ def tangent_probes(fc=None, fwd=forward_ad):
 _PEEK_TRANSFORM, _IS_WRAPPED = tangent_probes()
 
 
+def carries_tangent(*tensors) -> bool:
+    """Whether any of ``tensors`` is under a ``torch.func`` transform or
+    carries a ``forward_ad`` tangent. Two cheap checks first: no dual level
+    and no transform active."""
+    if forward_ad._current_level < 0 and _PEEK_TRANSFORM() is None:
+        return False
+    return any(isinstance(t, torch.Tensor) and (
+        _IS_WRAPPED(t) or forward_ad.unpack_dual(t).tangent is not None) for t in tensors)
+
+
 def refuse_tangent(name: str, *tensors) -> None:
     """No kernel has a forward-mode derivative: a kernel reads its inputs'
     storage and would drop a tangent (``torch.func.jvp`` runs without grad
     mode, so ``refuse_grad`` does not see it). So every wrapper refuses a
     tensor under a ``torch.func`` transform or carrying a ``forward_ad``
-    tangent, on any device, as the CUDA path would. Two cheap checks first:
-    no dual level and no transform active."""
-    if forward_ad._current_level < 0 and _PEEK_TRANSFORM() is None:
-        return
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and (
-                _IS_WRAPPED(t) or forward_ad.unpack_dual(t).tangent is not None):
-            raise RuntimeError(
-                f"{name} has no forward-mode derivative and refuses a tensor under a "
-                "torch.func transform or with a forward-mode tangent; run the model on the "
-                "dense route (fused_block off, attention over at most 512 keys)"
-            )
+    tangent, on any device, as the CUDA path would."""
+    if carries_tangent(*tensors):
+        raise RuntimeError(
+            f"{name} has no forward-mode derivative and refuses a tensor under a "
+            "torch.func transform or with a forward-mode tangent; run the model on the "
+            "dense route (fused_block off, attention over at most 512 keys)"
+        )
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -314,8 +314,9 @@ class Sampler:
         log p) from the data to the noise with dopri5, euler or heun; the
         divergence is eps . (J eps) by ``torch.func.jvp``. Forward-mode AD
         does not pass the hand-written kernels (their wrappers refuse a
-        tangent): run the model on the dense route (``fused_block`` off, no
-        flash, as at 512 keys or fewer)."""
+        tangent): run the model with ``fused_block`` off and attention over
+        at most 512 keys, where a tangent takes the dense route on any
+        device."""
         t0, t1 = self.transport.check_interval(sde=False, eval=True)
         solvers = {
             "euler": lambda f, s: integrators.ode_euler(f, s, t0, t1, num_steps, stats=stats),

@@ -24,6 +24,12 @@
   the flash route with contiguous rows and a masked padding residue, and
   equals the dense route (1e-5).
 * A config with dropout and grad_checkpointing serves as it trains.
+* The flash route in a checkpointed ATLAS train step (forced here by the
+  CPU rule's crossover, which the card's replaces): every residue and frame
+  attention of the trunk calls the forward twin twice (the forward and the
+  recompute) and the backward twins once, the tower's residue attention
+  once each; loss and gradients equal the dense route's (1e-5, 1e-5
+  relative to each gradient's largest entry: f32 sums in another order).
 """
 import os
 
@@ -152,6 +158,45 @@ def test_checkpointed_train_step_equals_the_plain_one(atlas_dir, dropout, monkey
     for a, b in zip(grads, grads_r):
         assert torch.equal(a, b)
     assert sum(float(g.norm()) for g in grads) > 0
+
+
+def test_checkpointed_train_step_on_the_flash_route(atlas_dir, monkeypatch):
+    import importlib
+
+    from mdgen_tpu_torch.models import attention
+
+    fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
+
+    batch = _atlas_batch(atlas_dir)
+    g = torch.Generator().manual_seed(4)
+    t, x0 = torch.rand(2, generator=g), torch.randn(2, 5, 6, 21, generator=g)
+    cfg = MDGenConfig(**ATLAS, grad_checkpointing=True)
+    counts = {}
+    for name in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+        def counted(*a, _name=name, _real=getattr(fa, name)):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a)
+        monkeypatch.setattr(fa, name, counted)
+    runs = {}
+    for route, least in (("dense", attention.FLASH_MIN_KEYS), ("flash", 2)):
+        monkeypatch.setattr(attention, "FLASH_MIN_KEYS", least)
+        rt = TrainRuntime(cfg)
+        model = rt.init(torch.Generator().manual_seed(0)).model
+        with torch.no_grad():  # open the adaLN-zero gates and the output head
+            for p in model.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(1)))
+        _, grads, metrics = rt._grads(model, batch, t=t, x0=x0)
+        runs[route] = (float(metrics["loss"]), grads, dict(counts))
+        counts.clear()
+    (loss_d, grads_d, counts_d), (loss_f, grads_f, counts_f) = runs["dense"], runs["flash"]
+    layers_ = ATLAS["num_layers"]  # each has a trunk layer and a tower layer
+    assert counts_d == {}
+    assert counts_f == {"flash_fwd_lse": 2 * 2 * layers_ + layers_,
+                        "flash_bwd_dq": 3 * layers_, "flash_bwd_dkv": 3 * layers_}
+    assert np.isfinite(loss_f) and abs(loss_f - loss_d) <= 1e-5 * abs(loss_d)
+    for a, b in zip(grads_f, grads_d):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-12)
+    assert sum(float(g.norm()) for g in grads_f) > 0
 
 
 @pytest.fixture(scope="module")

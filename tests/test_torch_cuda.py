@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card: the three fused serving sublayers, the four flash-attention kernels
-and, at the end of the file, the train step's optimizer pass (the
-gradients' sum of squares and the fused clip, Adam and EMA: bit-equal to
-the eager loop given the same norm). Run there with
+(also in ATLAS's attention and train step, where the card's crossover in
+keys routes both axes to them) and, at the end of the file, the train
+step's optimizer pass (the gradients' sum of squares and the fused clip,
+Adam and EMA: bit-equal to the eager loop given the same norm). Run there
+with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -398,7 +400,8 @@ def test_tps_forward_fused_matches_dense_on_the_card():
     tok = tokenize_atom14({"atom14": atom14.cuda(), "mask": torch.ones(1, 4, device="cuda"),
                            "seqres": torch.from_numpy(rc.str_sequence_to_aatype("ACDE")[None])
                            .long().cuda()})
-    fused, dense, launches = _fused_vs_dense(cfg, sd, tok)
+    # the dense model as the plain reference: "auto" takes kernel 4 at 101 keys on the card
+    fused, dense, launches = _fused_vs_dense(cfg.replace(attn_impl="dense"), sd, tok)
     assert launches[True]["fused_l_sublayer"] == launches[True]["fused_ffn_sublayer"] == 5
     assert launches[True]["fused_t_sublayer"] == 5 and not any(launches[False].values())
     scale = max(dense.abs().max().item(), 1.0)
@@ -459,13 +462,146 @@ def test_design_forward_fused_matches_dense_on_the_card(mode):
                            .cuda(), "mask": torch.ones(2, 4, device="cuda"),
                            "seqres": torch.from_numpy(rc.str_sequence_to_aatype("ACDE")[None])
                            .long().cuda().expand(2, 4)})
-    fused, dense, launches = _fused_vs_dense(cfg, sd, tok)
+    # the dense model as the plain reference: "auto" takes kernel 4 at 101 keys on the card
+    fused, dense, launches = _fused_vs_dense(cfg.replace(attn_impl="dense"), sd, tok)
     assert fused.shape == ((2, 100, 4, 48) if mode == "design" else (2, 1, 4, 20))
     assert all(launches[True][k] == 5 for k in
                ("fused_l_sublayer", "fused_t_sublayer", "fused_ffn_sublayer"))
     assert not any(launches[False].values())
     scale = max(dense.abs().max().item(), 1.0)
     assert torch.isfinite(fused).all() and (fused - dense).abs().max().item() <= 1e-4 * scale
+
+
+# -- the ATLAS recipe's attention on flash kernels 5-7 ---------------------------
+
+ATLAS_T, ATLAS_L, ATLAS_PAD = 250, 256, 40  # frames, residues, padded residues
+# bf16, relative to each tensor's largest entry, against the dense route run in
+# f32 on the same rounded operands: tools/attn_crossover.py read the flash
+# route (f32 logits and probabilities in the kernels) at up to 4.0e-3 and the
+# dense bf16 route (both rounded to bf16) at up to 1.22e-2 on the H100, at
+# these rows (this test: 3.4e-3); a kernel that rounded P to bf16 would fall
+# near the dense route
+ATLAS_ROUTE_TOL = 8e-3
+# the module in bf16 on the flash route against the module in f32 on the
+# dense route: the bf16 rounding of the projections, which the dense bf16
+# route shares, dominates (1.01e-2 on the H100, 1.04e-2 for the dense bf16
+# route on the CPU at T = 25)
+ATLAS_MODULE_TOL = 2e-2
+
+
+@pytest.mark.parametrize("axis", [1, 2], ids=["frames", "residues"])
+def test_rope_attention_flash_matches_dense_at_the_atlas_shape(axis):
+    """RoPEAttention at ATLAS's training shape (B = 1, T = 250, L = 256 with
+    the last 40 residues padded, C = 384, 16 heads, bf16 operands), over the
+    frame axis (251 keys) or the residue axis (257). Its inner routes on
+    roped-like q, k, v with the bias key: the folded flash route (kernels 5-7)
+    against the dense route in f32 on the same operands, the output and the
+    gradients of q, k, v within ATLAS_ROUTE_TOL. The module: "auto" on the
+    card takes kernel 5 forward and kernels 6 and 7 backward, once each,
+    "dense" none; its output and the gradients of the input and of
+    ``qkv_proj.weight`` within ATLAS_MODULE_TOL of the module in f32 on the
+    dense route."""
+    _need_cuda()
+    import copy
+
+    from mdgen_tpu_torch.models.attention import RoPEAttention
+
+    g = torch.Generator().manual_seed(20)
+    mask = torch.ones(1, ATLAS_T, ATLAS_L)
+    mask[:, :, -ATLAS_PAD:] = 0.0
+    mask = mask.cuda()
+    kshape = [1, ATLAS_T, ATLAS_L, H, C // H]
+    kshape[axis] += 1
+    q = (torch.randn(1, ATLAS_T, ATLAS_L, H, C // H, generator=g) * (C // H) ** -0.5)
+    k, v = torch.randn(*kshape, generator=g), torch.randn(*kshape, generator=g)
+    do = torch.randn(1, ATLAS_T, ATLAS_L, H, C // H, generator=g)
+    mshape = [1, ATLAS_T, ATLAS_L]
+    mshape[axis] = 1
+    kmask = torch.cat([mask, torch.ones(mshape, device="cuda")], dim=axis)
+    routes = {}
+    for route, dt in (("flash", torch.bfloat16), ("dense", torch.float32)):
+        leaves = [t.to(torch.bfloat16).to(dt).cuda().requires_grad_(True) for t in (q, k, v)]
+        out = (RoPEAttention._folded_attention(*leaves, kmask, axis, "flash") if route == "flash"
+               else RoPEAttention._dense_attention(*leaves, kmask, axis))
+        routes[route] = [out.detach(), *torch.autograd.grad(out, leaves, do.to(torch.bfloat16)
+                                                            .to(dt).cuda())]
+    del q, k, v, do, leaves, out
+    for name, a, b in zip(("o", "dq", "dk", "dv"), routes["flash"], routes["dense"]):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_max(a, b) <= ATLAS_ROUTE_TOL, (name, _rel_max(a, b))
+    del routes
+
+    attn = RoPEAttention(C, H, dtype=torch.bfloat16)
+    attn.reset_parameters(g)
+    attn.cuda()
+    x = torch.randn(1, ATLAS_T, ATLAS_L, C, generator=g).to(torch.bfloat16).cuda()
+    w = torch.randn(1, ATLAS_T, ATLAS_L, C, generator=g).to(torch.bfloat16).cuda()
+    runs = {}
+    for impl, dt in (("auto", torch.bfloat16), ("dense", torch.bfloat16), ("f32", None)):
+        mod = copy.deepcopy(attn)
+        mod.impl, mod.dtype = ("dense", None) if impl == "f32" else (impl, dt)
+        xx = (x.float() if impl == "f32" else x.clone()).requires_grad_(True)
+        ops.reset_launch_counts()
+        out = mod(xx, mask, axis=axis)
+        out.backward(w.to(out.dtype))
+        torch.cuda.synchronize()
+        runs[impl] = ([out.detach(), xx.grad, mod.qkv_proj.weight.grad],
+                      {k: c for k, c in ops.launch_counts().items() if c})
+        del mod, xx, out
+    assert runs["auto"][1] == {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert runs["dense"][1] == {} and runs["f32"][1] == {}
+    for name, a, b in zip(("out", "dx", "dqkv_w"), runs["auto"][0], runs["f32"][0]):
+        assert torch.isfinite(a).all(), name
+        assert _rel_max(a, b) <= ATLAS_MODULE_TOL, (name, _rel_max(a, b))
+
+
+def _train_grads(T, L, pad, **kw):
+    """The launch counts of one gradient of the 5 x 384 x 16 model (the
+    4AA recipe's options) over one synthetic chain of L - pad residues,
+    padded to L, T frames, seeded weights."""
+    import numpy as np
+
+    from mdgen_tpu_torch.config import MDGenConfig
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import TrainRuntime
+
+    seq = ("ACDEFGHIKLMNPQRSTVWY" * L)[:L - pad]
+    atom14 = np.zeros((1, T, L, 14, 3), np.float32)
+    atom14[0, :, :L - pad] = synthetic_trajectory(seq, T, seed=0)
+    seqres = np.zeros((1, L), np.int64)
+    seqres[0, :L - pad] = rc.str_sequence_to_aatype(seq)
+    mask = np.zeros((1, L), np.float32)
+    mask[0, :L - pad] = 1.0
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             (("atom14", atom14), ("seqres", seqres), ("mask", mask))}
+    cfg = MDGenConfig(sim_condition=True, prepend_ipa=True, abs_pos_emb=True,
+                      abs_time_emb=True, crop=L, num_frames=T, batch_size=1, **kw)
+    rt = TrainRuntime(cfg, "cuda")
+    model = rt.init(torch.Generator().manual_seed(0)).model
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ops.reset_launch_counts()
+    _, grads, metrics = rt._grads(model, batch, generator=g)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"])) and all(torch.isfinite(x).all() for x in grads)
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def test_atlas_train_step_runs_flash_kernels_5_to_7():
+    """One gradient of the mdgen-atlas-34m recipe (crop 256 with 40 padded
+    residues, T = 250, bf16-mixed, grad_checkpointing, 5 layers): kernel 5
+    runs 25 times (the trunk's 10 residue and frame attentions in the
+    forward and again in their checkpointed recompute, and the IPA tower's
+    5 residue attentions, 257 keys, not checkpointed), kernels 6 and 7 15
+    times each (10 trunk, 5 tower), kernel 4 never. The 4AA recipe's step
+    (T = 1000, L = 4, 32-true) keeps its 5 / 5 / 5: the frame attentions
+    alone; the residue attentions' 5 keys stay dense."""
+    _need_cuda()
+    atlas = _train_grads(ATLAS_T, ATLAS_L, ATLAS_PAD, atlas=True, precision="bf16-mixed",
+                         grad_checkpointing=True)
+    assert atlas == {"flash_fwd_lse": 25, "flash_bwd_dq": 15, "flash_bwd_dkv": 15}
+    four = _train_grads(1000, 4, 0)
+    assert four == {"flash_fwd_lse": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
 
 
 # -- tensor and sequence parallelism on one card -------------------------------

@@ -21,6 +21,20 @@ Also: ``chunked_attention`` against JAX's; the ``FlashAttention`` autograd
 function against dense autograd; and ``RoPEAttention`` over 520 frames
 (521 keys, the flash path) against the JAX module's ``impl="auto"``,
 forward and input gradient, under ``jax.default_matmul_precision("highest")``.
+
+The choice of route: off CUDA the JAX module's rule (flash from 513 keys);
+on CUDA the card's crossover (``CUDA_FLASH_MIN_KEYS``), with dropout, keys
+gathered over sp and a forward-mode tangent dense on both, and the module
+passing its device and those conditions to the rule; under
+``torch.func.jvp`` the module over 101 keys takes the dense route under the
+card's rule and equals the dense module, and over 521 keys raises. The
+folded flash route (its plain twin here) against the dense route run in f32
+on the same operands at an ATLAS-like shape (3 of 10 residues padded, the
+bias key), over both axes, forward and the gradients of q, k and v, f32
+(1e-5 relative) and bf16 (8e-3 relative: the flash route keeps the logits
+and probabilities in f32, the dense bf16 route rounds both), and under
+non-reentrant ``torch.utils.checkpoint`` (the recompute calls the flash
+route again; gradients equal to the plain run's).
 """
 import importlib
 
@@ -33,7 +47,8 @@ import torch
 from mdgen_tpu.models.attention import RoPEAttention as JaxAttention
 from mdgen_tpu_torch import ops
 from mdgen_tpu_torch.interop import jax_params_to_state_dict
-from mdgen_tpu_torch.models.attention import RoPEAttention, resolve_impl
+from mdgen_tpu_torch.models import attention
+from mdgen_tpu_torch.models.attention import CUDA_FLASH_MIN_KEYS, RoPEAttention, resolve_impl
 
 # the packages export a function of the module's name: import the modules by name
 fa = importlib.import_module("mdgen_tpu_torch.ops.flash_attention")
@@ -162,6 +177,164 @@ def test_impl_resolution_matches_jax():
         assert resolve_impl(impl, 513) == "flash"
     assert resolve_impl("dense", 1001) == "dense"
     assert resolve_impl("chunked", 10) == "chunked"
+
+
+# (impl, keys with the bias key, dense_only: dropout or sp-gathered keys) -> route on CUDA
+CUDA_RULE = {
+    "4aa_residue": ("auto", 5, False, "dense"),
+    "below_crossover": ("auto", CUDA_FLASH_MIN_KEYS - 1, False, "dense"),
+    "flash_below_crossover": ("flash", CUDA_FLASH_MIN_KEYS - 1, False, "dense"),
+    "crossover": ("auto", CUDA_FLASH_MIN_KEYS, False, "flash"),
+    "atlas_frame": ("auto", 251, False, "flash"),
+    "atlas_residue": ("flash", 257, False, "flash"),
+    "4aa_frame": ("auto", 1001, False, "flash"),
+    "dropout_or_sp": ("auto", 257, True, "dense"),
+    "dropout_or_sp_4aa_frame": ("flash", 1001, True, "dense"),
+    "dense": ("dense", 257, False, "dense"),
+    "chunked": ("chunked", 257, False, "chunked"),
+}
+
+
+@pytest.mark.parametrize("case", list(CUDA_RULE))
+def test_impl_resolution_on_cuda(case):
+    """The card's crossover on CUDA; the same case off CUDA keeps the JAX
+    rule (flash from 513 keys), and dense_only forces dense on both."""
+    impl, keys, dense_only, want = CUDA_RULE[case]
+    assert resolve_impl(impl, keys, cuda=True, dense_only=dense_only) == want
+    off = "dense" if dense_only else resolve_impl(impl, keys)
+    assert resolve_impl(impl, keys, cuda=False, dense_only=dense_only) == off
+    assert 5 < CUDA_FLASH_MIN_KEYS <= 251
+
+
+@pytest.mark.parametrize("case", ["plain", "dropout", "sp", "jvp"])
+def test_module_passes_device_and_dense_only_to_the_rule(case, monkeypatch):
+    """RoPEAttention asks the rule with its input's device and with
+    dense_only set by a dropout, by frame keys gathered over sp (one rank of
+    size 2 here: the gather is stubbed to repeat the local keys) or by a
+    forward-mode tangent (``torch.func.jvp``)."""
+    import mdgen_tpu_torch.parallel as par
+    from mdgen_tpu_torch.models.layers import Dropout
+
+    seen = []
+    real = attention.resolve_impl
+    monkeypatch.setattr(attention, "resolve_impl",
+                        lambda *a: seen.append(a[2:]) or real(*a))
+    kw = {}
+    if case == "dropout":
+        kw["drop"] = Dropout(0.1, 0, "cpu")
+    if case == "sp":
+        class Axis:
+            size, index = 2, 0
+        monkeypatch.setattr(par, "gather_along", lambda t, dim, ax: torch.cat([t, t], dim))
+        kw["sp"] = Axis()
+    mod = RoPEAttention(32, 4)
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 6, 3, 32, generator=torch.Generator().manual_seed(1))
+    if case == "jvp":
+        out, _ = torch.func.jvp(lambda xx: mod(xx, torch.ones(1, 6, 3), axis=1), (x,),
+                                (torch.ones_like(x),))
+    else:
+        out = mod(x, torch.ones(1, 6, 3), axis=1, **kw)
+    assert out.shape == x.shape
+    assert seen == [(False, case != "plain")]
+
+
+def test_forward_mode_ad_takes_the_dense_route(monkeypatch):
+    """Below the JAX module's 513 keys a tangent takes the dense route on
+    any device: under the card's rule (forced here), 101 keys take the
+    flash route without a tangent and the dense one under
+    ``torch.func.jvp`` (as the likelihood runs the model), its output and
+    tangent equal to the dense module's. From 513 keys the flash route
+    refuses the tangent, as it did before the card's rule."""
+    real, real_fa, calls = attention.resolve_impl, ops.flash_attention, []
+    monkeypatch.setattr(attention, "resolve_impl",
+                        lambda impl, n, cuda, dense_only: real(impl, n, True, dense_only))
+    monkeypatch.setattr(ops, "flash_attention", lambda *a: calls.append(a[0].shape) or real_fa(*a))
+    mod = RoPEAttention(32, 4, impl="auto")
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(2)
+    x, dx = torch.randn(1, 520, 2, 32, generator=g), torch.randn(1, 520, 2, 32, generator=g)
+    mask = torch.ones(1, 520, 2)
+    x, dx, mask = x[:, :100], dx[:, :100], mask[:, :100]
+    with torch.no_grad():
+        mod(x, mask, axis=1)
+    assert calls == [(2 * 4, 100, 8)]
+    runs = {}
+    for impl in ("auto", "dense"):
+        mod.impl = impl
+        with torch.no_grad():
+            runs[impl] = torch.func.jvp(lambda xx: mod(xx, mask, axis=1), (x,), (dx,))
+    assert len(calls) == 1
+    for a, b in zip(runs["auto"], runs["dense"]):
+        assert torch.equal(a, b)
+    mod.impl = "auto"
+    x, dx = torch.randn(1, 520, 2, 32, generator=g), torch.randn(1, 520, 2, 32, generator=g)
+    with pytest.raises(RuntimeError, match="no forward-mode derivative"):
+        torch.func.jvp(lambda xx: mod(xx, torch.ones(1, 520, 2), axis=1), (x,), (dx,))
+
+
+def _atlas_like_qkv(axis, dtype, seed=5):
+    """Roped-like q [1, T=6, L=10, H=4, hd=8], k and v with the bias key on
+    ``axis``, the key mask with it (the last 3 residues padded), and a
+    cotangent: the shapes the trunk hands its inner loop."""
+    g = torch.Generator().manual_seed(seed)
+    B, T, L, H, hd = 1, 6, 10, 4, 8
+    kshape = [B, T, L, H, hd]
+    kshape[axis] += 1
+    q = (torch.randn(B, T, L, H, hd, generator=g) * hd**-0.5).to(dtype)
+    k, v = (torch.randn(*kshape, generator=g).to(dtype) for _ in range(2))
+    mask = torch.ones(B, T, L)
+    mask[:, :, -3:] = 0.0
+    mshape = [B, T, L]
+    mshape[axis] = 1
+    mask = torch.cat([mask, torch.ones(mshape)], dim=axis)
+    return q, k, v, mask, torch.randn(B, T, L, H, hd, generator=g).to(dtype)
+
+
+def _route_grads(fn, q, k, v, do):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    return [out.detach(), *torch.autograd.grad(out, leaves, do)]
+
+
+# the folded flash route against the dense route run in f32 on the same
+# (rounded) operands, relative to each tensor's largest entry: in bf16 the
+# flash route keeps the logits and the probabilities in f32 and rounds its
+# outputs alone, below the dense bf16 route's rounding of both
+FOLDED_TOL = {"f32": 1e-5, "bf16": 8e-3}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("axis", [1, 2], ids=["frames", "residues"])
+def test_folded_flash_route_matches_dense_at_an_atlas_like_shape(axis, dtype, monkeypatch):
+    """The folded flash route against the dense route in f32 on the same
+    operands: output and the gradients of q, k and v within FOLDED_TOL;
+    then the same under non-reentrant checkpointing, where the recompute
+    calls ``ops.flash_attention`` again (as kernel 5 runs twice a
+    checkpointed layer on the card)."""
+    from torch.utils.checkpoint import checkpoint
+
+    dt = DTYPES[dtype][1]
+    q, k, v, mask, do = _atlas_like_qkv(axis, dt)
+    calls, real = [], ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda *a: calls.append(a[0].shape) or real(*a))
+
+    def flash(a, b, c):
+        return RoPEAttention._folded_attention(a, b, c, mask, axis, "flash")
+
+    got = _route_grads(flash, q, k, v, do)
+    want = _route_grads(lambda a, b, c: RoPEAttention._dense_attention(a, b, c, mask, axis),
+                        *(t.float() for t in (q, k, v, do)))
+    rows = 1 * 4 * (10 if axis == 1 else 6)
+    assert calls == [(rows, 6 if axis == 1 else 10, 8)]
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        assert a.dtype == dt, name
+        assert _rel(a.float(), b) <= FOLDED_TOL[dtype], (name, _rel(a.float(), b))
+    remat = _route_grads(lambda a, b, c: checkpoint(flash, a, b, c, use_reentrant=False),
+                         q, k, v, do)
+    assert len(calls) == 3  # the plain run's, then the checkpointed forward and its recompute
+    for a, b in zip(remat, got):
+        assert torch.equal(a, b)
 
 
 def test_rope_attention_flash_path_matches_jax():
