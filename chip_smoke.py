@@ -1881,8 +1881,8 @@ def phase_profiles(torch, state_dict, unprofiled_s, smi, upsampling):
     """The torch.profiler sessions, after every timed phase: a session
     leaves the process's host work slower for the rest of its life (a
     training step after one reads slower than before it, in the same
-    process: `tools/train_step_ab.py --after-profiler`). Returns kernel 2's
-    device µs per launch on the upsampling path."""
+    process). Returns kernel 2's device µs per launch on the upsampling
+    path."""
     _launch_split(torch)
     _profile_rollout(state_dict, unprofiled_s, smi)
     return _profile_upsampling_window(torch, *upsampling, smi)

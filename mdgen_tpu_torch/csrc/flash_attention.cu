@@ -57,8 +57,8 @@
 // source): as in the backward, instruction throughput rather than the MMAs
 // is the likely limit (an inference: no stall counters were read). Measured at the
 // recipe shape on an H100 at 700 W: 1.23 ms in f32, 0.68 ms with bf16
-// operands; keeping P in f32 (hi + lo) costs 0.045 ms of the 0.68
-// (tools/flash_fwd_variants.py).
+// operands; keeping P in f32 (hi + lo) costs 0.045 ms of the 0.68 (a build
+// of the kernel with P in bf16, timed against this one).
 //
 // Semantics kept from the JAX kernels:
 //   * the running max starts at finfo(f32).min, not -inf, and a masked key
@@ -84,8 +84,7 @@ namespace mdgen {
 // The forward keeps S (32 floats) and O (DN / 2) in registers across a tile:
 // 4 blocks an SM (at most 128 registers a thread) for every width, none of
 // which spills. At the recipe shape 2 blocks an SM made f32 1.07x slower
-// and 6 (80 registers, spills) bf16 1.03x slower, on an H100 at 700 W
-// (tools/flash_fwd_variants.py).
+// and 6 (80 registers, spills) bf16 1.03x slower, on an H100 at 700 W.
 constexpr int kFwdMinBlocks = 4;
 
 // grid (N, ceil(Tq / 64)), 4 warps, each owning 16 queries; keys streamed in

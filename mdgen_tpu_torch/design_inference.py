@@ -78,7 +78,7 @@ def _sample(rank, device, grid, args, keep_trajectories):
     from .analysis.reference_msm import JaxCacheError, highest_flux_states, load_or_build_msm
     from .data import read_split
     from .geometry import constants as rc
-    from .parallel import pad_batch_to_dp, shard_batch
+    from .parallel.mesh import pad_batch_to_dp, shard_batch
     from .protein import atom14_to_pdb
     from .runtime import MDGenRuntime, checkpoint
 

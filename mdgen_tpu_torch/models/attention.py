@@ -3,9 +3,9 @@
 Semantics kept from the JAX module: one fused qkv projection; q scaled by
 head_dim**-0.5 before RoPE; a learned bias key/value token appended at
 position S (always attendable) and roped there; ESM rotary tables
-([sin|sin] / [cos|cos] over the half-dim frequency grid); masked keys filled
-with ``finfo(f32).min``; softmax in f32 with the probabilities cast back to
-the compute dtype before P·V.
+(``ops.rope_tables``, cached, shared with the fused kernels); masked keys
+filled with ``finfo(f32).min`` (``ops.NEG_INF``); softmax in f32 with the
+probabilities cast back to the compute dtype before P·V.
 
 ``impl`` picks the inner loop: "dense" (einsum logits), "chunked"
 (blockwise online softmax, ``ops.chunked_attention``), "flash"
@@ -13,7 +13,7 @@ the compute dtype before P·V.
 differentiable through their backward kernels) and "auto" (dense below a
 crossover in keys, else flash; "flash" below it is dense too). Off CUDA the
 crossover is the JAX module's, 513 keys, and the "flash" route is the
-kernels' plain twin. On CUDA it is the H100's own, ``CUDA_FLASH_MIN_KEYS``:
+kernels' plain twin. On CUDA it is the H100's own, ``ops.CUDA_FLASH_MIN_KEYS``:
 there the frame axis of the 4AA training recipe (T=1000 frames, 1001 keys)
 and both axes of ATLAS (256 residues and 250 frames, 257 and 251 keys with
 the bias key) take flash, and the 4AA residue axis (5 keys) stays dense.
@@ -32,16 +32,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import ops
+from ..ops import CUDA_FLASH_MIN_KEYS, NEG_INF, carries_tangent, rope_tables, rotate_half
+from ..parallel.distributed import copy_to, gather_along, reduce_from
 from .layers import dense
 
-NEG_INF = torch.finfo(torch.float32).min
 IMPLS = ("auto", "dense", "chunked", "flash")
 FLASH_MIN_KEYS = 513  # the JAX module's: dense wins below the TPU's logit-memory crossover
-# the H100's, from tools/attn_crossover.py (forward plus backward, N = 4,000
-# rows of d = 24): flash kernels 5-7 beat the dense chain at every key count
-# from 65 on in bf16 and f32 (0.9x of its time at 65, 0.2-0.4x at 257); at 33
-# keys f32 ties, and at 5 keys and 4AA's 128,000 f32 rows flash takes 2.8x
-CUDA_FLASH_MIN_KEYS = 65
 
 
 def resolve_impl(impl: str, num_keys: int, cuda: bool = False, dense_only: bool = False) -> str:
@@ -55,22 +52,6 @@ def resolve_impl(impl: str, num_keys: int, cuda: bool = False, dense_only: bool 
     if impl in ("auto", "flash"):
         return "flash" if num_keys >= (CUDA_FLASH_MIN_KEYS if cuda else FLASH_MIN_KEYS) else "dense"
     return impl
-
-
-def rotate_half(x):
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([-x2, x1], dim=-1)
-
-
-def rotary_tables(seq_len: int, dim: int, dtype=torch.float32, device=None):
-    """ESM rotary tables: (sin, cos), each [seq_len, dim]."""
-    inv_freq = 1.0 / (
-        10000 ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
-    )
-    t = torch.arange(seq_len, dtype=torch.float32, device=device)
-    freqs = t[:, None] * inv_freq[None, :]
-    emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.sin(emb).to(dtype), torch.cos(emb).to(dtype)
 
 
 class RoPEAttention(nn.Module):
@@ -118,13 +99,10 @@ class RoPEAttention(nn.Module):
         the bias key once, after the gathered keys, ropes the queries and
         keys at their global frame positions and runs dense, as JAX keeps
         the flash kernels off a sharded frame axis; the residue attention
-        is local. ``self.tp`` (a mesh axis, set by ``parallel.shard_model``):
+        is local. ``self.tp`` (a mesh axis, set by ``parallel.mesh.shard_model``):
         this rank holds heads [i H/tp, (i + 1) H/tp) of ``qkv_proj``,
         ``bias_k`` and ``bias_v`` and the matching columns of ``out_proj``;
         the input's gradient and the output are all-reduced over tp."""
-        from ..ops._common import carries_tangent
-        from ..parallel import copy_to, gather_along, reduce_from
-
         squeeze = False
         if x.ndim == 3:
             x = x[:, None]
@@ -170,7 +148,7 @@ class RoPEAttention(nn.Module):
             mask = torch.cat([mask, torch.ones(mshape, dtype=mask.dtype, device=mask.device)], dim=axis)
 
         if self.use_rope:
-            sin, cos = rotary_tables(S + 1, hd, q.dtype, x.device)
+            sin, cos = rope_tables(S + 1, hd, q.dtype, x.device)
             view = (1, -1, 1, 1, hd) if axis == 1 else (1, 1, -1, 1, hd)
             sin, cos = sin.reshape(view), cos.reshape(view)
             sl = [slice(None)] * 5
@@ -224,9 +202,7 @@ class RoPEAttention(nn.Module):
         the frame axis, and run the flash or chunked inner loop. The key bias
         is 0 / finfo.min from the mask, row n reading mask row n // H.
         Returns [B, T, L, H, hd]."""
-        from ..ops import chunked_attention, flash_attention
-
-        fn = flash_attention if impl == "flash" else chunked_attention
+        fn = ops.flash_attention if impl == "flash" else ops.chunked_attention
         B, T, L, H, hd = q.shape
         S, S_k = q.shape[axis], k.shape[axis]
         # (B, T, L, H, hd) -> (B, other, H, S, hd)

@@ -5,11 +5,10 @@ frame-axis attention.
 Kept from the JAX module: the implicit filter (a sine MLP over the
 complex-exponential positional features, times an exponential decay), the
 order-2 gated recurrence with a depthwise short convolution (kernel 3,
-padding 2 on both sides, cropped to the first T outputs), and ``fftconv``'s
-FFT size 2L, its ``k_f / fft_size`` with ``irfft(norm="forward")`` and its
-``[L-1 : 2L-1]`` crop. The FFTs are ``torch.fft`` (cuFFT on the GPU), as the
-JAX module leaves them to ``jnp.fft``; the filter is computed at every
-forward, as in JAX.
+padding 2 on both sides, cropped to the first T outputs), and the FFT long
+convolution, ``fftconv`` (``ops/long_conv.py``). The FFTs are ``torch.fft``
+(cuFFT on the GPU), as the JAX module leaves them to ``jnp.fft``; the filter
+is computed at every forward, as in JAX.
 
 Dtypes follow flax's promotion for layers without a compute dtype: each
 projection computes in the result type of its input and its parameters
@@ -21,10 +20,9 @@ dtype. Parameter names are the flax tree's (``in_proj``, ``short_filter``,
 (the Conv kernel [3, 1, D] transposes to conv1d's [D, 1, 3]).
 
 Each ``HyenaOperator.forward`` is a ``tracing`` span ``model.hyena``, and
-``fftconv`` counts its calls in ``fftconv.launches`` (``ops.launch_counts``
-reports it under ``fftconv``): one a forward at order 2, none in the
-backward, which autograd runs without calling it (a checkpointed layer's
-recompute calls it again).
+calls ``fftconv`` once at order 2 (``ops.launch_counts`` reports the calls
+under ``fftconv``); the backward, which autograd runs, calls it not at all
+(a checkpointed layer's recompute calls it again).
 """
 from __future__ import annotations
 
@@ -36,21 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import tracing
+from ..ops import fftconv
 from .layers import xavier_
-
-
-def fftconv(u, k, D):
-    """u [B, D, L]; k [D, L]; D (the bias) [D] -> [B, D, L] in u.dtype."""
-    fftconv.launches += 1
-    L = u.shape[-1]
-    fft_size = 2 * L
-    k_f = torch.fft.rfft(k.float(), n=fft_size) / fft_size
-    u_f = torch.fft.rfft(u.float(), n=fft_size)
-    y = torch.fft.irfft(u_f * k_f, n=fft_size, norm="forward")[..., L - 1:2 * L - 1]
-    return (y + u * D[..., None]).to(u.dtype)
-
-
-fftconv.launches = 0
 
 
 def positional_embedding(emb_dim: int, seq_len: int):

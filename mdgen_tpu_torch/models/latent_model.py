@@ -18,17 +18,18 @@ frames broadcast along T) and the raw-atom37 ablation (``no_frames``: the
 tree, so a flax parameter tree converts by renaming and transposing
 (``interop.jax_params_to_state_dict``).
 
-With ``cfg.fused_block`` and L <= 16 each trunk layer runs as three fused
-serving sublayers (``ops/``): hand-written CUDA kernels on the GPU, their
-plain twins on the CPU; they are forward-only, and the training model is
-built with ``fused_block=False``. Under ``hyena`` the frame sublayer is the
-Hyena operator, unfused. The IPA tower's residue attention stays unfused, as
-in the JAX package. The unfused frame attention takes ``cfg.attn_impl``, the
-residue attentions (trunk and tower) "auto": on a CUDA device either picks
-the flash kernels (``ops/flash_attention.py``), forward and backward, from
-``attention.CUDA_FLASH_MIN_KEYS`` keys, so the 4AA recipe's T=1000 frames
-and both axes of an ATLAS crop (256 residues, 250 frames) take them and the
-4AA residue axis stays dense; on the CPU from the JAX package's 513 keys.
+With ``cfg.fused_block`` and L <= 16 (``ops.FUSED_L_MAX_RESIDUES``) each
+trunk layer runs as three fused serving sublayers (``ops/``): hand-written
+CUDA kernels on the GPU, their plain twins on the CPU; they are
+forward-only, and the training model is built with ``fused_block=False``.
+Under ``hyena`` the frame sublayer is the Hyena operator, unfused. The IPA
+tower's residue attention stays unfused, as in the JAX package. The unfused
+frame attention takes ``cfg.attn_impl``, the residue attentions (trunk and
+tower) "auto": on a CUDA device either picks the flash kernels
+(``ops/flash_attention.py``), forward and backward, from
+``ops.CUDA_FLASH_MIN_KEYS`` keys, so the 4AA recipe's T=1000 frames and
+both axes of an ATLAS crop (256 residues, 250 frames) take them and the 4AA
+residue axis stays dense; on the CPU from the JAX package's 513 keys.
 
 Training options: ``dropout`` (on the attention probabilities of every
 attention and IPA, dense route; active only when the caller passes
@@ -51,7 +52,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import ops
 from ..config import torch_dtype
+from ..ops import FUSED_L_MAX_RESIDUES
+from ..parallel.distributed import all_reduce_sum, gather_along
 from ..transport.dirichlet import DirichletConditionalFlow, simplex_proj
 from ..transport.transport import t_to_alpha
 from .attention import RoPEAttention
@@ -168,8 +172,6 @@ class LatentMDGenLayer(nn.Module):
         ``sp`` (a mesh axis): x holds this rank's frames of T, the frame
         attention gathers its keys (``RoPEAttention``) and the Hyena
         operator its whole input."""
-        from ..parallel import gather_along
-
         cfg = self.cfg
         B, T, L, C = x.shape
         dt = self.dt
@@ -186,12 +188,10 @@ class LatentMDGenLayer(nn.Module):
         # and every frame: off under tensor or sequence parallelism
         whole = sp is None and all(getattr(m, "tp", None) is None
                                    for m in (self, self.mha_l, self.mha_t))
-        use_fused = cfg.fused_block and L <= 16 and drop is None and whole
+        use_fused = cfg.fused_block and L <= FUSED_L_MAX_RESIDUES and drop is None and whole
         use_fused_t = use_fused and not cfg.hyena and T <= 1024
         if use_fused:
-            from ..ops import fused_l_sublayer
-
-            x = self._fused_attn(fused_l_sublayer, self.mha_l, x, sh_l, sc_l, g_l, mask)
+            x = self._fused_attn(ops.fused_l_sublayer, self.mha_l, x, sh_l, sc_l, g_l, mask)
         else:
             # the reference reuses one no-affine LN for both attention sublayers
             h = self.mha_l(modulate(layer_norm(x), sh_l, sc_l).to(dt), mask, axis=2, drop=drop,
@@ -199,9 +199,7 @@ class LatentMDGenLayer(nn.Module):
             x = x + g_l[:, None] * h
 
         if use_fused_t:
-            from ..ops import fused_t_sublayer
-
-            x = self._fused_attn(fused_t_sublayer, self.mha_t, x, sh_t, sc_t, g_t, mask)
+            x = self._fused_attn(ops.fused_t_sublayer, self.mha_t, x, sh_t, sc_t, g_t, mask)
         else:
             h = modulate(layer_norm(x), sh_t, sc_t).to(dt)
             if cfg.hyena:
@@ -217,9 +215,7 @@ class LatentMDGenLayer(nn.Module):
             x = x + g_t[:, None] * h
 
         if use_fused:
-            from ..ops import fused_ffn_sublayer
-
-            return fused_ffn_sublayer(
+            return ops.fused_ffn_sublayer(
                 x, sh_m, sc_m, g_m, self.fc1.weight, self.fc1.bias,
                 self.fc2.weight, self.fc2.bias, compute_dtype=dt,
             )
@@ -364,13 +360,11 @@ class LatentMDGenModel(nn.Module):
         (a data-parallel rank), whose masks are drawn and sliced.
 
         Under sequence parallelism (``self.sp``, set by
-        ``parallel.shard_model``) the frame-axis inputs hold this rank's
+        ``parallel.mesh.shard_model``) the frame-axis inputs hold this rank's
         frames of T, and the other inputs (t, the key frames, aatype) are
         whole: the time embedding takes the global frame offsets, the means
         over T all-reduce their sums, and the mpnn modes gather their key
         frames and run the trunk on them whole."""
-        from ..parallel import all_reduce_sum, gather_along
-
         cfg = self.cfg
         nl = cfg.num_layers
         seeds = [None] * (2 * nl)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import copy_to, reduce_from
+
 
 def dense(x: torch.Tensor, lin: nn.Linear, dtype: Optional[torch.dtype] = None):
     """flax ``nn.Dense`` semantics on a torch ``nn.Linear``."""
@@ -93,8 +95,6 @@ def mlp(h: torch.Tensor, fc1: nn.Linear, fc2: nn.Linear, dtype=None, tp=None) ->
     are all-reduced (``reduce_from``) and its bias is added once after."""
     if tp is None:
         return dense(gelu(dense(h, fc1, dtype)), fc2, dtype)
-    from ..parallel import copy_to, reduce_from
-
     dt = dtype or torch.float32
     h = gelu(dense(copy_to(h, tp), fc1, dtype))
     return reduce_from(F.linear(h.to(dt), fc2.weight.to(dt)), tp) + fc2.bias.to(dt)

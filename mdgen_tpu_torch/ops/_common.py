@@ -1,5 +1,7 @@
 """Helpers shared by the kernels' wrappers: the fused sublayers' plain-PyTorch
-math and the checks and argument packing of the CUDA wrappers."""
+math, the rotary tables and masked-key fill that the kernels and
+``models.attention`` share, and the checks and argument packing of the CUDA
+wrappers."""
 from __future__ import annotations
 
 import functools
@@ -7,7 +9,11 @@ import functools
 import torch
 from torch.autograd import forward_ad
 
-from ..models.attention import rotary_tables
+from . import _build
+
+# a masked key's logit (and additive bias): finite, so a fully masked row
+# never gives inf - inf
+NEG_INF = torch.finfo(torch.float32).min
 
 
 def exact_f32() -> None:
@@ -38,11 +44,26 @@ def mm(a, w, dt):
     return torch.matmul(rnd(a, dt), rnd(w, dt).t())
 
 
+def rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
 @functools.lru_cache(maxsize=64)
-def rope_tables(S: int, hd: int, device: torch.device):
-    """f32 (sin, cos) [S, hd], cached per shape and device."""
-    sin, cos = rotary_tables(S, hd, torch.float32, device)
-    return sin.contiguous(), cos.contiguous()
+def rope_tables(S: int, hd: int, dtype: torch.dtype, device: torch.device):
+    """ESM rotary tables (sin, cos), each [S, hd] ([sin|sin] / [cos|cos] over
+    the half-dim frequency grid), computed in f32 and cast to ``dtype``;
+    contiguous, cached per (S, hd, dtype, device) and shared by every
+    caller, so read-only. Built outside inference mode: a table first made
+    while sampling is later saved for backward by a train step."""
+    with torch.inference_mode(False):
+        inv_freq = 1.0 / (
+            10000 ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd)
+        )
+        t = torch.arange(S, dtype=torch.float32, device=device)
+        freqs = t[:, None] * inv_freq[None, :]
+        emb = torch.cat([freqs, freqs], dim=-1)
+        return torch.sin(emb).to(dtype), torch.cos(emb).to(dtype)
 
 
 # -- CUDA wrappers -------------------------------------------------------------
@@ -98,8 +119,8 @@ def refuse_tangent(name: str, *tensors) -> None:
     if carries_tangent(*tensors):
         raise RuntimeError(
             f"{name} has no forward-mode derivative and refuses a tensor under a "
-            "torch.func transform or with a forward-mode tangent; run the model on the "
-            "dense route (fused_block off, attention over at most 512 keys)"
+            "torch.func transform or with a forward-mode tangent; run the model on its "
+            "dense route"
         )
 
 
@@ -159,7 +180,5 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
     ``device``, with ``device`` current: the kernels launch on the CUDA
     runtime's current device, which need not be the operands' (a process on
     ``cuda:1`` that never set its device runs with ``cuda:0`` current)."""
-    from . import _build
-
     with torch.cuda.device(device):
         _build.call(fn_name, *args, torch.cuda.current_stream(device).cuda_stream)

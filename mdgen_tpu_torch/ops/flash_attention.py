@@ -29,10 +29,16 @@ from __future__ import annotations
 
 import torch
 
-from ._common import exact_f32, launch, refuse_tangent
+from ._common import NEG_INF, exact_f32, launch, on_cpu, refuse_tangent
 
-NEG_INF = torch.finfo(torch.float32).min
 MAX_HEAD_DIM = 64
+# the H100's crossover in keys from dense attention to kernels 5-7, from
+# tools/attn_crossover.py (forward plus backward, N = 4,000 rows of d = 24):
+# the kernels beat the dense chain at every key count from 65 on in bf16 and
+# f32 (0.9x of its time at 65, 0.2-0.4x at 257); below it their 64-key tiles
+# run mostly empty (at 33 keys f32 ties, and at 5 keys and 4AA's 128,000 f32
+# rows flash takes 2.8x)
+CUDA_FLASH_MIN_KEYS = 65
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -122,14 +128,6 @@ def chunked_attention(q, k, v, bias, block_k: int = 256):
 # -- CUDA wrappers -------------------------------------------------------------
 
 
-def _on_cpu(q) -> bool:
-    if q.device.type == "cpu":
-        return True
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on CPU (plain) or CUDA, not {q.device}")
-    return False
-
-
 def _check(q, k, v, bias, *rows):
     """q [N, Tq, d], k/v [N, Tk, d] (one dtype, f32 or bf16), bias [N, Tk] f32,
     and each of ``rows`` ([N, Tq] f32 or [N, Tq, d] in q's dtype), all
@@ -182,7 +180,7 @@ def _fwd(fn, q, k, v, bias, with_lse: bool):
 def flash_fwd(q, k, v, bias):
     """o = softmax(q k^T + bias) v in q.dtype (kernel 4)."""
     refuse_tangent("flash_fwd", q, k, v, bias)
-    if _on_cpu(q):
+    if on_cpu(q):
         return flash_attention_plain(q, k, v, bias)[0]
     return _fwd(flash_fwd, q, k, v, bias, with_lse=False)[0]
 
@@ -190,7 +188,7 @@ def flash_fwd(q, k, v, bias):
 def flash_fwd_lse(q, k, v, bias):
     """(o in q.dtype, lse [N, Tq] f32) (kernel 5)."""
     refuse_tangent("flash_fwd_lse", q, k, v, bias)
-    if _on_cpu(q):
+    if on_cpu(q):
         return flash_attention_plain(q, k, v, bias)
     return _fwd(flash_fwd_lse, q, k, v, bias, with_lse=True)
 
@@ -198,7 +196,7 @@ def flash_fwd_lse(q, k, v, bias):
 def flash_bwd_dq(q, k, v, bias, do, lse, delta):
     """dq in q.dtype (kernel 6); ``delta`` from :func:`attention_delta`."""
     refuse_tangent("flash_bwd_dq", q, k, v, bias, do, lse, delta)
-    if _on_cpu(q):
+    if on_cpu(q):
         return flash_bwd_dq_plain(q, k, v, bias, do, lse, delta)
     N, Tq, Tk, d = _check(q, k, v, bias, do, lse, delta)
     dq = torch.empty_like(q)
@@ -215,7 +213,7 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta):
 def flash_bwd_dkv(q, k, v, bias, do, lse, delta):
     """(dk, dv in k's dtype, dbias [N, Tk] f32) (kernel 7)."""
     refuse_tangent("flash_bwd_dkv", q, k, v, bias, do, lse, delta)
-    if _on_cpu(q):
+    if on_cpu(q):
         return flash_bwd_dkv_plain(q, k, v, bias, do, lse, delta)
     N, Tq, Tk, d = _check(q, k, v, bias, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -10,11 +10,14 @@ from __future__ import annotations
 
 import torch
 
-from ..models.attention import NEG_INF, rotate_half
 from ._common import (
-    check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad,
-    rope_tables, same_device, vectors, weights,
+    NEG_INF, check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad,
+    rope_tables, rotate_half, same_device, vectors, weights,
 )
+
+# the most residues the kernel takes (the JAX model's gate too): its shared
+# memory holds L + 1 logits a query (``kMaxL`` in csrc/fused_l_sublayer.cu)
+FUSED_L_MAX_RESIDUES = 16
 
 
 def fused_l_sublayer_plain(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
@@ -39,7 +42,7 @@ def fused_l_sublayer_plain(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
     kb = bias_k.float().reshape(H, hd)
     vb = bias_v.float().reshape(H, hd)
     if use_rope:
-        sin, cos = rope_tables(L + 1, hd, x.device)
+        sin, cos = rope_tables(L + 1, hd, torch.float32, x.device)
         s_, c_ = sin[:L, None], cos[:L, None]  # positions along the L axis
         q = q * c_ + rotate_half(q) * s_
         k = k * c_ + rotate_half(k) * s_
@@ -61,7 +64,8 @@ def fused_l_sublayer_plain(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
 def fused_l_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
                      out_w, out_b, *, num_heads: int, use_rope: bool = True,
                      compute_dtype=torch.bfloat16):
-    """See :func:`fused_l_sublayer_plain` for the contract (L <= 16)."""
+    """See :func:`fused_l_sublayer_plain` for the contract (L <=
+    ``FUSED_L_MAX_RESIDUES``)."""
     refuse_grad("fused_l_sublayer", x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
                 bias_v, out_w, out_b)
     kw = dict(num_heads=num_heads, use_rope=use_rope, compute_dtype=compute_dtype)
@@ -73,7 +77,7 @@ def fused_l_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
     B, T, L, C = x.shape
     H = num_heads
     hd = C // H
-    if (L > 16 or hd * H != C or hd % 2 or C % 8 or qkv_w.shape != (3 * C, C)
+    if (L > FUSED_L_MAX_RESIDUES or hd * H != C or hd % 2 or C % 8 or qkv_w.shape != (3 * C, C)
             or mask.shape != (B, L)):
         raise ValueError("fused_l_sublayer: unsupported shape")
     same_device(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v, out_w, out_b)
@@ -83,7 +87,7 @@ def fused_l_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
         shift, scale, gate, qkv_b, bias_k.reshape(-1), bias_v.reshape(-1), out_b
     )
     mask = mask.float().contiguous()
-    sin, cos = rope_tables(L + 1, hd, x.device)
+    sin, cos = rope_tables(L + 1, hd, torch.float32, x.device)
     y = torch.empty_like(x)
     ao = torch.empty((B * T * L, C), dtype=compute_dtype, device=x.device)  # attention out
     if x.numel():

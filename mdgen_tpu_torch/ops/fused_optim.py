@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from . import _build
 from ._common import launch, on_cpu
 
 CHUNK = 8192  # elements a block
@@ -79,8 +80,6 @@ _COUNTERS: dict = {}
 def max_tensors() -> int:
     """The most tensors one launch takes (256 with CUDA 12.1's 32 KB of
     kernel parameters)."""
-    from . import _build
-
     return _build.build().mdgen_opt_max_tensors()
 
 

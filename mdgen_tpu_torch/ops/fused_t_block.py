@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from ..models.attention import NEG_INF, rotate_half
 from ._common import (
-    check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad, rnd,
-    rope_tables, same_device, vectors, weights,
+    NEG_INF, check_aligned16, check_x, exact_f32, launch, ln_modulate, mm, on_cpu, refuse_grad,
+    rnd, rope_tables, rotate_half, same_device, vectors, weights,
 )
 
 
@@ -37,7 +36,7 @@ def fused_t_sublayer_plain(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k,
     kb = bias_k.float().reshape(H, hd)
     vb = bias_v.float().reshape(H, hd)
     if use_rope:
-        sin, cos = rope_tables(T + 1, hd, x.device)
+        sin, cos = rope_tables(T + 1, hd, torch.float32, x.device)
         s_, c_ = sin[:T, None, None], cos[:T, None, None]  # positions along T
         q = q * c_ + rotate_half(q) * s_
         k = k * c_ + rotate_half(k) * s_
@@ -83,7 +82,7 @@ def fused_t_sublayer(x, shift, scale, gate, mask, qkv_w, qkv_b, bias_k, bias_v,
         shift, scale, gate, qkv_b, bias_k.reshape(-1), bias_v.reshape(-1), out_b
     )
     mask = mask.float().contiguous()
-    sin, cos = rope_tables(T + 1, hd, x.device)
+    sin, cos = rope_tables(T + 1, hd, torch.float32, x.device)
     y = torch.empty_like(x)
     # q, k, v in the flash layout, and the attention output [tokens, C]
     qkv = torch.empty((3, B * L * H, T, hd), dtype=compute_dtype, device=x.device)

@@ -1,4 +1,10 @@
-"""Data, sequence and tensor parallelism over ``torch.distributed``."""
+"""Data, sequence and tensor parallelism over ``torch.distributed``.
+
+The package re-exports ``distributed``: process set-up and the collectives
+the model calls, a leaf of the port that ``models`` imports. The (dp, sp,
+tp) grid and its sharding rules sit above the model, whose tree they know,
+and are imported from ``parallel.mesh``.
+"""
 from .distributed import (  # noqa: F401
     all_reduce_mean,
     all_reduce_sum,
@@ -15,13 +21,4 @@ from .distributed import (  # noqa: F401
     reduce_from,
     shutdown,
     world_size,
-)
-from .mesh import (  # noqa: F401
-    Axis,
-    Grid,
-    make_grid,
-    pad_batch_to_dp,
-    shard_batch,
-    shard_model,
-    sp_size,
 )

@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.attention import RoPEAttention
 from ..ops import sum_of_squares
 from .distributed import _gather, _sum, all_reduce_mean, barrier, process_allgather
 from .distributed import rank as _rank, world_size
@@ -202,8 +203,6 @@ _QKV, _ROWS, _COLS, _HEAD = (0, 3), (0, 1), (1, 1), (2, 1)
 def tp_specs(model: torch.nn.Module, tp: int) -> dict:
     """{parameter name: (dim, blocks)} of the tensors a tp of ``tp`` shards
     (module docstring); every other parameter is replicated."""
-    from ..models.attention import RoPEAttention
-
     specs = {}
     if tp == 1:
         return specs

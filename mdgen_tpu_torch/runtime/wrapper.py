@@ -32,8 +32,10 @@ from ..geometry import (
 )
 from ..geometry import constants as rc
 from ..models import LatentMDGenModel
-from ..parallel import all_reduce_sum, make_grid, shard_model, sp_size, world_size
-from ..parallel.mesh import full_tensors, global_sq_norm, shard_tensors
+from ..parallel import all_reduce_sum, world_size
+from ..parallel.mesh import (
+    full_tensors, global_sq_norm, make_grid, shard_model, shard_tensors, sp_size,
+)
 from ..tasks import decode_latents, prep_batch
 from ..transport import Sampler, Transport, TransportConfig
 from ..transport.dirichlet import sample_dirichlet
@@ -274,7 +276,7 @@ class TrainRuntime:
         the model's inputs and of x0, and the loss sums its numerator and
         denominator over sp (``mean_flat``), so every sp rank holds the
         whole loss;
-      * tp: the model's projections are sharded (``parallel.shard_model``),
+      * tp: the model's projections are sharded (``parallel.mesh.shard_model``),
         and every tp rank holds the whole loss too.
     The autograd collectives sum every rank's share of a gradient, so the
     gradients are averaged over the dp x sp plane (one all-reduce per dtype,

@@ -85,7 +85,7 @@ def run_ranks(args, fn, *extra):
 
 
 def _on_grid(rank, device, world, fn, args, *extra):
-    from .parallel import make_grid
+    from .parallel.mesh import make_grid
 
     records = fn(rank, device, make_grid(world), args, *extra)
     if args.record:
@@ -108,7 +108,7 @@ def main(argv=None, keep_trajectories: bool = False):
 def _sample(rank, device, grid, args, keep_trajectories):
     from .data import read_split
     from .geometry import constants as rc
-    from .parallel import pad_batch_to_dp, shard_batch
+    from .parallel.mesh import pad_batch_to_dp, shard_batch
     from .protein import save_trajectory
     from .runtime import MDGenRuntime, checkpoint
 

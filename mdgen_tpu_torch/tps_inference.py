@@ -73,7 +73,7 @@ def _sample(rank, device, grid, args, keep_trajectories):
     from .analysis.reference_msm import load_or_build_msm, lowest_flux_states
     from .data import read_split
     from .geometry import constants as rc
-    from .parallel import pad_batch_to_dp, shard_batch
+    from .parallel.mesh import pad_batch_to_dp, shard_batch
     from .protein import save_trajectory
     from .runtime import MDGenRuntime, checkpoint
 

@@ -134,7 +134,7 @@ def main(argv=None) -> dict:
 
 def _train_rank(rank, device, args, cfg, plan) -> dict:
     """Rank ``rank`` of the run, on ``device``, in its process group."""
-    from .parallel import make_grid
+    from .parallel.mesh import make_grid
 
     rec = _train(args, cfg, device, rank, make_grid(plan.dp, plan.sp, plan.tp))
     if args.record:

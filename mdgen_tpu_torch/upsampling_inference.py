@@ -65,7 +65,7 @@ def main(argv=None, keep_trajectories: bool = False):
 def _sample(rank, device, grid, args, keep_trajectories):
     from .data import read_split
     from .geometry import constants as rc
-    from .parallel import pad_batch_to_dp, shard_batch
+    from .parallel.mesh import pad_batch_to_dp, shard_batch
     from .protein import save_trajectory
     from .runtime import MDGenRuntime, checkpoint, tokenize_atom14
     from .tasks import build_upsampling_windows, pad_window_groups

@@ -212,7 +212,6 @@ def test_module_passes_device_and_dense_only_to_the_rule(case, monkeypatch):
     dense_only set by a dropout, by frame keys gathered over sp (one rank of
     size 2 here: the gather is stubbed to repeat the local keys) or by a
     forward-mode tangent (``torch.func.jvp``)."""
-    import mdgen_tpu_torch.parallel as par
     from mdgen_tpu_torch.models.layers import Dropout
 
     seen = []
@@ -225,7 +224,7 @@ def test_module_passes_device_and_dense_only_to_the_rule(case, monkeypatch):
     if case == "sp":
         class Axis:
             size, index = 2, 0
-        monkeypatch.setattr(par, "gather_along", lambda t, dim, ax: torch.cat([t, t], dim))
+        monkeypatch.setattr(attention, "gather_along", lambda t, dim, ax: torch.cat([t, t], dim))
         kw["sp"] = Axis()
     mod = RoPEAttention(32, 4)
     mod.reset_parameters(torch.Generator().manual_seed(0))

@@ -111,7 +111,8 @@ _WORKER = textwrap.dedent("""
     sys.path.insert(0, sys.argv[1])
     import test_torch_mesh as tm
     from mdgen_tpu_torch.config import MDGenConfig
-    from mdgen_tpu_torch.parallel import init_distributed, local_batch_slice, make_grid, shutdown
+    from mdgen_tpu_torch.parallel import init_distributed, local_batch_slice, shutdown
+    from mdgen_tpu_torch.parallel.mesh import make_grid
     from mdgen_tpu_torch.runtime import TrainRuntime, checkpoint
 
     addr, rank, work = sys.argv[2], int(sys.argv[3]), sys.argv[4]
@@ -317,7 +318,7 @@ def test_pad_batch_to_dp_is_the_jax_helper():
     from mdgen_tpu.parallel import make_mesh
     from mdgen_tpu.parallel import pad_batch_to_dp as jax_pad
 
-    from mdgen_tpu_torch.parallel import Axis, Grid, pad_batch_to_dp
+    from mdgen_tpu_torch.parallel.mesh import Axis, Grid, pad_batch_to_dp
 
     grid = Grid(dp=Axis(8, 0))
     batch = {"atom14": np.arange(3 * 2 * 4, dtype=np.float32).reshape(3, 2, 4),
@@ -348,7 +349,7 @@ def test_shard_batch_holds_the_jax_device_shards():
     from mdgen_tpu.parallel import make_mesh
     from mdgen_tpu.parallel import shard_batch as jax_shard_batch
 
-    from mdgen_tpu_torch.parallel import Axis, Grid, shard_batch
+    from mdgen_tpu_torch.parallel.mesh import Axis, Grid, shard_batch
 
     B, T, L = 4, 8, 4
     rng = np.random.default_rng(0)
@@ -374,8 +375,7 @@ def test_tp_shards_gather_to_the_whole_tensor():
     """Every tensor ``tp_specs`` names, sliced by ``shard_tensor`` for each
     tp index and joined back by ``join_shards``, is the whole tensor; the q, k and v rows of a rank are its heads'."""
     from mdgen_tpu_torch.models import LatentMDGenModel
-    from mdgen_tpu_torch.parallel import Axis
-    from mdgen_tpu_torch.parallel.mesh import join_shards, shard_tensor, tp_specs
+    from mdgen_tpu_torch.parallel.mesh import Axis, join_shards, shard_tensor, tp_specs
 
     cfg = MDGenConfig(**dict(CASES["sim"], design=True, inpainting=True, sim_condition=False))
     model = LatentMDGenModel(cfg, cfg.latent_dim).reset_parameters(
