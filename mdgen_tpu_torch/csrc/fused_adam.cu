@@ -26,6 +26,9 @@
 //     last block of the launch to finish (an integer counter, which that
 //     block resets) sums every partial in index order: no float atomics,
 //     and the same bits from run to run;
+//   * the bias corrections 1 - b1^count and 1 - b2^count are read from
+//     device memory (two floats the host fills before each launch), so a
+//     CUDA graph that captured the launch applies each replay's own step;
 //   * apply: each element's clip, Adam and EMA in registers, in the f32
 //     operations and order of the eager loop, each rounded as PyTorch's
 //     elementwise kernels round it (the _rn intrinsics, so nvcc contracts
@@ -63,12 +66,11 @@ struct AdamTable {
 };
 
 // The eager loop's Python scalars, each rounded to f32 as PyTorch rounds a
-// scalar operand.
+// scalar operand; the step's bias corrections come from device memory.
 struct AdamScalars {
   float clip;      // the global norm the gradients are clipped to
   float c1, b1;    // 1 - b1, b1
   float c2, b2;    // 1 - b2, b2
-  float bc1, bc2;  // 1 - b1^count, 1 - b2^count (f32 on the host)
   float eps, wd, neg_lr;
   float ema_d, ema_c;  // decay, 1 - decay
 };
@@ -157,11 +159,12 @@ sum_squares_kernel(const __grid_constant__ SumTable t, double* __restrict__ part
 //   u = (mu / bc1) / (sqrt(nu / bc2) + eps);  [u = u + wd * p]
 //   p = p + (-lr) * u
 __device__ __forceinline__ void adam_element(float g, float& p, float& m, float& v,
-                                             const AdamScalars& s, float norm, bool keep) {
+                                             const AdamScalars& s, float bc1, float bc2,
+                                             float norm, bool keep) {
   if (!keep) g = __fmul_rn(__fdiv_rn(g, norm), s.clip);
   m = __fadd_rn(__fmul_rn(s.c1, g), __fmul_rn(s.b1, m));
   v = __fadd_rn(__fmul_rn(s.c2, __fmul_rn(g, g)), __fmul_rn(s.b2, v));
-  float u = __fdiv_rn(__fdiv_rn(m, s.bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.bc2)), s.eps));
+  float u = __fdiv_rn(__fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), s.eps));
   if (s.wd != 0.f) u = __fadd_rn(u, __fmul_rn(s.wd, p));
   p = __fadd_rn(p, __fmul_rn(s.neg_lr, u));
 }
@@ -174,7 +177,7 @@ __device__ __forceinline__ float ema_element(float e, float p, const AdamScalars
 template <bool kEma>
 __global__ void __launch_bounds__(kOptThreads)
 fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s,
-                  const float* __restrict__ norm_ptr) {
+                  const float* __restrict__ norm_ptr, const float* __restrict__ bc) {
   const int i = tensor_of_block(t, blockIdx.x);
   const long long start = (long long)(blockIdx.x - t.first[i]) * t.chunk;
   const int len = (int)min((long long)t.chunk, t.n[i] - start);
@@ -185,6 +188,7 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s,
   float* e = kEma ? t.ema[i] + start : nullptr;
   const float norm = *norm_ptr;
   const bool keep = norm < s.clip;
+  const float bc1 = bc[0], bc2 = bc[1];
   int done = 0;
   if (aligned16(p) && aligned16(g) && aligned16(mu) && aligned16(nu) && aligned16(e)) {
     const int n4 = len >> 2;
@@ -193,10 +197,10 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s,
       float4 pv = reinterpret_cast<float4*>(p)[k];
       float4 mv = reinterpret_cast<float4*>(mu)[k];
       float4 vv = reinterpret_cast<float4*>(nu)[k];
-      adam_element(gv.x, pv.x, mv.x, vv.x, s, norm, keep);
-      adam_element(gv.y, pv.y, mv.y, vv.y, s, norm, keep);
-      adam_element(gv.z, pv.z, mv.z, vv.z, s, norm, keep);
-      adam_element(gv.w, pv.w, mv.w, vv.w, s, norm, keep);
+      adam_element(gv.x, pv.x, mv.x, vv.x, s, bc1, bc2, norm, keep);
+      adam_element(gv.y, pv.y, mv.y, vv.y, s, bc1, bc2, norm, keep);
+      adam_element(gv.z, pv.z, mv.z, vv.z, s, bc1, bc2, norm, keep);
+      adam_element(gv.w, pv.w, mv.w, vv.w, s, bc1, bc2, norm, keep);
       reinterpret_cast<float4*>(p)[k] = pv;
       reinterpret_cast<float4*>(mu)[k] = mv;
       reinterpret_cast<float4*>(nu)[k] = vv;
@@ -213,7 +217,7 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s,
   }
   for (int k = done + threadIdx.x; k < len; k += kOptThreads) {
     float pk = p[k], mk = mu[k], vk = nu[k];
-    adam_element(g[k], pk, mk, vk, s, norm, keep);
+    adam_element(g[k], pk, mk, vk, s, bc1, bc2, norm, keep);
     p[k] = pk;
     mu[k] = mk;
     nu[k] = vk;
@@ -264,10 +268,12 @@ extern "C" int mdgen_sum_squares(const long long* ptrs, const long long* numel, 
 }
 
 // One launch over n tensors: ptrs holds five rows of n pointers (p, g, mu,
-// nu, ema; the last row is ignored without an EMA), scalars the 12 floats of
-// AdamScalars in order, norm the device's global norm of the gradients.
+// nu, ema; the last row is ignored without an EMA), scalars the 10 floats of
+// AdamScalars in order, norm the device's global norm of the gradients and
+// bc the device's two bias corrections (1 - b1^count, 1 - b2^count).
 extern "C" int mdgen_fused_adam(const long long* ptrs, const long long* numel, int n, int chunk,
-                                const float* norm, const float* scalars, int ema, void* stream) {
+                                const float* norm, const float* bc, const float* scalars, int ema,
+                                void* stream) {
   using namespace mdgen;
   AdamTable t;
   if (!fill_table(t, numel, n, chunk)) return (int)cudaErrorInvalidValue;
@@ -278,13 +284,13 @@ extern "C" int mdgen_fused_adam(const long long* ptrs, const long long* numel, i
     t.nu[i] = reinterpret_cast<float*>(ptrs[3 * n + i]);
     t.ema[i] = ema ? reinterpret_cast<float*>(ptrs[4 * n + i]) : nullptr;
   }
-  static_assert(sizeof(AdamScalars) == 12 * sizeof(float), "AdamScalars is 12 packed floats");
+  static_assert(sizeof(AdamScalars) == 10 * sizeof(float), "AdamScalars is 10 packed floats");
   AdamScalars s;
   memcpy(&s, scalars, sizeof s);
   const int blocks = t.first[n];
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (ema) fused_adam_kernel<true><<<blocks, kOptThreads, 0, st>>>(t, s, norm);
-  else fused_adam_kernel<false><<<blocks, kOptThreads, 0, st>>>(t, s, norm);
+  if (ema) fused_adam_kernel<true><<<blocks, kOptThreads, 0, st>>>(t, s, norm, bc);
+  else fused_adam_kernel<false><<<blocks, kOptThreads, 0, st>>>(t, s, norm, bc);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,7 @@ from .rigid import (  # noqa: F401
 )
 from .frames import (  # noqa: F401
     atom14_to_atom37,
+    atom37_mask_table,
     atom14_to_frames,
     atom37_to_atom14,
     atom37_to_torsions,

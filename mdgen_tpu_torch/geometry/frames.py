@@ -38,6 +38,12 @@ def _table(name: str, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def atom37_mask_table(device: torch.device) -> torch.Tensor:
+    """Each residue type's atom37 mask [21, 37] f32 on ``device``, made
+    once (read-only)."""
+    return _table("a37_mask", device)
+
+
 def _gather_atoms(pos, idx):
     """pos [..., A, 3], idx [..., M] -> [..., M, 3]."""
     return torch.gather(pos, -2, idx[..., None].expand(*idx.shape, 3))

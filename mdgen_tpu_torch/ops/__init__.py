@@ -30,6 +30,7 @@ from .flash_attention import (  # noqa: F401
 from .fused_optim import (  # noqa: F401
     fused_adam,
     fused_adam_plain,
+    load_bias_corrections,
     sum_of_squares,
     sum_of_squares_plain,
 )
@@ -54,3 +55,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in COUNTED}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Credit ``counts`` ({name: launches}, as ``launch_counts`` names them):
+    the launches of a replayed CUDA graph, which no wrapper sees."""
+    for fn in COUNTED:
+        fn.launches += counts.get(fn.__name__, 0)

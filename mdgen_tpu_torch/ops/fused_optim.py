@@ -7,7 +7,10 @@ CPU tensors take the plain versions, which are the eager loop the train step
 ran before the kernel; CUDA tensors take ``csrc/fused_adam.cu`` (one launch
 each for up to ``max_tensors()`` tensors; or raise). Neither reads the
 device from the host: the norm stays a device tensor that the update reads,
-and the bias corrections are f32 scalars computed on the host. The kernel's
+and the bias corrections are f32 values computed on the host and filled
+into two floats of device memory that the update reads when it runs
+(:func:`load_bias_corrections`), so a CUDA graph that captured the launch
+applies each replay's own step. The kernel's
 p, mu, nu and EMA are bit-equal to the plain version's on the card given
 the same norm; its sum of squares is taken in another, fixed order (f64
 across blocks), so the norm agrees to rounding and repeats bit for bit.
@@ -74,6 +77,8 @@ def fused_adam_plain(params, grads, mu, nu, ema, norm, *, count: int, lr: float,
 # device -> the sum's block counter: zero between calls, which therefore run
 # in the order of one stream on a device
 _COUNTERS: dict = {}
+# device -> the bias corrections of a call given none, filled before its launch
+_CORRECTIONS: dict = {}
 
 
 @functools.lru_cache(maxsize=1)
@@ -131,12 +136,24 @@ def sum_of_squares(tensors, root: bool = False) -> torch.Tensor:
     return out[1] if root else out[0]
 
 
+def load_bias_corrections(out: torch.Tensor, b1: float, b2: float, count: int) -> torch.Tensor:
+    """Fill ``out`` (two f32 on the card) with :func:`bias_corrections`'
+    values at ``count``: two fills, no copy from the host and no wait."""
+    bc1, bc2 = bias_corrections(b1, b2, count)
+    out[0].fill_(float(bc1))
+    out[1].fill_(float(bc2))
+    return out
+
+
 def fused_adam(params, grads, mu, nu, ema, norm, *, count: int, lr: float, grad_clip: float,
                b1: float, b2: float, eps: float, weight_decay: float,
-               ema_decay: float) -> None:
+               ema_decay: float, corrections: torch.Tensor | None = None) -> None:
     """See :func:`fused_adam_plain`. On the card: one launch for up to
     ``max_tensors()`` tensors; ``norm`` a 0-dim f32 tensor on their device,
-    read there."""
+    read there, and so are the bias corrections: ``corrections``, two f32
+    there that the caller has filled (:func:`load_bias_corrections`; then
+    ``count`` is not read), else this device's own pair, filled at ``count``
+    before the launch. Calls on a device run in the order of one stream."""
     if on_cpu(params[0]):
         fused_adam_plain(params, grads, mu, nu, ema, norm, count=count, lr=lr,
                          grad_clip=grad_clip, b1=b1, b2=b2, eps=eps,
@@ -148,17 +165,24 @@ def fused_adam(params, grads, mu, nu, ema, norm, *, count: int, lr: float, grad_
         raise ValueError("fused_adam: params, grads, mu, nu (and ema) must match tensor "
                          "for tensor")
     dev = params[0].device
-    _checked(dev, rows + [[norm]])
-    if norm.numel() != 1:
-        raise ValueError("fused_adam: norm must be one value")
-    bc1, bc2 = bias_corrections(b1, b2, count)
-    scalars = np.array([grad_clip, 1 - b1, b1, 1 - b2, b2, float(bc1), float(bc2), eps,
-                        weight_decay, -lr, ema_decay, 1 - ema_decay], dtype=np.float32)
+    own = corrections is None
+    if own:
+        if dev not in _CORRECTIONS:
+            _CORRECTIONS[dev] = torch.empty(2, dtype=torch.float32, device=dev)
+        corrections = _CORRECTIONS[dev]
+    _checked(dev, rows + [[norm, corrections]])
+    if norm.numel() != 1 or corrections.numel() != 2:
+        raise ValueError("fused_adam: norm must be one value and corrections two")
+    if own:
+        load_bias_corrections(corrections, b1, b2, count)
+    scalars = np.array([grad_clip, 1 - b1, b1, 1 - b2, b2, eps, weight_decay, -lr, ema_decay,
+                        1 - ema_decay], dtype=np.float32)
     if ema is None:
         rows = rows + [params]  # an unread row
     for ptrs, sizes, n in _launch_groups(rows):
         launch("mdgen_fused_adam", dev, ptrs.ctypes.data, sizes.ctypes.data, n, CHUNK,
-               norm.data_ptr(), scalars.ctypes.data, int(ema is not None))
+               norm.data_ptr(), corrections.data_ptr(), scalars.ctypes.data,
+               int(ema is not None))
         fused_adam.launches += 1
 
 

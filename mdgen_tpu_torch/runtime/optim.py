@@ -61,15 +61,17 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict,
-             norm=None, ema=None) -> None:
+             norm=None, ema=None, corrections=None) -> None:
         """Update ``params``, ``state`` and the EMA copy ``ema`` (tensors like
         ``params``, or None) in place from one micro-batch's gradients.
         ``norm``: their global norm where the caller has it (else
         ``self.norm(grads)``); the k-th call of MultiSteps clips by the norm
         of the running mean instead. The EMA follows the parameters on every
-        call."""
+        call. ``corrections``: the update's bias corrections on the card,
+        filled by the caller (``ops.fused_adam``)."""
         if self.k == 1:
-            self._apply(params, grads, state, self.norm(grads) if norm is None else norm, ema)
+            self._apply(params, grads, state, self.norm(grads) if norm is None else norm, ema,
+                        corrections)
             return
         n = state["mini_step"]
         for acc, g in zip(state["acc"], grads):
@@ -83,12 +85,13 @@ class Optimizer:
             ema_update_plain(ema, params, self.ema_decay)
         state["mini_step"] = (n + 1) % self.k
 
-    def _apply(self, params, grads, state, norm, ema) -> None:
+    def _apply(self, params, grads, state, norm, ema, corrections=None) -> None:
         """Clip, Adam and the EMA in one pass (``ops.fused_adam``)."""
         count = state["count"] + 1
         ops.fused_adam(params, grads, state["mu"], state["nu"], ema, norm, count=count,
                        lr=self.lr, grad_clip=self.grad_clip, b1=self.b1, b2=self.b2,
-                       eps=self.eps, weight_decay=self.weight_decay, ema_decay=self.ema_decay)
+                       eps=self.eps, weight_decay=self.weight_decay, ema_decay=self.ema_decay,
+                       corrections=corrections)
         state["count"] = count
 
 

@@ -12,25 +12,29 @@ host), decodes the latents to atom14 and re-tokenizes the
 last frame for the next rollout. A train step tokenizes the raw atom14
 batch on the device, takes the flow-matching loss and its gradient with
 autograd (at T=1000 through the flash kernels' backward), and applies the
-optax-equivalent optimizer (``optim.py``) and the EMA.
+optax-equivalent optimizer (``optim.py``) and the EMA. On one CUDA device
+that whole step is captured once as a CUDA graph and replayed
+(``TrainRuntime.train_step``), so the host launches one graph a step
+instead of some thousands of kernels.
 """
 from __future__ import annotations
 
 import copy
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from .. import tracing
+from .. import ops, tracing
 from ..geometry import (
     atom14_to_atom37,
     atom14_to_frames,
+    atom37_mask_table,
     atom37_to_atom14,
     atom37_to_torsions,
     frames_torsions_to_atom14,
 )
-from ..geometry import constants as rc
 from ..models import LatentMDGenModel
 from ..parallel import all_reduce_sum, world_size
 from ..parallel.mesh import (
@@ -71,7 +75,7 @@ def tokenize_atom14(batch: dict, drop_left_context: bool = False) -> dict:
     atom37 = atom14_to_atom37(atom14, aatype_btl)
     atom37_mask = None
     if drop_left_context:
-        a37 = torch.as_tensor(rc.RESTYPE_ATOM37_MASK, dtype=torch.float32, device=atom14.device)
+        a37 = atom37_mask_table(atom14.device)
         atom37_mask = a37[aatype_btl.long()] * mask[:, None, :, None]
     torsions, torsion_mask = atom37_to_torsions(atom37, aatype_btl, all_atom_mask=atom37_mask)
     if drop_left_context:
@@ -101,21 +105,27 @@ def tokenize_no_frames(batch: dict) -> dict:
     seqres = batch["seqres"]
     B, T, L = atom14.shape[:3]
     atom37 = atom14_to_atom37(atom14, seqres[:, None].expand(B, T, L))
-    a37 = torch.as_tensor(rc.RESTYPE_ATOM37_MASK, dtype=torch.float32, device=atom14.device)
-    return {"atom37": atom37, "seqres": seqres, "mask": a37[seqres.long()]}
+    return {"atom37": atom37, "seqres": seqres,
+            "mask": atom37_mask_table(atom14.device)[seqres.long()]}
+
+
+def has_left_context(cfg, batch: dict) -> bool:
+    """Whether ``tokenize`` drops a raw batch's first column: an ATLAS
+    batch ``crop + 1`` wide carries the left-context column (detected by
+    shape, as the JAX runtime does)."""
+    return not cfg.no_frames and cfg.atlas and batch["atom14"].shape[2] == cfg.crop + 1
 
 
 def tokenize(cfg, batch: dict) -> dict:
     """The runtime's tokenizer: a raw batch (atom14) is tokenized on its
     device, a token dict passes through. ``no_frames`` takes atom37; an
-    ATLAS batch whose width is ``crop + 1`` carries the left-context column
-    (detected by shape, as the JAX runtime does) and drops it."""
+    ATLAS batch with its left-context column (``has_left_context``) drops
+    it."""
     if "atom14" not in batch:
         return batch
     if cfg.no_frames:
         return tokenize_no_frames(batch)
-    drop_ctx = cfg.atlas and batch["atom14"].shape[2] == cfg.crop + 1
-    return tokenize_atom14(batch, drop_left_context=drop_ctx)
+    return tokenize_atom14(batch, drop_left_context=has_left_context(cfg, batch))
 
 
 def inference_param_cast(cfg, model: LatentMDGenModel) -> LatentMDGenModel:
@@ -260,6 +270,26 @@ class TrainState:
 
 # model kwargs with a frame axis (axis 1), sliced to a rank's frames under sp
 _FRAME_KWARGS = ("mask", "x_cond", "x_cond_mask")
+# the raw batch a captured train step reads (beside its draws)
+_GRAPH_BATCH = ("atom14", "seqres", "mask")
+# free device memory a capture needs, in the eager step's own peaks
+GRAPH_MEMORY_ROOM = 1.1
+
+
+@dataclass
+class StepGraph:
+    """One train step captured as a CUDA graph: the buffers it reads (the
+    raw batch and the draws; ``corrections``, kernel 8's two bias
+    corrections) and writes (``metrics``), the change in
+    ``ops.launch_counts()`` that one step makes, and the objects whose
+    addresses it holds (``held``: their identities are in ``key``)."""
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: dict
+    corrections: torch.Tensor
+    metrics: dict
+    launches: dict
+    held: tuple
 
 
 class TrainRuntime:
@@ -283,7 +313,11 @@ class TrainRuntime:
     ``grid.data``) before the norm, the clip, the optimizer and the EMA;
     the tp ranks' replicated parameters then stay equal, and the norm
     counts each tp shard once. The metrics are averaged over that plane
-    too. One rank runs no collective."""
+    too. One rank runs no collective.
+
+    On one CUDA device a train step is replayed from a CUDA graph
+    (``train_step``, ``graph_counts``); the graph is this object's and goes
+    with it."""
 
     def __init__(self, cfg, device="cpu", grid=None):
         self.cfg = cfg
@@ -292,10 +326,17 @@ class TrainRuntime:
         # the fused sublayers are forward-only: never in the training model
         self.model_cfg = cfg.replace(fused_block=False)
         self.transport = Transport(transport_config(cfg))
-        self.tx = Optimizer.from_config(cfg, norm=self._global_norm)
+        # the norm reaches this object weakly: no cycle keeps it, and its
+        # graph's memory, alive once its caller lets it go
+        norm = weakref.WeakMethod(self._global_norm)
+        self.tx = Optimizer.from_config(cfg, norm=lambda grads: norm()(grads))
         self.specs, self.sharded = {}, []  # of the model, set by init
         sp = self.grid.sp
         self._reduce = (lambda t: all_reduce_sum(t, sp)) if sp_size(self.grid) > 1 else None
+        self._graph: Optional[StepGraph] = None
+        self._seen = (None, 0)  # key and memory peak of the last eager step that could be captured
+        self._refused = None  # a key whose capture found too little free memory
+        self._counts = {"captures": 0, "replays": 0, "eager_steps": 0}
 
     def init(self, generator: Optional[torch.Generator] = None,
              state_dict: Optional[dict] = None) -> TrainState:
@@ -416,15 +457,148 @@ class TrainRuntime:
         (the global batch's, averaged over ranks), and the norm the clip
         uses when every call applies. The optimizer moves the EMA in the
         same pass. Its phases are spans (``tracing``) that share
-        ``state.step`` on entry."""
+        ``state.step`` on entry.
+
+        A step that ``_graphable`` admits draws t, x0 (and the design
+        simplex point) first, as ``training_losses`` would, and is keyed by
+        its inputs' shapes and dtypes and the identity of the state's
+        tensors. The first step of a key runs eagerly (it settles every
+        lazy set-up), the second is captured as a CUDA graph and replayed,
+        and later ones replay: every step runs once, and computes what the
+        eager step computes. A capture needs ``GRAPH_MEMORY_ROOM`` times
+        the eager step's peak free once the cache is emptied; a key that
+        lacks it stays eager. A new key drops the graph."""
         with tracing.span("train.step", state.step):
-            params, grads, metrics = self._grads(state.model, batch, generator, t, x0)
-            with tracing.span("train.optimizer"):
-                norm = metrics["grad_norm"] = self._global_norm(grads)
-                ema = None if state.ema is None else list(state.ema.parameters())
-                self.tx.step(params, grads, state.opt_state, norm, ema)
+            if not self._graphable(batch):
+                metrics = self._eager_step(state, batch, generator, t, x0)
+                self._counts["eager_steps"] += 1
+            else:
+                inputs = {k: batch[k] for k in _GRAPH_BATCH}
+                inputs.update(self._draws(batch, generator, t, x0))
+                key = self._graph_key(state, inputs)
+                if self._graph is not None and self._graph.key != key:
+                    self._graph = None
+                if self._graph is None and key == self._seen[0] and key != self._refused:
+                    with tracing.span("train.graph_capture"):
+                        self._graph = self._capture(state, inputs, key)
+                if self._graph is not None:
+                    metrics = self._replay(state, inputs)
+                else:
+                    before = torch.cuda.memory_allocated(self.device)
+                    metrics = self._eager_step(state, inputs)
+                    self._seen = (key, torch.cuda.max_memory_allocated(self.device) - before)
+                    self._counts["eager_steps"] += 1
             state.step += 1
         return state, metrics
+
+    def _eager_step(self, state, batch, generator=None, t=None, x0=None, corrections=None):
+        """The step's gradient and optimizer, launched kernel by kernel.
+        ``batch`` may carry the draws (``_draws``: t, x0, x_d), which then
+        stand for the arguments."""
+        params, grads, metrics = self._grads(state.model, batch, generator,
+                                             batch.get("t", t), batch.get("x0", x0),
+                                             batch.get("x_d"))
+        with tracing.span("train.optimizer"):
+            norm = metrics["grad_norm"] = self._global_norm(grads)
+            ema = None if state.ema is None else list(state.ema.parameters())
+            self.tx.step(params, grads, state.opt_state, norm, ema, corrections)
+        return metrics
+
+    def _graphable(self, batch: dict) -> bool:
+        """Whether a step may take a CUDA graph: one CUDA device (no dp, sp
+        or tp), every call applying the update, no dropout (its seed is
+        drawn on the host) and a raw batch (``_GRAPH_BATCH``)."""
+        grid = self.grid
+        return (self.device.type == "cuda" and grid.data.size == 1 and grid.sp.size == 1
+                and grid.tp.size == 1 and self.cfg.accumulate_grad == 1
+                and self.cfg.dropout == 0 and sorted(batch) == sorted(_GRAPH_BATCH))
+
+    def _draws(self, batch: dict, generator, t, x0) -> dict:
+        """{t, x0} and, under design (not the mpnn modes), {x_d}: each drawn
+        from ``generator`` unless given, by ``training_losses``' calls in its
+        order, at the latents' shape (without a left-context column)."""
+        cfg = self.cfg
+        atom14, seqres = batch["atom14"], batch["seqres"]
+        B, T, L = atom14.shape[:3]
+        if has_left_context(cfg, batch):
+            L, seqres = L - 1, seqres[:, 1:]
+        if t is None:
+            t = self.transport.sample_t(B, generator, atom14.device)
+        if x0 is None:
+            D = cfg.latent_dim - 20 if cfg.design and not cfg.no_frames else cfg.latent_dim
+            x0 = torch.randn((B, T, L, D), generator=generator, device=atom14.device)
+        out = {"t": t, "x0": x0}
+        if cfg.design and not (cfg.dynamic_mpnn or cfg.mpnn):
+            out["x_d"] = self.transport.sample_x_d(t, seqres, generator)
+        return out
+
+    def _room(self, peak: int) -> bool:
+        """Whether, with the allocator's cache emptied (so that the graph's
+        own pool does not sit beside it), the device has ``GRAPH_MEMORY_ROOM``
+        times the eager step's peak ``peak`` free."""
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info(self.device)[0] >= GRAPH_MEMORY_ROOM * peak
+
+    @staticmethod
+    def _held(state: TrainState) -> tuple:
+        """The objects whose tensors' addresses a captured step holds."""
+        opt = state.opt_state
+        return (state, state.model, state.ema, opt["mu"], opt["nu"],
+                *state.model.parameters(), *opt["mu"], *opt["nu"],
+                *(() if state.ema is None else state.ema.parameters()))
+
+    def _graph_key(self, state: TrainState, inputs: dict) -> tuple:
+        sig = tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in inputs.items())
+        return sig + tuple(map(id, self._held(state)))
+
+    def _capture(self, state: TrainState, inputs: dict, key: tuple) -> Optional[StepGraph]:
+        """The eager step captured on a side stream, reading buffers of its
+        own; None where the free memory is short (the key is then left
+        eager). Capture runs no kernel: the step's host bookkeeping (the
+        optimizer's count, the launch counters) is undone, and ``_replay``
+        runs the step."""
+        dev = self.device
+        if not self._room(self._seen[1]):
+            self._refused = key
+            return None
+        static = {k: torch.empty_like(v) for k, v in inputs.items()}
+        corrections = torch.empty(2, dtype=torch.float32, device=dev)
+        count, launches = state.opt_state["count"], ops.launch_counts()
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                metrics = self._eager_step(state, static, corrections=corrections)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        step = {k: n - launches.get(k, 0) for k, n in ops.launch_counts().items()}
+        ops.add_launch_counts({k: -n for k, n in step.items()})
+        state.opt_state["count"] = count
+        self._counts["captures"] += 1
+        return StepGraph(key, graph, static, corrections, metrics, step, self._held(state))
+
+    def _replay(self, state: TrainState, inputs: dict) -> dict:
+        """The captured step on ``inputs``: copy them in, load this update's
+        bias corrections, replay, and credit the step's kernel launches.
+        The metrics are copies, which the next replay leaves alone."""
+        g = self._graph
+        for k, buf in g.inputs.items():
+            buf.copy_(inputs[k])
+        count = state.opt_state["count"] + 1
+        ops.load_bias_corrections(g.corrections, self.tx.b1, self.tx.b2, count)
+        with tracing.span("train.graph_replay"):
+            g.graph.replay()
+        state.opt_state["count"] = count
+        ops.add_launch_counts(g.launches)
+        self._counts["replays"] += 1
+        return {k: v.clone() for k, v in g.metrics.items()}
+
+    def graph_counts(self) -> dict:
+        """{captures, replays, eager_steps}: every train step is one eager
+        step or one replay (a capture is followed by its step's replay)."""
+        return dict(self._counts)
 
     @torch.no_grad()
     def val_step(self, model, batch: dict, generator=None, t=None, x0=None) -> dict:

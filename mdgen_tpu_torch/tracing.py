@@ -23,7 +23,10 @@ once torch has been imported by someone else.
 
 Spans: ``train.step`` (``TrainRuntime.train_step``) and inside it
 ``train.forward`` (with ``train.tokenize``), ``train.backward``,
-``train.grad_mean`` and ``train.optimizer`` (norm, clip, Adam and EMA); ``data.wait``
+``train.grad_mean`` and ``train.optimizer`` (norm, clip, Adam and EMA), on
+a step that runs eagerly or is captured as a CUDA graph
+(``train.graph_capture``, around them); a step replayed from the graph
+holds ``train.graph_replay`` alone; ``data.wait``
 (the consumer's wait on ``Loader``'s queue), ``data.load`` (a batch's reads
 and stack on the loader's thread) and ``data.to_device``
 (``runtime.batch_to_device``); ``model.hyena`` (each

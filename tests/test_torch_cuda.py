@@ -857,7 +857,9 @@ def test_optimizer_phase_never_waits_for_the_card(monkeypatch):
     """A train step's optimizer phase (span ``train.optimizer``: the norm,
     the clip, Adam and the EMA) under ``set_sync_debug_mode("error")``: no
     host read of the card and no synchronous copy, one launch of each
-    kernel, and ``grad_norm`` a device tensor."""
+    kernel, and ``grad_norm`` a device tensor. (The second step of its
+    inputs is the one ``TrainRuntime`` captures as a CUDA graph, then
+    replays.)"""
     _need_cuda()
     from mdgen_tpu_torch.config import MDGenConfig
     from mdgen_tpu_torch.data import synthetic_trajectory
@@ -889,3 +891,146 @@ def test_optimizer_phase_never_waits_for_the_card(monkeypatch):
     assert _opt_launches() == (before[0] + 1, before[1] + 1)
     assert m["grad_norm"].device.type == "cuda" and state.opt_state["count"] == 2
     assert any(not torch.equal(a, b) for a, b in zip(state.ema.parameters(), ema_before))
+
+
+@pytest.mark.parametrize("ema", [True, False], ids=["ema", "no_ema"])
+def test_optimizer_reads_its_bias_corrections_on_the_card(ema):
+    """At counts 1, 2, 10 and 1000 kernel 8 reads the bias corrections
+    from the card: its own pair filled from ``count``, a pair the caller
+    loads (``load_bias_corrections``, to the f32 bits of
+    ``bias_corrections``), and a launch captured once in a CUDA graph and
+    replayed with each count's pair loaded all update p, mu, nu (and the
+    EMA) bit-equal to the eager loop."""
+    _need_cuda()
+    from mdgen_tpu_torch.ops.fused_optim import bias_corrections
+
+    rows = _opt_rows(_model_shapes()[:24] + [(1,), (3,), (4097,)], ema)
+    runs = {name: [None if r is None else [t.clone() for t in r] for r in rows]
+            for name in ("own", "given", "graph", "plain")}
+    norm = ops.sum_of_squares(rows[1], root=True)
+    clip = norm.item() / 2
+    given, replayed = torch.empty(2, device="cuda"), torch.empty(2, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ops.fused_adam(*runs["graph"], norm, **_opt_kw(1, clip, False), corrections=replayed)
+    for count in (1, 2, 10, 1000):
+        kw = _opt_kw(count, clip, False)
+        ops.fused_adam(*runs["own"], norm, **kw)
+        ops.load_bias_corrections(given, 0.9, 0.999, count)
+        ops.fused_adam(*runs["given"], norm, **kw, corrections=given)
+        ops.load_bias_corrections(replayed, 0.9, 0.999, count)
+        graph.replay()
+        ops.fused_adam_plain(*runs["plain"], norm, **kw)
+        torch.cuda.synchronize()
+        assert given.tolist() == [float(b) for b in bias_corrections(0.9, 0.999, count)]
+        for name in ("own", "given", "graph"):
+            assert not _same(runs[name], runs["plain"]), (count, name,
+                                                          _same(runs[name], runs["plain"]))
+
+
+# -- the train step as one CUDA graph (runtime/wrapper.py) ---------------------
+
+GRAPH_CASES = ["4aa_f32_ema", "atlas_bf16_remat_context"]
+
+
+def _graph_cfg(case):
+    """4AA-shaped: f32, EMA, 80 frames (frame attention on flash kernels
+    5-7); ATLAS-shaped: bf16-mixed, checkpointed, 66 residues (residue
+    attention on them) and a left-context column."""
+    from mdgen_tpu_torch.config import MDGenConfig
+
+    base = dict(num_layers=2, embed_dim=32, mha_heads=4, ipa_heads=2, ipa_head_dim=8,
+                ipa_qk=2, ipa_v=2, batch_size=2, sim_condition=True, prepend_ipa=True,
+                abs_pos_emb=True, abs_time_emb=True)
+    if case == "4aa_f32_ema":
+        return MDGenConfig(**base, crop=4, num_frames=80, ema=True)
+    return MDGenConfig(**base, crop=66, num_frames=6, atlas=True, precision="bf16-mixed",
+                       grad_checkpointing=True)
+
+
+def _graph_batches(cfg, n, B, seed):
+    """``n`` raw batches of ``B`` windows on the card, a padded residue in
+    each (ATLAS: ``crop + 1`` residues wide, the first the left context)."""
+    from mdgen_tpu_torch.data import synthetic_trajectory
+    from mdgen_tpu_torch.geometry import constants as rc
+    from mdgen_tpu_torch.runtime import batch_to_device
+
+    L = cfg.crop + 1 if cfg.atlas else cfg.crop
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        seqs = ["".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), L)) for _ in range(B)]
+        atom14 = np.stack([synthetic_trajectory(q, cfg.num_frames, seed=seed + 10 * i + j)
+                           for j, q in enumerate(seqs)])
+        mask = np.ones((B, L), np.float32)
+        mask[1, -1] = 0.0
+        out.append(batch_to_device({
+            "atom14": atom14.astype(np.float32),
+            "seqres": np.stack([rc.str_sequence_to_aatype(q) for q in seqs]),
+            "mask": mask}, "cuda"))
+    return out
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graphed_train_steps_equal_eager_ones(case):
+    """Six steps (4AA: then two of three windows, a new signature)
+    from the same weights and draws, eager (the rule refused) and graphed:
+    each step's loss, time and grad_norm, and then every parameter, Adam
+    moment and EMA entry bit-equal; the steps after the first (a capture
+    among them) under ``set_sync_debug_mode("error")``, the new
+    signature's eager step aside; ``ops.launch_counts()`` advancing by the
+    same counts each step; one capture per signature, then replays
+    (``graph_counts``); and each step's metrics its own after later
+    replays. 4AA draws t and x0 from a generator (the train CLI's way),
+    ATLAS passes them in (the benchmark's)."""
+    _need_cuda()
+    from mdgen_tpu_torch.runtime import TrainRuntime
+
+    cfg = _graph_cfg(case)
+    batches = _graph_batches(cfg, 6, 2, 0)
+    if not cfg.atlas:
+        batches += _graph_batches(cfg, 2, 3, 50)
+    runs = {}
+    for graphed in (False, True):
+        rt = TrainRuntime(cfg, "cuda")
+        if not graphed:
+            rt._graphable = lambda batch: False
+        state = rt.init(torch.Generator().manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        steps = []
+        for i, batch in enumerate(batches):
+            args = (gen,)
+            if cfg.atlas:
+                B, T, L = batch["atom14"].shape[:3]
+                args = (None, torch.rand(B, generator=gen, device="cuda"),
+                        torch.randn((B, T, L - 1, cfg.latent_dim), generator=gen, device="cuda"))
+            before = ops.launch_counts()
+            if graphed and i >= 1 and i != 6:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, m = rt.train_step(state, batch, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            after = ops.launch_counts()
+            steps.append((m, {k: after[k] - before[k] for k in after}, rt.graph_counts()))
+        torch.cuda.synchronize()
+        runs[graphed] = (state, steps)
+    (eager, e_steps), (graph, g_steps) = runs[False], runs[True]
+    n = len(batches)
+    assert e_steps[-1][2] == {"captures": 0, "replays": 0, "eager_steps": n}
+    eager_at = {0, 6}
+    assert [c for _, _, c in g_steps] == [
+        {"captures": sum(j >= k for k in (1, 7) if k < n),
+         "replays": sum(k not in eager_at for k in range(1, j + 1)),
+         "eager_steps": sum(k in eager_at for k in range(j + 1))} for j in range(n)]
+    for i, ((me, le, _), (mg, lg, _)) in enumerate(zip(e_steps, g_steps)):
+        assert le == lg and le["fused_adam"] == le["sum_of_squares"] == 1, (i, le, lg)
+        for k in me:
+            assert mg[k].device.type == "cuda" and torch.equal(mg[k], me[k]), (i, k)
+    assert graph.step == eager.step == n and graph.opt_state["count"] == n
+    pairs = [(eager.model.parameters(), graph.model.parameters())]
+    pairs += [(eager.opt_state[k], graph.opt_state[k]) for k in ("mu", "nu")]
+    if cfg.ema:
+        pairs.append((eager.ema.parameters(), graph.ema.parameters()))
+    for which, (a, b) in zip(("params", "mu", "nu", "ema"), pairs):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), which

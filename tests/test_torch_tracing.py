@@ -291,3 +291,31 @@ def test_a_program_without_spans_gives_no_reading(cell, monkeypatch):
     m = cell.metrics["step_host_ms.train"]
     tracing._RING.extend(_records(0.0, [1.0, 2.0], 0.0))
     assert m.read(SimpleNamespace(t0=0.0, ends=[1.0, 2.0], traced_units=0, meta=m.meta)) is None
+
+
+@pytest.mark.parametrize("traced", [0, 2])
+def test_graph_replay_share_reader(traced):
+    """``graph_replay_pct.train`` reads the share of the units after the
+    traced ones whose ``train.step`` holds a ``train.graph_replay``; a
+    capture's step that replays counts, an eager step does not, and a
+    program that records neither span (no graph) gives no reading."""
+    from portbench import harness
+
+    m = harness.load_cell("train-4aa-b8").metrics["graph_replay_pct.train"]
+    assert (m.entry["source"], m.entry["layer"], m.meta["unit"]) == \
+        ("program_span", "runtime", "%")
+    ms = 1_000_000
+    t0, ends = 1000.0, [1000.5, 1001.0, 1001.5, 1002.0, 1002.5]
+    ctx = SimpleNamespace(t0=t0, ends=ends, traced_units=traced, meta=m.meta)
+    steps = []
+    for start in [t0] + ends[:-1]:
+        a = int(start * 1e9) + ms
+        steps.append(("train.step", 0, None, 1, a, a + 100 * ms))
+    tracing._RING.extend(steps)
+    assert m.read(ctx) is None  # eager steps alone: a program without a graph
+    inner = {0: "train.graph_capture", 3: "train.graph_replay", 4: "train.graph_replay"}
+    for i, name in inner.items():
+        a = steps[i][4] + ms
+        tracing._RING.append((name, 0, "train.step", 1, a, a + 10 * ms))
+    # of the untraced units (all five, or the last three), two replay
+    assert m.read(ctx) == pytest.approx(100.0 * 2 / (len(ends) - traced), rel=1e-12)

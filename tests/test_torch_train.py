@@ -50,7 +50,7 @@ from mdgen_tpu_torch.data import synthetic_trajectory
 from mdgen_tpu_torch.geometry import constants as rc
 from mdgen_tpu_torch.interop import _rename, jax_params_to_state_dict
 from mdgen_tpu_torch.models import LatentMDGenModel
-from mdgen_tpu_torch.runtime import TrainRuntime, batch_to_device, tokenize_atom14
+from mdgen_tpu_torch.runtime import TrainRuntime, batch_to_device, tokenize, tokenize_atom14
 from mdgen_tpu_torch.runtime.checkpoint import load_train_checkpoint, save_train_checkpoint
 from mdgen_tpu_torch.runtime.optim import Optimizer
 from mdgen_tpu_torch.tasks import prep_batch
@@ -232,6 +232,34 @@ def test_optimizer_pass_takes_the_plain_loop_on_the_cpu(monkeypatch):
         ops.sum_of_squares([torch.zeros(3, device="meta")])
 
 
+@pytest.mark.parametrize("ema", [True, False], ids=["ema", "no_ema"])
+def test_optimizer_plain_twin_reads_count_on_the_cpu(ema):
+    """On the CPU ``fused_adam`` is the plain loop at counts 1, 2, 10 and
+    1000, whether or not a pair of bias corrections is given (the card's
+    kernel reads that pair; the loop computes its own from ``count``);
+    ``load_bias_corrections`` writes ``bias_corrections``' f32 values."""
+    from mdgen_tpu_torch.ops.fused_optim import bias_corrections
+
+    g = torch.Generator().manual_seed(0)
+    p = [torch.randn(s, generator=g) for s in ((5, 3), (1,), (4097,))]
+    rows = {n: [[t.clone() for t in p], [torch.zeros_like(t) for t in p],
+                [torch.zeros_like(t) for t in p], [t.clone() for t in p] if ema else None]
+            for n in ("given", "plain")}
+    stale = torch.zeros(2)
+    for count in (1, 2, 10, 1000):
+        grads = [torch.randn(t.shape, generator=g) for t in p]
+        norm = ops.sum_of_squares(grads, root=True)
+        kw = dict(count=count, lr=1e-2, grad_clip=1.0, b1=0.9, b2=0.999, eps=1e-8,
+                  weight_decay=0.0, ema_decay=0.99)
+        (pg, mg, vg, eg), (pp, mp, vp, ep) = rows["given"], rows["plain"]
+        ops.fused_adam(pg, grads, mg, vg, eg, norm, **kw, corrections=stale)
+        ops.fused_adam_plain(pp, grads, mp, vp, ep, norm, **kw)
+        for a, b in zip(rows["given"], rows["plain"]):
+            assert a is None or all(torch.equal(x, y) for x, y in zip(a, b)), count
+        want = [float(b) for b in bias_corrections(0.9, 0.999, count)]
+        assert ops.load_bias_corrections(torch.empty(2), 0.9, 0.999, count).tolist() == want
+
+
 def test_optimizer_launches_pack_the_tensor_table(monkeypatch):
     """The pointer table of the optimizer's launches: tensors without
     elements are left out, at most ``max_tensors()`` a launch, one row of
@@ -402,3 +430,127 @@ def test_training_model_drops_fused_block():
     state, m = rt.train_step(state, batch_to_device(_raw_batch(6), "cpu"),
                              generator=torch.Generator().manual_seed(1))
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+# -- the train step's CUDA graph (its rule and bookkeeping; the card's tests
+# capture and replay it, tests/test_torch_cuda.py) -----------------------------
+
+GRAPH_RULE_CASES = {
+    "one_cuda_rank": ({}, "cuda", {}, True),
+    "cpu": ({}, "cpu", {}, False),
+    "dp2": ({}, "cuda", {"dp": 2, "data": 2}, False),
+    "sp2": ({}, "cuda", {"sp": 2, "data": 2}, False),
+    "tp2": ({}, "cuda", {"tp": 2}, False),
+    "accumulate2": ({"accumulate_grad": 2}, "cuda", {}, False),
+    "dropout": ({"dropout": 0.1}, "cuda", {}, False),
+    "token_batch": ({}, "cuda", {}, False),
+    "short_memory": ({}, "cuda", {}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_RULE_CASES))
+def test_graph_rule_takes_one_cuda_rank_and_room(monkeypatch, case):
+    """A step may be captured only on one CUDA device (no dp, sp or tp),
+    with every call applying the update, no dropout, a raw batch and, the
+    cache emptied, 1.1 eager peaks of free memory: each case breaks one
+    condition of the first (no CUDA call: the memory is faked)."""
+    from mdgen_tpu_torch.parallel.mesh import Axis, Grid
+    from mdgen_tpu_torch.runtime import wrapper
+
+    over, device, axes, want = GRAPH_RULE_CASES[case]
+    grid = Grid(**{name: Axis(size) for name, size in axes.items()})
+    rt = TrainRuntime(PortConfig(**TINY, num_frames=6, **over), device, grid=grid)
+    batch = batch_to_device(_raw_batch(6), "cpu")
+    if case == "token_batch":
+        batch = tokenize_atom14(batch)
+    peak, emptied = 1000, []
+    free = int(peak * wrapper.GRAPH_MEMORY_ROOM) - (case == "short_memory")
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(True))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (free, 80 * peak))
+    assert (rt._graphable(batch) and rt._room(peak)) is want
+    assert emptied == [True] * (case in ("one_cuda_rank", "short_memory"))
+
+
+def test_cpu_train_steps_stay_eager_and_unchanged():
+    """On the CPU every step is eager (``graph_counts``), records no graph
+    span, and equals the gradient and optimizer called by hand."""
+    from mdgen_tpu_torch import tracing
+
+    cfg = PortConfig(**TINY, num_frames=6, ema=True)
+    batch = batch_to_device(_raw_batch(6), "cpu")
+    rt, by_hand = TrainRuntime(cfg), TrainRuntime(cfg)
+    state = rt.init(torch.Generator().manual_seed(0))
+    ref = by_hand.init(torch.Generator().manual_seed(0))
+    n = len(tracing.records())
+    for i in range(3):
+        state, m = rt.train_step(state, batch, torch.Generator().manual_seed(i))
+        params, grads, want = by_hand._grads(ref.model, batch, torch.Generator().manual_seed(i))
+        norm = want["grad_norm"] = by_hand._global_norm(grads)
+        by_hand.tx.step(params, grads, ref.opt_state, norm, list(ref.ema.parameters()))
+        assert all(torch.equal(m[k], want[k]) for k in want), i
+    assert rt.graph_counts() == {"captures": 0, "replays": 0, "eager_steps": 3}
+    names = {r[0] for r in tracing.records()[n:]}
+    assert "train.step" in names and not names & {"train.graph_capture", "train.graph_replay"}
+    for mod in ("model", "ema"):
+        for a, b in zip(getattr(state, mod).parameters(), getattr(ref, mod).parameters()):
+            assert torch.equal(a, b), mod
+    assert state.opt_state["count"] == ref.opt_state["count"] == 3
+
+
+DRAW_CASES = {
+    "4aa": dict(),
+    "atlas_context": dict(atlas=True),
+    "design": dict(inpainting=True, design=True, no_aa_emb=True, no_torsion=True),
+    "no_frames": dict(no_frames=True, prepend_ipa=False),
+}
+
+
+@pytest.mark.parametrize("case", list(DRAW_CASES))
+def test_graph_draws_are_the_losses_own(case):
+    """A step that may be captured draws t, x0 (and the design simplex
+    point) before the step, at the latents' shape and with
+    ``training_losses``' calls in its order: the loss equals the one that
+    draws inside, bit for bit (an ATLAS batch one column wider than the
+    crop carries the left-context column)."""
+    cfg = PortConfig(**{**TINY, "num_frames": 6, **DRAW_CASES[case]})
+    raw = _raw_batch(6)
+    if cfg.atlas:  # a left-context column before the crop's 4 residues
+        raw = {k: np.concatenate([v[:, :, :1] if k == "atom14" else v[:, :1], v],
+                                 axis=2 if k == "atom14" else 1) for k, v in raw.items()}
+    batch = batch_to_device(raw, "cpu")
+    rt = TrainRuntime(cfg)
+    model = rt.init(torch.Generator().manual_seed(0)).model
+    draws = rt._draws(batch, torch.Generator().manual_seed(3), None, None)
+    latents = prep_batch(cfg, tokenize(cfg, batch)).latents
+    assert draws["x0"].shape == latents.shape and draws["x0"].dtype == latents.dtype
+    assert ("x_d" in draws) is cfg.design
+    with torch.no_grad():
+        want, _ = rt.loss_fn(model, batch, torch.Generator().manual_seed(3))
+        got, _ = rt.loss_fn(model, batch, None, **draws)
+    assert torch.equal(got, want)
+
+
+def test_graph_keys_and_launch_credits():
+    """The graph's key changes with an input's shape and with a new state,
+    not with the values; ``ops.add_launch_counts`` credits a replay's
+    launches to each counted function."""
+    cfg = PortConfig(**TINY, num_frames=6)
+    rt = TrainRuntime(cfg)
+    state = rt.init(torch.Generator().manual_seed(0))
+    batch = batch_to_device(_raw_batch(6), "cpu")
+
+    def key(b, st=state, seed=0):
+        inputs = {k: b[k] for k in ("atom14", "seqres", "mask")}
+        inputs.update(rt._draws(b, torch.Generator().manual_seed(seed), None, None))
+        return rt._graph_key(st, inputs)
+
+    assert key(batch) == key(batch, seed=1)
+    assert key(batch) != key(batch_to_device(_raw_batch(8), "cpu"))
+    assert key(batch) != key(batch, st=rt.init(torch.Generator().manual_seed(0)))
+    before = ops.launch_counts()
+    ops.add_launch_counts({"fused_adam": 1, "fftconv": 5})
+    after = ops.launch_counts()
+    ops.add_launch_counts({"fused_adam": -1, "fftconv": -5})
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
+        {"fused_adam": 1, "fftconv": 5}
+    assert ops.launch_counts() == before
