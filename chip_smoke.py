@@ -109,7 +109,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      `[likelihood]`: sample_ode_likelihood (euler) on the dense route, log p
      finite and repeatable, the JVP divergence against the VJP one within
      LIK_TOL, and forward-mode AD refused by the fused model and by each of
-     the 7 kernel wrappers given a dual CUDA tensor; `[options: ...]`:
+     the 8 kernel wrappers given a dual CUDA tensor; `[options: ...]`:
      interleave_ipa and no_frames fused vs dense as `[hyena]`;
      `[quality-hyena]`: the quality chain of 7 with --hyena;
   8. flash kernel parity: kernels 4-7 against their plain twins at the
@@ -128,15 +128,30 @@ Phases, in order; any failure raises and the exit code is not 0:
      events, in both dtypes, and kernel and library device time around a
      CUDA graph of 5 calls, each beside its bound (f32: split TF32; bf16
      operands: bf16 tensor cores);
+  8a. `[short]`: kernel 9, the short attention over the residue axis
+     (`short_attn_fwd_kernel`; `short_attn_bwd_kernel` and
+     `short_attn_bias_grad_kernel`), forward and backward under autograd
+     against autograd through its plain twin at the 4AA train step's
+     residue attention (B T = 8,000 rows of 4 residues, 16 heads of 24, f32,
+     a masked residue) and the Hyena cell's (40,000 rows): o and the
+     gradients of qkv, bias_k and bias_v, each run twice and bit-equal;
+     times at the 4AA shape, forward and backward, eagerly and as a CUDA
+     graph, beside the bound (bytes), the plain twin and the model's dense
+     route (`RoPEAttention._attention` from the same projection), the
+     yardstick it replaces;
   9. model gradient parity: one training loss and backward of the 5 x 384 x
      16 model at the recipe shape (B=8, T=1000, L=4, f32) through the flash
-     kernels against dense attention: loss, every gradient, the grad norm;
+     kernels and kernel 9 (the residues, 30 launches) against every
+     attention dense: loss, every gradient, the grad norm;
   10. the training path: `mdgen_tpu_torch.train.main` at the 4AA recipe
      (batch 8, T=1000, crop 4, Adam 1e-4, clip 1, EMA) on 8 synthetic
      tetrapeptides of 1100 frames, 20 epochs of one step; checks 20 finite
      losses, each of kernels 5-7 launched exactly 5 layers x 20 steps = 100
-     times, kernel 4 5 times (one validation batch) and the optimizer's two
-     (norm; clip, Adam and EMA) once a step, and the step_20 checkpoint;
+     times, kernel 4 5 times (one validation batch), kernel 9 30 times a
+     step (the trunk's and the tower's 10 residue attentions, one launch
+     forward and two backward) and 10 in the validation batch, and the
+     optimizer's two (norm; clip, Adam and EMA) once a step, and the
+     step_20 checkpoint;
      prints ms per train step over steps 5-20;
   11. sampling from that run: `sim_inference --fused_block` restores the run
      directory and rolls out once at T=1000 with 2 Euler steps;
@@ -266,6 +281,13 @@ B_TRAIN, TRAIN_FRAMES, TRAIN_EPOCHS = 8, 1000, 20
 FLASH_TOL = {"f32": {"abs": 1e-4, "rel": 1e-4}, "bf16": {"abs": 1e-2, "rel": 1e-2}}
 FLASH_SRC = "mdgen_tpu_torch/csrc/flash_attention.cu"
 OPT_SRC = "mdgen_tpu_torch/csrc/fused_adam.cu"
+SHORT_SRC = "mdgen_tpu_torch/csrc/short_attention.cu"
+# kernel 9 at the 4AA train step's residue attention and the Hyena cell's (B,
+# T, L; 16 heads of 24); f32, relative to each tensor's largest entry: o and
+# dqkv sum at most 17 keys or 24 channels in another order than the twin,
+# the bias gradients every row's (up to 160,000 terms)
+SHORT_SHAPES = {"4aa": (8, 1000, 4), "hyena": (4, 10000, 4)}
+SHORT_TOL = {"o": 1e-5, "dqkv": 1e-5, "dbias_k": 1e-4, "dbias_v": 1e-4}
 # the tensor-core flash kernels (4-7): (N, Tq, Tk, d) at their tile edges,
 # Tq below one 16-row MMA tile, one past two 64-row tiles, N = 1, the widths
 # they pad to a whole MMA step, and d = 7 (rows of no whole 16 bytes, loaded
@@ -292,9 +314,32 @@ KERNELS = {
     "flash_bwd_dkv": (FLASH_SRC, "mdgen_tpu/ops/flash_attention.py:346"),
     "sum_of_squares": (OPT_SRC, "none (optax)"),
     "fused_adam": (OPT_SRC, "none (optax)"),
+    "short_attention": (SHORT_SRC, "none (XLA einsums)"),
 }
 FLASH_KERNELS = tuple(k for k in KERNELS if k.startswith("flash_"))
 FUSED_KERNELS = tuple(k for k in KERNELS if k.endswith("_sublayer"))
+
+
+def tower_launches(cfg, evals):
+    """Kernel 9's launches in ``evals`` no-grad evaluations of the fused
+    model of ``cfg``: its IPA tower stays unfused, and the tower's residue
+    attention takes kernel 9 in f32, one launch a layer and a stream (two
+    streams under tps, inpainting and dynamic_mpnn)."""
+    if not cfg.prepend_ipa or cfg.precision == "bf16-mixed":
+        return 0
+    streams = 2 if cfg.tps_condition or cfg.inpainting or cfg.dynamic_mpnn else 1
+    return cfg.num_layers * streams * evals
+
+
+def plain_residues(model):
+    """``model`` with every residue attention (``mha_l``: the trunk's and
+    the IPA tower's) on the dense route, for a plain reference: ``attn_impl``
+    reaches the frame attention alone, and the residue attentions' "auto"
+    takes kernel 9 in f32 on the card. Returns the model."""
+    for name, m in model.named_modules():
+        if name.rsplit(".", 1)[-1] == "mha_l":
+            m.impl = "dense"
+    return model
 
 
 def kernel_launches(counts):
@@ -926,6 +971,89 @@ def phase_flash_parity(torch):
     return results
 
 
+def phase_short_parity(torch):
+    """Kernel 9 (`[short]`, see the module docstring, phase 8a). Returns
+    {"short_attention": its errors, times and bound}."""
+    from mdgen_tpu_torch import ops
+    from mdgen_tpu_torch.models.attention import RoPEAttention
+
+    sa = importlib.import_module("mdgen_tpu_torch.ops.short_attention")
+    res = {"max_abs_err": 0.0}
+    hd = C // H
+    for tag, (Bs, Ts, Ls) in SHORT_SHAPES.items():
+        g = torch.Generator().manual_seed(0)
+        qkv = torch.randn(Bs, Ts, Ls, 3 * C, generator=g).cuda()
+        bk = (torch.randn(1, 1, C, generator=g) * 0.5).cuda()
+        bv = torch.randn(1, 1, C, generator=g).cuda()
+        m = torch.ones(Bs, Ls)
+        m[0, -1] = 0.0  # the model's frame-constant key mask, one residue padded
+        mask = m.cuda()[:, None].expand(Bs, Ts, Ls)
+        w = torch.randn(Bs, Ts, Ls, C, generator=g).cuda()
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_(True) for t in (qkv, bk, bv)]
+            o = fn(*leaves, mask, num_heads=H)
+            return [o.detach(), *torch.autograd.grad((o * w).sum(), leaves)]
+
+        before = ops.launch_counts()["short_attention"]
+        got, again = grads(ops.short_attention), grads(ops.short_attention)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["short_attention"] - before
+        ref = grads(ops.short_attention_plain)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        for what, a, b in zip(SHORT_TOL, got, ref):
+            err, tol = _rel_err(a, b), SHORT_TOL[what]
+            ok = err <= tol and same and launches == 6 and bool(torch.isfinite(a).all())
+            log(f"[short] {tag} (B={Bs}, T={Ts}, L={Ls}, {H} heads of {hd}, f32): {what} rel err "
+                f"{err:.3e}, tol {tol:g}, bit-equal twice {same}, {launches} launches for two "
+                f"forwards and backwards -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"short_attention {tag} {what}: {err}, bit-equal {same}, "
+                                     f"{launches} launches")
+            res["max_abs_err"] = max(res["max_abs_err"], _abs_err(a, b))
+        del got, again, ref
+        if tag != "4aa":
+            continue
+        fwd = lambda: sa._fwd(qkv, bk, bv, mask, H, True)  # noqa: E731
+        bwd = lambda: sa._bwd(qkv, bk, bv, mask, w, H, True)  # noqa: E731
+        plain = lambda: grads(ops.short_attention_plain)  # noqa: E731
+        mod = RoPEAttention(C, H).cuda()
+        with torch.no_grad():
+            mod.bias_k.copy_(bk)
+            mod.bias_v.copy_(bv)
+        leaf = qkv.clone().requires_grad_(True)
+
+        def dense():  # the model's route before kernel 9, from the same projection
+            o = mod._attention(leaf, mask, 2, None, None, H, hd, False)
+            return torch.autograd.grad((o.reshape(w.shape) * w).sum(),
+                                       [leaf, mod.bias_k, mod.bias_v])
+
+        n = Bs * Ts * Ls * C  # elements of o, dO, and of each of q, k, v
+        bound_f = _bound(4 * 4 * n, 4 * (Ls + 1) * n, "f32")
+        bound_b = _bound(7 * 4 * n, 10 * (Ls + 1) * n, "f32")
+        times = {"fwd_ms": _time_ms(torch, fwd), "bwd_ms": _time_ms(torch, bwd),
+                 "fwd_device_ms": _graph_ms(torch, fwd), "bwd_device_ms": _graph_ms(torch, bwd),
+                 "plain_ms": _time_ms(torch, plain, iters=5),
+                 "library_ms": _time_ms(torch, dense, iters=5),
+                 "library_device_ms": _graph_ms(torch, dense, iters=5),
+                 "host_us": _host_us(torch, fwd)}
+        res.update(times, ms=times["fwd_ms"] + times["bwd_ms"],
+                   device_ms=times["fwd_device_ms"] + times["bwd_device_ms"],
+                   bound_ms=bound_f[0] + bound_b[0], bound_by=bound_f[1],
+                   fwd_bound_ms=bound_f[0], bwd_bound_ms=bound_b[0])
+        log(f"[time] short_attention 4aa f32 forward + backward (one + two launches): kernel "
+            f"{res['fwd_ms']:.4f} + {res['bwd_ms']:.4f} ms eagerly, {res['fwd_device_ms']:.4f} + "
+            f"{res['bwd_device_ms']:.4f} ms device (CUDA graph of 20 calls); bound "
+            f"{bound_f[0]:.4f} + {bound_b[0]:.4f} ms ({bound_f[1]}), "
+            f"{res['bound_ms'] / res['device_ms']:.1%} of it in device time; the wrapper's host "
+            f"{res['host_us']:.1f} us a forward; plain twin {res['plain_ms']:.4f} ms eagerly; the "
+            f"dense route {res['library_ms']:.4f} ms eagerly, {res['library_device_ms']:.4f} ms "
+            f"device (forward and backward)")
+        del mod, leaf
+    torch.cuda.empty_cache()
+    return {"short_attention": res}
+
+
 def _check_flash_edges(torch, fa, shapes=FLASH_EDGE_SHAPES, dtypes=("f32", "bf16"), strict=True):
     """Kernels 4-7 at ``shapes``, in ``dtypes`` (f32, bf16 operands), keys
     of the middle third masked (and, with N > 1, row 0 with its last key
@@ -1071,13 +1199,16 @@ def _start(torch):
     return start.cuda(), seqres.cuda(), torch.ones(B, L, device="cuda")
 
 
-def _runtime(torch, cfg, state_dict):
-    """An MDGenRuntime for ``cfg`` with ``state_dict`` loaded, on the card."""
+def _runtime(torch, cfg, state_dict, plain=False):
+    """An MDGenRuntime for ``cfg`` with ``state_dict`` loaded, on the card;
+    ``plain``: its residue attentions on the dense route (``plain_residues``)."""
     from mdgen_tpu_torch.models import LatentMDGenModel
     from mdgen_tpu_torch.runtime import MDGenRuntime
 
     model = LatentMDGenModel(cfg, cfg.latent_dim)
     model.load_state_dict(state_dict)
+    if plain:
+        plain_residues(model)
     return MDGenRuntime(cfg, model.cuda())
 
 
@@ -1089,9 +1220,10 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
     max(|out|, 1)), then ``rollouts`` f32 rollouts of 4 Euler steps (T = 100),
     each fused rollout from the dense one's start, within 1e-3 A; the fused
     rollouts launch kernels 1 and 3 (and 2 when ``frame_kernel``) once a layer
-    and an evaluation and no flash kernel, the dense ones (``attn_impl``
-    "dense", the plain reference) nothing. Returns the fused rollouts'
-    launch counts."""
+    and an evaluation, kernel 9 in the IPA tower (``tower_launches``) and no
+    flash kernel, the dense ones (``attn_impl`` "dense" and
+    ``plain_residues``, the plain reference) nothing. Returns the fused
+    rollouts' launch counts."""
     from mdgen_tpu_torch import ops
     from mdgen_tpu_torch.runtime import tokenize
     from mdgen_tpu_torch.tasks import prep_batch
@@ -1108,7 +1240,7 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
         for fused in (False, True):
             c = cfg.replace(precision=precision, fused_block=fused,
                             attn_impl=cfg.attn_impl if fused else "dense")
-            rt = _runtime(torch, c, state_dict)
+            rt = _runtime(torch, c, state_dict, plain=not fused)
             prep = prep_batch(c, tokenize(c, {"atom14": start[:, None].expand(B, T, L, 14, 3),
                                               "seqres": seqres, "mask": mask}))
             x = torch.randn(B, T, L, c.latent_dim, device="cuda", generator=g.manual_seed(1))
@@ -1135,7 +1267,7 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
     rts = {fused: _runtime(torch, cfg.replace(precision="32-true", fused_block=fused,
                                               attn_impl=cfg.attn_impl if fused else "dense",
                                               sampling_method="euler", inference_steps=4),
-                           state_dict)
+                           state_dict, plain=not fused)
            for fused in (False, True)}
     ops.reset_launch_counts()
     dense = rts[False].rollout(start, seqres, mask, rollouts, noise=noise)
@@ -1155,7 +1287,8 @@ def phase_model_parity(torch, state_dict, cfg=None, tag="model", tols=None, roll
     err = (fused - dense).abs().max().item()
     n = rollouts * 3 * cfg.num_layers  # 4 Euler steps: 3 evaluations
     want = {"fused_l_sublayer": n, "fused_t_sublayer": n if frame_kernel else 0,
-            "fused_ffn_sublayer": n}
+            "fused_ffn_sublayer": n,
+            "short_attention": tower_launches(cfg.replace(precision="32-true"), rollouts * 3)}
     ok = (bool(torch.isfinite(fused).all()) and err <= 1e-3
           and all(counts[k] == v for k, v in want.items())
           and not any(counts[k] for k in FLASH_KERNELS)
@@ -1240,7 +1373,7 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
                                    ("bf16 fused", "bf16-mixed", True)):
         cfg = bench_config(precision=precision, fused_block=fused, sampling_method="dopri5",
                            attn_impl="auto" if fused else "dense")
-        rt = _runtime(torch, cfg, state_dict)
+        rt = _runtime(torch, cfg, state_dict, plain=not fused)
         solves = []
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1269,6 +1402,8 @@ def phase_dopri5(torch, state_dict, euler_rollout_s, smi):
     want = 5 * st["evals"]
     ok = (st["reached_t1"] and err <= DOPRI5_TOL and all(
         counts[k] == want for k in ("fused_l_sublayer", "fused_t_sublayer", "fused_ffn_sublayer"))
+        and counts["short_attention"] == tower_launches(bench_config(precision="32-true"),
+                                                         st["evals"])
         and not any(dense_counts[k] for k in KERNELS))
     log(f"[dopri5] f32 fused vs dense, same start and noise: max_abs_err {err:.3e} A, tol "
         f"{DOPRI5_TOL:g} A; dense {runs['f32 dense'][1]['evals']} evaluations; each fused "
@@ -1368,12 +1503,14 @@ def _count_models(path):
 
 def _fused_vs_dense(torch, cfg, state_dict, batch, noise):
     """One dopri5 solve of ``batch`` from ``noise`` in 32-true, fused and
-    dense: {fused: (atoms, solver stats, launch counts)}."""
+    dense (its residue attentions plain): {fused: (atoms, solver stats,
+    launch counts)}."""
     from mdgen_tpu_torch import ops
 
     runs = {}
     for fused in (True, False):
-        rt = _runtime(torch, cfg.replace(precision="32-true", fused_block=fused), state_dict)
+        rt = _runtime(torch, cfg.replace(precision="32-true", fused_block=fused), state_dict,
+                      plain=not fused)
         st = {}
         ops.reset_launch_counts()
         atoms, _ = rt.inference(batch, noise=noise, stats=st)
@@ -1386,14 +1523,15 @@ def _fused_vs_dense(torch, cfg, state_dict, batch, noise):
 def _check_fused_vs_dense(torch, tag, runs, dense_flash):
     """fused vs dense atoms within DOPRI5_TOL, both solves at t1, kernels 1-3
     at 5 launches per evaluation of the fused solve, and the dense solve's
-    frame attention through ``dense_flash`` flash launches per evaluation."""
+    frame attention through ``dense_flash`` flash launches per evaluation
+    and no other kernel's."""
     (fused, st, counts), (dense, st_d, counts_d) = runs[True], runs[False]
     err = (fused.float() - dense.float()).abs().max().item()
     ok = (bool(torch.isfinite(fused).all()) and err <= DOPRI5_TOL
           and st["reached_t1"] and st_d["reached_t1"]
           and all(counts[k] == 5 * st["evals"] for k in FUSED_KERNELS)
           and counts_d["flash_fwd"] == dense_flash * st_d["evals"]
-          and not any(counts_d[k] for k in FUSED_KERNELS))
+          and not any(counts_d[k] for k in KERNELS if k != "flash_fwd"))
     log(f"[{tag}] fused vs dense, 32-true dopri5, same inputs and noise: max_abs_err {err:.3e} "
         f"A, tol {DOPRI5_TOL:g} A; {st['evals']} / {st_d['evals']} drift evaluations; launches "
         f"fused {counts}, dense {counts_d} -> {'ok' if ok else 'FAIL'}")
@@ -1700,7 +1838,7 @@ def _design(torch, smi, work):
     for fused in (True, False):
         c = cfg.replace(precision="32-true", fused_block=fused,
                         attn_impl=cfg.attn_impl if fused else "dense")
-        rt = _runtime(torch, c, state_dict)
+        rt = _runtime(torch, c, state_dict, plain=not fused)
         prep = prep_batch(c, tokenize_atom14(batch))
         solve = {}
         ops.reset_launch_counts()
@@ -1719,7 +1857,7 @@ def _design(torch, smi, work):
     ok = (bool(torch.isfinite(fa).all() and torch.isfinite(fs).all()) and err <= DOPRI5_TOL
           and serr <= SIMPLEX_TOL and fst["reached_t1"] and dst["reached_t1"]
           and all(fc[k] == 5 * fst["evals"] for k in FUSED_KERNELS)
-          and not any(dc[k] for k in FUSED_KERNELS + FLASH_KERNELS))
+          and not any(dc[k] for k in KERNELS))
     log(f"[design] fused vs dense, 32-true dopri5, same windows and noise: atoms max_abs_err "
         f"{err:.3e} A, tol {DOPRI5_TOL:g} A; simplex channels max_abs_err {serr:.3e}, tol "
         f"{SIMPLEX_TOL:g}; designed sequences equal in {agree:.3f} of {DESIGN_BATCH} (not held); "
@@ -1762,7 +1900,7 @@ def phase_mpnn(torch, smi):
         outs, counts = {}, {}
         for fused in (True, False):
             c = cfg.replace(precision="32-true", fused_block=fused)
-            rt = _runtime(torch, c, state_dict)
+            rt = _runtime(torch, c, state_dict, plain=not fused)
             prep = prep_batch(c, tokenize_atom14(batch))
             x = torch.cat([prep.latents, prep.latents.new_zeros(*prep.latents.shape[:3], 20)], -1)
             seen_t.clear()
@@ -1783,7 +1921,9 @@ def phase_mpnn(torch, smi):
         ok = (tuple(outs[True].shape) == (DESIGN_BATCH, 1, L, 20)
               and bool(torch.isfinite(outs[True]).all()) and scale > 1e-2
               and err <= TOL["f32"] * max(scale, 1.0) and ft == [frames]
-              and all(fc[k] == 5 for k in FUSED_KERNELS) and not any(dc[k] for k in KERNELS))
+              and all(fc[k] == 5 for k in FUSED_KERNELS)
+              and fc["short_attention"] == tower_launches(c, 1)
+              and not any(dc[k] for k in KERNELS))
         log(f"[mpnn] {mode} (5x384x16, latent {cfg.latent_dim}, {DESIGN_BATCH} windows of "
             f"{NUM_FRAMES} frames, t = 1), one forward, 32-true: logits {tuple(outs[True].shape)}, "
             f"fused vs dense max_abs_err {err:.3e} (|logits| max {scale:.3f}), tol "
@@ -2008,9 +2148,11 @@ def train_config(**kw):
 
 
 def phase_grad_parity(torch, state_dict):
-    """One training loss and backward at the recipe shape with the flash
-    kernels (attn_impl auto: 1001 keys) and with dense attention, the same
-    weights, batch, t and x0. Loss 1e-5 relative; each parameter's gradient
+    """One training loss and backward at the recipe shape with the
+    hand-written kernels (attn_impl auto: flash kernels 5-7 at 1001 frame
+    keys, kernel 9 on the residues, 30 launches) and with every attention
+    dense (``plain_residues``), the same weights, batch, t and x0. Loss
+    1e-5 relative; each parameter's gradient
     1e-3 relative to its norm; the global grad norm 1e-4 relative (f32 sums
     of 1001 keys, and the backward's over 1000 queries, in another order)."""
     import numpy as np
@@ -2034,6 +2176,8 @@ def phase_grad_parity(torch, state_dict):
     for impl in ("auto", "dense"):
         rt = TrainRuntime(train_config(attn_impl=impl), "cuda")
         model = rt.init(state_dict=state_dict).model
+        if impl == "dense":
+            plain_residues(model)
         names = [n for n, _ in model.named_parameters()]
         ops.reset_launch_counts()
         _, grads, metrics = rt._grads(model, batch, t=t, x0=x0)
@@ -2042,15 +2186,16 @@ def phase_grad_parity(torch, state_dict):
                      ops.launch_counts())
         del model
     (loss_f, g_f, n_f, c_f), (loss_d, g_d, n_d, c_d) = res["auto"], res["dense"]
-    if c_f["flash_fwd_lse"] != 5 or c_f["flash_bwd_dkv"] != 5 or c_d["flash_fwd_lse"] != 0:
-        raise AssertionError(f"the flash run did not take the flash kernels: {c_f}, {c_d}")
+    if c_f["flash_fwd_lse"] != 5 or c_f["flash_bwd_dkv"] != 5 or c_f["short_attention"] != 30 \
+            or any(c_d[k] for k in FLASH_KERNELS + ("short_attention",)):
+        raise AssertionError(f"the kernel run did not take the kernels: {c_f}, {c_d}")
     # each gradient relative to its norm (absolute where the norm is 0)
     rels = [((a - b).norm() / (b.norm() if b.norm() > 0 else 1.0)).item() for a, b in zip(g_f, g_d)]
     worst = max(range(len(rels)), key=rels.__getitem__)
     loss_rel, norm_rel = abs(loss_f - loss_d) / abs(loss_d), abs(n_f - n_d) / n_d
     ok = (loss_rel <= 1e-5 and rels[worst] <= 1e-3 and norm_rel <= 1e-4
           and all(bool(torch.isfinite(x).all()) for x in g_f))
-    log(f"[grad] recipe B={B_TRAIN} T={TRAIN_FRAMES} L={L} 5x384x16 f32, flash vs dense: loss "
+    log(f"[grad] recipe B={B_TRAIN} T={TRAIN_FRAMES} L={L} 5x384x16 f32, kernels vs dense: loss "
         f"{loss_f:.6f} vs {loss_d:.6f} (rel {loss_rel:.2e}, tol 1e-5); worst gradient rel "
         f"{rels[worst]:.2e} ({names[worst]}, tol 1e-3); grad norm {n_f:.6f} vs {n_d:.6f} "
         f"(rel {norm_rel:.2e}, tol 1e-4) -> {'ok' if ok else 'FAIL'}")
@@ -2111,7 +2256,7 @@ def _training(torch, smi, work):
     want = {"flash_fwd_lse": 5 * TRAIN_EPOCHS, "flash_bwd_dq": 5 * TRAIN_EPOCHS,
             "flash_bwd_dkv": 5 * TRAIN_EPOCHS, "flash_fwd": 5, "fused_l_sublayer": 0,
             "fused_t_sublayer": 0, "fused_ffn_sublayer": 0, "sum_of_squares": TRAIN_EPOCHS,
-            "fused_adam": TRAIN_EPOCHS}
+            "fused_adam": TRAIN_EPOCHS, "short_attention": 30 * TRAIN_EPOCHS + 10}
     if steps != TRAIN_EPOCHS or rec["step"] != TRAIN_EPOCHS or not np.isfinite(rec["losses"]).all():
         raise AssertionError(f"expected {TRAIN_EPOCHS} finite steps, got {rec['losses']}")
     if kernel_launches(counts) != want:
@@ -2134,8 +2279,11 @@ def _training(torch, smi, work):
                        for line in text.splitlines() if line.startswith("ATOM")])
     log(f"[sample] sim_inference --fused_block from {os.path.basename(run)}/step_{TRAIN_EPOCHS} "
         f"(EMA): {models} frames in {out['seconds']:.3f} s; launches {sample_counts}")
+    sampled = {**dict.fromkeys(FUSED_KERNELS, 5),
+               "short_attention": tower_launches(checkpoint.load_config(run), 1)}
     if models != TRAIN_FRAMES or not np.isfinite(coords).all() \
-            or {k: v for k, v in sample_counts.items() if v} != dict.fromkeys(FUSED_KERNELS, 5):
+            or {k: v for k, v in sample_counts.items() if v} \
+            != {k: v for k, v in sampled.items() if v}:
         raise AssertionError(f"bad rollout from the trained run: {models} models, {sample_counts}")
     return counts, ms
 
@@ -2223,7 +2371,7 @@ def phase_sde(torch, smi, state_dict):
         for fused in (True, False):
             cfg = bench_config(precision="32-true", fused_block=fused,
                                attn_impl="auto" if fused else "dense")
-            rt = _runtime(torch, cfg, state_dict)
+            rt = _runtime(torch, cfg, state_dict, plain=not fused)
             prep = prep_batch(cfg, tokenize(cfg, {"atom14": start[:, None].expand(B, T, L, 14, 3),
                                                   "seqres": seqres, "mask": mask}))
             stats = {}
@@ -2246,6 +2394,7 @@ def phase_sde(torch, smi, state_dict):
         evals = stats["evals"] + 1
         ok = (bool(torch.isfinite(atoms).all()) and err <= SDE_TOL
               and all(counts[k] == cfg.num_layers * evals for k in FUSED_KERNELS)
+              and counts["short_attention"] == tower_launches(cfg, evals)
               and not any(counts_d[k] for k in KERNELS))
         log(f"[sde] sample_sde {method} (SBDM, {SDE_STEPS} grid points, Mean last step; the "
             f"bench sim model, T={NUM_FRAMES}, 32-true): {evals} model evaluations; fused "
@@ -2341,6 +2490,7 @@ def phase_likelihood(torch, smi, state_dict):
             lambda: ops.flash_fwd_lse(dq, q, q, bias),
             lambda: ops.flash_bwd_dq(dq, q, q, bias, q, bias, bias),
             lambda: ops.flash_bwd_dkv(dq, q, q, bias, q, bias, bias),
+            lambda: ops.short_attention(dh.repeat(1, 1, 1, 3), z8, z8, num_heads=2),
         ]
         for call in calls:
             try:
@@ -2351,13 +2501,13 @@ def phase_likelihood(torch, smi, state_dict):
     torch.cuda.synchronize()
     ok = (bool(torch.isfinite(logp).all()) and torch.equal(logp, logp2)
           and not any(counts[k] for k in KERNELS) and stats["evals"] == LIK_STEPS - 1
-          and div_rel <= LIK_TOL and all(refused) and len(refused) == 8)
+          and div_rel <= LIK_TOL and all(refused) and len(refused) == 9)
     log(f"[likelihood] sample_ode_likelihood euler ({LIK_STEPS} grid points; the bench sim "
         f"model, T={NUM_FRAMES}, 32-true, dense route): log p {logp.tolist()} (|z| max "
         f"{z.abs().max().item():.3f}), {sec * 1e3:.1f} ms the first solve, {sec2 * 1e3:.1f} ms "
         f"the second ({stats['evals']} JVP evaluations each; {smi}); launches {counts}; "
         f"divergence at t = 0.5: JVP {div_f:.6e}, VJP {div_r:.6e}, "
-        f"rel {div_rel:.2e}, tol {LIK_TOL:g}; the fused model and the 7 kernel wrappers given a "
+        f"rel {div_rel:.2e}, tol {LIK_TOL:g}; the fused model and the 8 kernel wrappers given a "
         f"tangent on the card: {sum(refused)} of {len(refused)} refused -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2802,7 +2952,8 @@ def _dp(torch, smi, work, world, backend, steps):
     worst = _rel_worst(many, one)
     want = {"flash_fwd_lse": 5 * steps, "flash_bwd_dq": 5 * steps, "flash_bwd_dkv": 5 * steps,
             "flash_fwd": 5, "fused_l_sublayer": 0, "fused_t_sublayer": 0,
-            "fused_ffn_sublayer": 0, **_optimizer_launches(steps, 1)}
+            "fused_ffn_sublayer": 0, "short_attention": 30 * steps + 10,
+            **_optimizer_launches(steps, 1)}
     launches = [one["launches"]] + [rec["launches"] for rec in many]
     ok = worst <= DP_TOL and all(kernel_launches(c) == want for c in launches) and \
         os.listdir(os.path.join(work, "many")).count(f"step_{steps}") == 1
@@ -2904,7 +3055,7 @@ def _mp(torch, smi, work, one, meshes, backend, steps, atlas_one):
         want = {"flash_fwd_lse": 5 * steps * flash, "flash_bwd_dq": 5 * steps * flash,
                 "flash_bwd_dkv": 5 * steps * flash, "flash_fwd": 5 * flash,
                 "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0,
-                **_optimizer_launches(steps, mesh[2])}
+                "short_attention": 30 * steps + 10, **_optimizer_launches(steps, mesh[2])}
         launches = [r["launches"] for r in ranks]
         ok = (worst <= DP_TOL and ckpt <= _adam_bound(steps)
               and all(kernel_launches(c) == want for c in launches))
@@ -3171,6 +3322,7 @@ def _port_ckpt(torch, smi, work):
                               "--fused_block", "--device", "cuda"])[0]
     counts = ops.launch_counts()
     want_counts = {k: 5 * (EULER_STEPS - 1) if k in FUSED_KERNELS else 0 for k in counts}
+    want_counts["short_attention"] = tower_launches(cfg, EULER_STEPS - 1)
     with open(rec["paths"][0]) as fh:
         pdb = fh.read()
     coords = np.array([float(line[30:38]) for line in pdb.splitlines() if line.startswith("ATOM")])
@@ -3208,8 +3360,10 @@ def _eval_protocol(smi, work, res):
     line = next(x for x in text.splitlines() if x.startswith("[eval-protocol]"))
     launches = json.loads(line.split("kernel launches ", 1)[1])
     evals = int(re.search(r"solves, (\d+) in all\)", line).group(1))
-    layers = checkpoint.load_config(res["run_dir"]).num_layers
+    run_cfg = checkpoint.load_config(res["run_dir"])
+    layers = run_cfg.num_layers
     want = {k: layers * evals if k in FUSED_KERNELS else 0 for k in launches}
+    want["short_attention"] = tower_launches(run_cfg, evals)
     table = json.loads(text[text.index("\n{") + 1:text.index("EVAL PROTOCOL OK")])
     vals = [table["mean_torsion_jsd"], table["floor_torsion_jsd"], table["ratio"]]
     vals += [v[k] for v in table["per_type"].values() for k in ("model", "floor", "ratio")]
@@ -3419,6 +3573,7 @@ def main(argv=None):
     phase_quality(torch, smi, tag="quality-hyena", train_extra="--hyena")
     new_s = time.perf_counter() - t_new
     parity.update(phase_flash_parity(torch))
+    parity.update(phase_short_parity(torch))
     phase_grad_parity(torch, state_dict)
     train_counts, _ = phase_training(torch, smi)
     t_new = time.perf_counter()

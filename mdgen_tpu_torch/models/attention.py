@@ -16,7 +16,11 @@ crossover is the JAX module's, 513 keys, and the "flash" route is the
 kernels' plain twin. On CUDA it is the H100's own, ``ops.CUDA_FLASH_MIN_KEYS``:
 there the frame axis of the 4AA training recipe (T=1000 frames, 1001 keys)
 and both axes of ATLAS (256 residues and 250 frames, 257 and 251 keys with
-the bias key) take flash, and the 4AA residue axis (5 keys) stays dense.
+the bias key) take flash. The residue axis (axis 2, and the IPA tower's
+[B, L, C] call) with at most ``ops.SHORT_ATTN_MAX_KEYS`` keys (the 4AA
+recipe's 5) takes the short-attention kernels on CUDA in float32
+(``ops.short_attention``, forward and backward from the packed projection,
+``short_route``); in bf16 it stays dense.
 Dropout on the probabilities (training with ``cfg.dropout > 0``: a
 ``layers.Dropout`` passed in) and frame keys gathered over sp force the
 dense route on every device, as in JAX. So does forward-mode AD (a
@@ -33,7 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
-from ..ops import CUDA_FLASH_MIN_KEYS, NEG_INF, carries_tangent, rope_tables, rotate_half
+from ..ops import (
+    CUDA_FLASH_MIN_KEYS, NEG_INF, SHORT_ATTN_MAX_HEAD_DIM, SHORT_ATTN_MAX_KEYS, carries_tangent,
+    rope_tables, rotate_half,
+)
 from ..parallel.distributed import copy_to, gather_along, reduce_from
 from .layers import dense
 
@@ -52,6 +59,19 @@ def resolve_impl(impl: str, num_keys: int, cuda: bool = False, dense_only: bool 
     if impl in ("auto", "flash"):
         return "flash" if num_keys >= (CUDA_FLASH_MIN_KEYS if cuda else FLASH_MIN_KEYS) else "dense"
     return impl
+
+
+def short_route(impl: str, num_keys: int, head_dim: int, axis: int, cuda: bool,
+                dtype: torch.dtype, dense_only: bool = False) -> bool:
+    """Whether the residue axis (``axis`` 2) takes the short-attention
+    kernels (``ops.short_attention``): on a CUDA device, float32, "auto" or
+    "flash", at most ``ops.SHORT_ATTN_MAX_KEYS`` keys with the bias key, an
+    even head width up to ``ops.SHORT_ATTN_MAX_HEAD_DIM``, and no
+    ``dense_only`` (dropout, a forward-mode tangent). Off CUDA every call
+    keeps the JAX module's routes."""
+    return (cuda and axis == 2 and not dense_only and impl in ("auto", "flash")
+            and dtype == torch.float32 and num_keys <= SHORT_ATTN_MAX_KEYS
+            and head_dim % 2 == 0 and head_dim <= SHORT_ATTN_MAX_HEAD_DIM)
 
 
 class RoPEAttention(nn.Module):
@@ -118,6 +138,30 @@ class RoPEAttention(nn.Module):
         hd = self.embed_dim // self.num_heads
 
         qkv = dense(x if tp is None else copy_to(x, tp), self.qkv_proj, self.dtype)
+        # the kernels have no forward-mode derivative: below the JAX module's
+        # crossover a tangent takes the dense route; from it the kernels refuse it
+        tangent = carries_tangent(x, self.qkv_proj.weight, self.bias_k, self.bias_v)
+        if short_route(self.impl, L + 1, hd, axis, x.device.type == "cuda", qkv.dtype,
+                       drop is not None or tangent):
+            out = ops.short_attention(qkv, self.bias_k, self.bias_v, mask, num_heads=H,
+                                      use_rope=self.use_rope)
+        else:
+            out = self._attention(qkv, mask, axis, drop, sp, H, hd, tangent)
+        out = out.reshape(B, T, L, H * hd)
+        if tp is None:
+            out = dense(out, self.out_proj, self.dtype)
+        else:
+            dt = self.dtype or torch.float32
+            out = reduce_from(F.linear(out.to(dt), self.out_proj.weight.to(dt)), tp) \
+                + self.out_proj.bias.to(dt)
+        return out[:, 0] if squeeze else out
+
+    def _attention(self, qkv, mask, axis, drop, sp, H, hd, tangent):
+        """The dense, chunked and flash routes from the packed projection:
+        the bias key, RoPE, the inner loop (``tangent``: the input carries a
+        forward-mode tangent). Returns [B, T, L, H, hd]."""
+        B, T, L, _ = qkv.shape
+        tp = self.tp
         q, k, v = qkv.chunk(3, dim=-1)
         q = (q * hd**-0.5).reshape(B, T, L, H, hd)
         k = k.reshape(B, T, L, H, hd)
@@ -148,7 +192,7 @@ class RoPEAttention(nn.Module):
             mask = torch.cat([mask, torch.ones(mshape, dtype=mask.dtype, device=mask.device)], dim=axis)
 
         if self.use_rope:
-            sin, cos = rope_tables(S + 1, hd, q.dtype, x.device)
+            sin, cos = rope_tables(S + 1, hd, q.dtype, qkv.device)
             view = (1, -1, 1, 1, hd) if axis == 1 else (1, 1, -1, 1, hd)
             sin, cos = sin.reshape(view), cos.reshape(view)
             sl = [slice(None)] * 5
@@ -156,24 +200,11 @@ class RoPEAttention(nn.Module):
             q = q * cos[tuple(sl)] + rotate_half(q) * sin[tuple(sl)]
             k = k * cos + rotate_half(k) * sin
 
-        # the kernels have no forward-mode derivative: below the JAX module's
-        # crossover a tangent takes the dense route; from it the kernels refuse it
-        dense_only = (drop is not None or gathered or (
-            S + 1 < FLASH_MIN_KEYS
-            and carries_tangent(x, self.qkv_proj.weight, self.bias_k, self.bias_v)))
-        impl = resolve_impl(self.impl, S + 1, x.device.type == "cuda", dense_only)
+        dense_only = drop is not None or gathered or (S + 1 < FLASH_MIN_KEYS and tangent)
+        impl = resolve_impl(self.impl, S + 1, qkv.device.type == "cuda", dense_only)
         if impl == "dense":
-            out = self._dense_attention(q, k, v, mask, axis, drop, shards)
-        else:
-            out = self._folded_attention(q, k, v, mask, axis, impl)
-        out = out.reshape(B, T, L, H * hd)
-        if tp is None:
-            out = dense(out, self.out_proj, self.dtype)
-        else:
-            dt = self.dtype or torch.float32
-            out = reduce_from(F.linear(out.to(dt), self.out_proj.weight.to(dt)), tp) \
-                + self.out_proj.bias.to(dt)
-        return out[:, 0] if squeeze else out
+            return self._dense_attention(q, k, v, mask, axis, drop, shards)
+        return self._folded_attention(q, k, v, mask, axis, impl)
 
     @staticmethod
     def _dense_attention(q, k, v, mask, axis, drop=None, shards=()):

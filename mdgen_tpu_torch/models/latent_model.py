@@ -28,8 +28,11 @@ frame attention takes ``cfg.attn_impl``, the residue attentions (trunk and
 tower) "auto": on a CUDA device either picks the flash kernels
 (``ops/flash_attention.py``), forward and backward, from
 ``ops.CUDA_FLASH_MIN_KEYS`` keys, so the 4AA recipe's T=1000 frames and
-both axes of an ATLAS crop (256 residues, 250 frames) take them and the 4AA
-residue axis stays dense; on the CPU from the JAX package's 513 keys.
+both axes of an ATLAS crop (256 residues, 250 frames) take them; on the CPU
+from the JAX package's 513 keys. On a CUDA device in float32 the residue
+attentions with at most ``ops.SHORT_ATTN_MAX_KEYS`` keys (the 4AA recipe's
+5) take the short-attention kernels instead (``ops.short_attention``,
+forward and backward; ``attention.short_route``); in bf16 they stay dense.
 
 Training options: ``dropout`` (on the attention probabilities of every
 attention and IPA, dense route; active only when the caller passes

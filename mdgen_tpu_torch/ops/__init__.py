@@ -1,13 +1,14 @@
 """Hand-written CUDA kernels with plain twins: the three fused serving
-sublayers, the four flash-attention kernels and the train step's optimizer
-pass (the gradients' sum of squares, the fused clip, Adam and EMA).
+sublayers, the four flash-attention kernels, the short attention over the
+residue axis with its backward, and the train step's optimizer pass (the
+gradients' sum of squares, the fused clip, Adam and EMA).
 
 The bottom layer of the port: it imports torch and its own modules, nothing
 else of the package. What the kernels define and the model reads lives
 here: the rotary tables and ``rotate_half``, the masked-key fill
 ``NEG_INF``, the refusal probe ``carries_tangent``, and the shape limits
 that gate the model's routes (``CUDA_FLASH_MIN_KEYS``,
-``FUSED_L_MAX_RESIDUES``).
+``FUSED_L_MAX_RESIDUES``, ``SHORT_ATTN_MAX_KEYS``, ``SHORT_ATTN_MAX_HEAD_DIM``).
 
 Each public function takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors; each counts its kernel launches in a
@@ -41,10 +42,17 @@ from .fused_block import (  # noqa: F401
 )
 from .fused_ffn import fused_ffn_sublayer, fused_ffn_sublayer_plain  # noqa: F401
 from .fused_t_block import fused_t_sublayer, fused_t_sublayer_plain  # noqa: F401
+from .short_attention import (  # noqa: F401
+    SHORT_ATTN_MAX_HEAD_DIM,
+    SHORT_ATTN_MAX_KEYS,
+    short_attention,
+    short_attention_plain,
+)
 from .long_conv import fftconv
 
 KERNELS = (fused_l_sublayer, fused_t_sublayer, fused_ffn_sublayer,
-           flash_fwd, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, sum_of_squares, fused_adam)
+           flash_fwd, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, sum_of_squares, fused_adam,
+           short_attention)
 COUNTED = KERNELS + (fftconv,)
 
 

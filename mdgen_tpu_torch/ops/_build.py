@@ -28,7 +28,7 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: every pointer and the stream are c_void_p, so that
 # ctypes never truncates a 64-bit address.
 SIGNATURES = {
@@ -41,6 +41,8 @@ SIGNATURES = {
     "mdgen_opt_max_tensors": [],
     "mdgen_sum_squares": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P],
     "mdgen_fused_adam": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "mdgen_short_attn_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 3 + [_I, _F, _P],
+    "mdgen_short_attn_bwd": [_P] * 11 + [_I] * 7 + [_LL] * 3 + [_I, _F, _P],
 }
 
 _lock = threading.Lock()

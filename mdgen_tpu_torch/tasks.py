@@ -38,7 +38,8 @@ def build_cond_mask(cfg, B: int, T: int, L: int, device=None) -> torch.Tensor:
     if cfg.cond_interval:
         mask[:, :: cfg.cond_interval] = 1
     if cfg.inpainting or cfg.dynamic_mpnn or cfg.mpnn:
-        mask[:, :, list(COND_IDX)] = 1
+        for i in COND_IDX:  # one residue at a time: a CUDA graph captures no host index
+            mask[:, :, i] = 1
     return mask
 
 
@@ -46,7 +47,8 @@ def masked_aatype(cfg, seqres: torch.Tensor) -> torch.Tensor:
     """Designed positions become UNK=20."""
     if cfg.design:
         seqres = seqres.clone()
-        seqres[:, list(DESIGN_IDX)] = 20
+        for i in DESIGN_IDX:
+            seqres[:, i] = 20
     return seqres
 
 
@@ -86,7 +88,8 @@ def prep_batch(cfg, batch: dict) -> PreparedBatch:
         torsions = torch.zeros_like(torsions)
     elif cfg.no_design_torsion:
         torsions = torsions.clone()
-        torsions[:, :, list(DESIGN_IDX)] = 0.0
+        for i in DESIGN_IDX:
+            torsions[:, :, i] = 0.0
     latents = torch.cat([offsets, torsions], dim=-1)
 
     if cfg.supervise_all_torsions:

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card: the three fused serving sublayers, the four flash-attention kernels
 (also in ATLAS's attention and train step, where the card's crossover in
-keys routes both axes to them) and, at the end of the file, the train
+keys routes both axes to them), the short attention over the residue axis
+with its backward and, at the end of the file, the train
 step's optimizer pass (the gradients' sum of squares and the fused clip,
 Adam and EMA: bit-equal to the eager loop given the same norm). Run there
 with
@@ -362,9 +363,22 @@ def _task_model(**kw):
     return cfg, model.state_dict()
 
 
+def _plain_residues(model):
+    """``model`` with every residue attention (``mha_l``: the trunk's and
+    the IPA tower's) on the dense route: ``attn_impl`` reaches the frame
+    attention alone, and the residue attentions' "auto" takes kernel 9 in
+    f32 on the card. Returns the model."""
+    for name, m in model.named_modules():
+        if name.rsplit(".", 1)[-1] == "mha_l":
+            m.impl = "dense"
+    return model
+
+
 def _fused_vs_dense(cfg, state_dict, tok):
     """One forward of the fused and the dense model on the same inputs, f32;
-    returns (fused, dense, {fused: its forward's launch counts})."""
+    the dense model's residue attentions on the dense route (the plain
+    reference: the fused model's IPA tower takes kernel 9); returns (fused,
+    dense, {fused: its forward's launch counts})."""
     from mdgen_tpu_torch.models import LatentMDGenModel
     from mdgen_tpu_torch.tasks import prep_batch
 
@@ -377,6 +391,8 @@ def _fused_vs_dense(cfg, state_dict, tok):
     for fused in (True, False):
         model = LatentMDGenModel(cfg.replace(fused_block=fused), cfg.latent_dim)
         model.load_state_dict(state_dict)
+        if not fused:
+            _plain_residues(model)
         before = ops.launch_counts()
         with torch.inference_mode():
             outs[fused] = model.cuda().eval()(x, t, **kwargs)
@@ -559,6 +575,13 @@ def _train_grads(T, L, pad, **kw):
     """The launch counts of one gradient of the 5 x 384 x 16 model (the
     4AA recipe's options) over one synthetic chain of L - pad residues,
     padded to L, T frames, seeded weights."""
+    ops.reset_launch_counts()
+    _grads_of(*_train_setup(T, L, pad, **kw))
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _train_setup(T, L, pad, **kw):
+    """(runtime, seeded model, batch) of ``_train_grads``."""
     import numpy as np
 
     from mdgen_tpu_torch.config import MDGenConfig
@@ -578,13 +601,16 @@ def _train_grads(T, L, pad, **kw):
     cfg = MDGenConfig(sim_condition=True, prepend_ipa=True, abs_pos_emb=True,
                       abs_time_emb=True, crop=L, num_frames=T, batch_size=1, **kw)
     rt = TrainRuntime(cfg, "cuda")
-    model = rt.init(torch.Generator().manual_seed(0)).model
+    return rt, rt.init(torch.Generator().manual_seed(0)).model, batch
+
+
+def _grads_of(rt, model, batch):
+    """One gradient from fixed draws: {parameter name: gradient}."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    ops.reset_launch_counts()
     _, grads, metrics = rt._grads(model, batch, generator=g)
     torch.cuda.synchronize()
-    assert np.isfinite(float(metrics["loss"])) and all(torch.isfinite(x).all() for x in grads)
-    return {k: v for k, v in ops.launch_counts().items() if v}
+    assert math.isfinite(float(metrics["loss"])) and all(torch.isfinite(x).all() for x in grads)
+    return dict(zip((n for n, _ in model.named_parameters()), grads))
 
 
 def test_atlas_train_step_runs_flash_kernels_5_to_7():
@@ -595,13 +621,163 @@ def test_atlas_train_step_runs_flash_kernels_5_to_7():
     5 residue attentions, 257 keys, not checkpointed), kernels 6 and 7 15
     times each (10 trunk, 5 tower), kernel 4 never. The 4AA recipe's step
     (T = 1000, L = 4, 32-true) keeps its 5 / 5 / 5: the frame attentions
-    alone; the residue attentions' 5 keys stay dense."""
+    alone; the residue attentions' 5 keys (5 trunk, 5 tower) take the
+    short-attention kernels, one launch forward and two backward each."""
     _need_cuda()
     atlas = _train_grads(ATLAS_T, ATLAS_L, ATLAS_PAD, atlas=True, precision="bf16-mixed",
                          grad_checkpointing=True)
     assert atlas == {"flash_fwd_lse": 25, "flash_bwd_dq": 15, "flash_bwd_dkv": 15}
     four = _train_grads(1000, 4, 0)
-    assert four == {"flash_fwd_lse": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
+    assert four == {"flash_fwd_lse": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5,
+                    "short_attention": 30}
+
+
+# -- the short attention over the residue axis (csrc/short_attention.cu) -------
+
+# (B, T, L, heads, head width): the 4AA train step's residue attention (B T =
+# 8,000 rows of 4 residues), the Hyena cell's (40,000 rows), the IPA tower's
+# 3-D call (T = 1), the gate's 16 residues, one residue (masked in the first
+# batch entry: the bias key alone), the heads of one rank under tp = 2, and
+# the widest head, one a block of 128 columns
+SHORT_SHAPES = {"4aa": (8, 1000, 4, 16, 24), "hyena": (4, 10000, 4, 16, 24),
+                "tower": (8, 1, 4, 16, 24), "L16": (2, 37, 16, 16, 24), "L1": (3, 5, 1, 16, 24),
+                "tp2": (2, 50, 4, 8, 24), "hd128": (2, 30, 5, 2, ops.SHORT_ATTN_MAX_HEAD_DIM)}
+# f32, relative to each tensor's largest entry: the kernels and the twin take
+# the same f32 operations (no TF32) in other orders; o, dq, dk and dv sum at
+# most 17 keys or 24 channels (a few ulps), the gradients of bias_k and bias_v
+# sum every row's (up to 160,000 terms, in blocks against the twin's tree)
+SHORT_TOL = {"o": 1e-5, "dqkv": 1e-5, "dbias_k": 1e-4, "dbias_v": 1e-4}
+
+
+def _short_inputs(B, T, L, heads, hd=24, seed=0):
+    """qkv [B, T, L, 3C] as the projection makes it, bias_k and bias_v
+    [1, 1, C] (the parameters' shape), the key mask [B, T, L] (frame-constant,
+    as the model's: the last residue of the first batch entry masked) and a
+    cotangent [B, T, L, C]; f32 on the card."""
+    g = torch.Generator().manual_seed(seed)
+    C = heads * hd
+    mask = torch.ones(B, L)
+    mask[0, -1] = 0.0
+    return (torch.randn(B, T, L, 3 * C, generator=g).cuda(),
+            (torch.randn(1, 1, C, generator=g) * 0.5).cuda(),
+            torch.randn(1, 1, C, generator=g).cuda(),
+            mask.cuda()[:, None].expand(B, T, L),
+            torch.randn(B, T, L, C, generator=g).cuda())
+
+
+def _short_grads(fn, qkv, bk, bv, mask, w, heads, **kw):
+    """(o, dqkv, d bias_k, d bias_v) of ``fn`` under autograd."""
+    leaves = [t.clone().requires_grad_(True) for t in (qkv, bk, bv)]
+    o = fn(*leaves, mask, num_heads=heads, **kw)
+    return [o.detach(), *torch.autograd.grad((o * w).sum(), leaves)]
+
+
+@pytest.mark.parametrize("case", [*SHORT_SHAPES, "4aa_no_rope", "L1_no_rope"])
+def test_short_attention_kernels_match_plain(case):
+    """The kernels (one launch forward, two backward) against autograd
+    through the plain twin on the card: o and the gradients of qkv, bias_k
+    and bias_v; every shape with RoPE, two without."""
+    _need_cuda()
+    shape, no_rope, _ = case.partition("_no_rope")
+    use_rope = not no_rope
+    B, T, L, heads, hd = SHORT_SHAPES[shape]
+    qkv, bk, bv, mask, w = _short_inputs(B, T, L, heads, hd)
+    before = ops.launch_counts()["short_attention"]
+    got = _short_grads(ops.short_attention, qkv, bk, bv, mask, w, heads, use_rope=use_rope)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["short_attention"] == before + 3
+    ref = _short_grads(ops.short_attention_plain, qkv, bk, bv, mask, w, heads,
+                       use_rope=use_rope)
+    for name, a, b in zip(SHORT_TOL, got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel_max(a, b) <= SHORT_TOL[name], (name, _rel_max(a, b))
+
+
+@pytest.mark.parametrize("shape", ["4aa", "L16"])
+def test_short_attention_kernels_are_deterministic(shape):
+    """Two identical calls, forward and backward, give the same bits: the
+    gradients of bias_k and bias_v are summed in a fixed order."""
+    _need_cuda()
+    B, T, L, heads, hd = SHORT_SHAPES[shape]
+    args = _short_inputs(B, T, L, heads, hd, seed=3)
+    one = _short_grads(ops.short_attention, *args, heads)
+    two = _short_grads(ops.short_attention, *args, heads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(SHORT_TOL, one, two):
+        assert torch.equal(a, b), name
+
+
+def test_residue_attention_takes_the_short_kernels():
+    """``RoPEAttention`` over the residues of the 4AA step's shape (f32,
+    "auto") launches the short-attention kernels three times and nothing
+    else, and matches the module on its dense route (``impl="dense"``) in
+    the output and the gradients of x and every parameter; in bf16 the same
+    call stays on the dense route."""
+    _need_cuda()
+    import copy
+
+    from mdgen_tpu_torch.models.attention import RoPEAttention
+
+    g = torch.Generator().manual_seed(0)
+    attn = RoPEAttention(C, H)
+    attn.reset_parameters(g)
+    attn.cuda()
+    B, T, L, _, _ = SHORT_SHAPES["4aa"]
+    x = torch.randn(B, T, L, C, generator=g).cuda()
+    w = torch.randn(B, T, L, C, generator=g).cuda()
+    mask = _short_inputs(B, T, L, H)[3]
+    runs = {}
+    for impl, dt in (("auto", torch.float32), ("dense", torch.float32),
+                     ("auto", torch.bfloat16)):
+        mod = copy.deepcopy(attn)
+        mod.impl, mod.dtype = impl, dt
+        xx = x.to(dt).requires_grad_(True)
+        ops.reset_launch_counts()
+        out = mod(xx, mask, axis=2)
+        params = [p for _, p in sorted(mod.named_parameters())]
+        grads = torch.autograd.grad((out * w.to(dt)).sum(), [xx] + params)
+        torch.cuda.synchronize()
+        runs[impl, dt] = ([out.detach(), *grads],
+                          {k: c for k, c in ops.launch_counts().items() if c})
+    short, dense, bf16 = runs.values()
+    assert short[1] == {"short_attention": 3} and dense[1] == {} and bf16[1] == {}
+    for i, (a, b) in enumerate(zip(short[0], dense[0])):
+        assert _rel_max(a, b) <= SHORT_TOL["dbias_k"], (i, _rel_max(a, b))
+
+
+def test_short_attention_refuses_what_it_does_not_take():
+    _need_cuda()
+    qkv, bk, bv, mask, _ = _short_inputs(2, 3, 4, 2)
+    with pytest.raises(ValueError, match="float32"):
+        ops.short_attention(qkv.bfloat16(), bk, bv, mask, num_heads=2)
+    with pytest.raises(ValueError, match="residues"):
+        big = torch.zeros(2, 3, ops.SHORT_ATTN_MAX_KEYS, qkv.shape[-1], device="cuda")
+        ops.short_attention(big, bk, bv, None, num_heads=2)
+    with pytest.raises(ValueError, match="head width"):
+        ops.short_attention(qkv, bk, bv, mask, num_heads=16)  # 48 / 16: 3 channels a head
+    with pytest.raises(ValueError, match="head width"):
+        wide = ops.SHORT_ATTN_MAX_HEAD_DIM + 2
+        ops.short_attention(torch.zeros(1, 1, 4, 3 * wide, device="cuda"), torch.zeros(wide),
+                            torch.zeros(wide), None, num_heads=1)
+    with pytest.raises(ValueError, match="mask"):
+        ops.short_attention(qkv, bk, bv, mask[:, :1], num_heads=2)
+    with pytest.raises(ValueError, match="operands"):
+        ops.short_attention(qkv, bk.cpu(), bv, mask, num_heads=2)
+
+
+def test_residue_attention_step_gradients_are_bit_equal():
+    """Two gradients of the 4AA recipe's step (T = 1000, L = 4, 32-true)
+    from the same weights, batch and draws: every residue attention's
+    ``bias_k``, ``bias_v`` and ``qkv_proj`` gradient (the trunk's five and
+    the IPA tower's five, through kernel 9) bit-equal."""
+    _need_cuda()
+    setup = _train_setup(1000, 4, 0)
+    one, two = _grads_of(*setup), _grads_of(*setup)
+    names = [n for n in one if "mha_l." in n and n.split("mha_l.")[1] in (
+        "bias_k", "bias_v", "qkv_proj.weight", "qkv_proj.bias")]
+    assert len(names) == 10 * 4
+    for n in names:
+        assert torch.equal(one[n], two[n]), n
 
 
 # -- tensor and sequence parallelism on one card -------------------------------
@@ -680,6 +856,10 @@ errs["flash_fwd"] = (fa.flash_fwd(q, k, v, bias) - o_ref).abs().max().item()
 errs["flash_fwd_lse"] = (fa.flash_fwd_lse(q, k, v, bias)[1] - lse_ref).abs().max().item()
 errs["flash_bwd_dq"] = t._rel_max(fa.flash_bwd_dq(*bwd), fa.flash_bwd_dq_plain(*bwd))
 errs["flash_bwd_dkv"] = t._rel_max(fa.flash_bwd_dkv(*bwd)[0], fa.flash_bwd_dkv_plain(*bwd)[0])
+qkv, bk, bv, mask, _ = (x.to(dev) for x in t._short_inputs(*t.SHORT_SHAPES["4aa"]))
+errs["short_attention"] = t._rel_max(
+    ops.short_attention(qkv, bk, bv, mask, num_heads=t.H),
+    ops.short_attention_plain(qkv, bk, bv, mask, num_heads=t.H))
 rows = t._opt_rows([(384, 384), (4097,), (3,)], True, dev)
 ref = [[x.clone() for x in r] for r in rows]
 norm = ops.sum_of_squares(rows[1], root=True)
@@ -697,7 +877,7 @@ print(json.dumps({"current": torch.cuda.current_device(), "errs": errs,
 def test_kernels_run_on_the_card_of_their_operands():
     """A process whose tensors live on ``cuda:1`` and which never set its
     device (``tps_inference --device cuda:1``: ``cuda:0`` stays current):
-    each of the nine kernels, first launched there, matches its plain twin
+    each of the ten kernels, first launched there, matches its plain twin
     at the main path's and the training recipe's shapes (the optimizer's on
     three tensors), once each, and the current device stays ``cuda:0``. Before the wrappers made the operands'
     card current, the kernels launched on ``cuda:0`` and the fused sampling
@@ -930,13 +1110,16 @@ def test_optimizer_reads_its_bias_corrections_on_the_card(ema):
 
 # -- the train step as one CUDA graph (runtime/wrapper.py) ---------------------
 
-GRAPH_CASES = ["4aa_f32_ema", "atlas_bf16_remat_context"]
+GRAPH_CASES = ["4aa_f32_ema", "atlas_bf16_remat_context", "design_inpainting"]
 
 
 def _graph_cfg(case):
     """4AA-shaped: f32, EMA, 80 frames (frame attention on flash kernels
     5-7); ATLAS-shaped: bf16-mixed, checkpointed, 66 residues (residue
-    attention on them) and a left-context column."""
+    attention on them) and a left-context column; the design recipe's
+    (inpainting, design, no amino-acid embedding, no torsions: the
+    conditioned and designed residues written one by one, the simplex draw
+    x_d)."""
     from mdgen_tpu_torch.config import MDGenConfig
 
     base = dict(num_layers=2, embed_dim=32, mha_heads=4, ipa_heads=2, ipa_head_dim=8,
@@ -944,6 +1127,9 @@ def _graph_cfg(case):
                 abs_pos_emb=True, abs_time_emb=True)
     if case == "4aa_f32_ema":
         return MDGenConfig(**base, crop=4, num_frames=80, ema=True)
+    if case == "design_inpainting":
+        return MDGenConfig(**{**base, "sim_condition": False}, crop=4, num_frames=10,
+                           inpainting=True, design=True, no_aa_emb=True, no_torsion=True)
     return MDGenConfig(**base, crop=66, num_frames=6, atlas=True, precision="bf16-mixed",
                        grad_checkpointing=True)
 
@@ -973,16 +1159,19 @@ def _graph_batches(cfg, n, B, seed):
 
 @pytest.mark.parametrize("case", GRAPH_CASES)
 def test_graphed_train_steps_equal_eager_ones(case):
-    """Six steps (4AA: then two of three windows, a new signature)
+    """Six steps (4AA and design: then two of three windows, a new signature)
     from the same weights and draws, eager (the rule refused) and graphed:
     each step's loss, time and grad_norm, and then every parameter, Adam
     moment and EMA entry bit-equal; the steps after the first (a capture
     among them) under ``set_sync_debug_mode("error")``, the new
-    signature's eager step aside; ``ops.launch_counts()`` advancing by the
+    signature's eager step aside, and design's steps aside (its x_d draw,
+    made before the graph's replay, is a rejection sampler that asks the
+    host each round whether every draw was accepted:
+    ``transport.dirichlet._sample_gamma``); ``ops.launch_counts()`` advancing by the
     same counts each step; one capture per signature, then replays
     (``graph_counts``); and each step's metrics its own after later
-    replays. 4AA draws t and x0 from a generator (the train CLI's way),
-    ATLAS passes them in (the benchmark's)."""
+    replays. 4AA and design draw t and x0 (and x_d) from a generator (the
+    train CLI's way), ATLAS passes them in (the benchmark's)."""
     _need_cuda()
     from mdgen_tpu_torch.runtime import TrainRuntime
 
@@ -1005,7 +1194,7 @@ def test_graphed_train_steps_equal_eager_ones(case):
                 args = (None, torch.rand(B, generator=gen, device="cuda"),
                         torch.randn((B, T, L - 1, cfg.latent_dim), generator=gen, device="cuda"))
             before = ops.launch_counts()
-            if graphed and i >= 1 and i != 6:
+            if graphed and i >= 1 and i != 6 and not cfg.design:
                 torch.cuda.set_sync_debug_mode("error")
             try:
                 state, m = rt.train_step(state, batch, *args)

@@ -142,8 +142,10 @@ def test_cpu_tensors_do_not_count_launches():
     ops.fused_adam(p, [t.clone() for t in p], [torch.zeros_like(t) for t in p],
                    [torch.zeros_like(t) for t in p], None, norm, count=1, lr=1e-3, grad_clip=1.0,
                    b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, ema_decay=0.999)
+    qkv = torch.randn(2, 3, 4, 24, requires_grad=True)
+    ops.short_attention(qkv, torch.zeros(8), torch.zeros(8), num_heads=2).sum().backward()
     assert ops.launch_counts() == {
         "fused_l_sublayer": 0, "fused_t_sublayer": 0, "fused_ffn_sublayer": 0,
         "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "sum_of_squares": 0, "fused_adam": 0, "fftconv": 0,
+        "sum_of_squares": 0, "fused_adam": 0, "short_attention": 0, "fftconv": 0,
     }
